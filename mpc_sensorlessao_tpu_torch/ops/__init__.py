@@ -1,0 +1,2 @@
+"""Numerical building blocks of the PyTorch port: basis, turbulence,
+DFT, PSF formation, the CUDA PSF kernel wrapper and the Newton-KKT solve."""

@@ -1,0 +1,219 @@
+"""Von Karman phase-screen synthesis and frozen-flow evolution
+(port of ``mpc_sensorlessao_tpu/ops/phase_screens.py``).
+
+* each layer gets ONE oversampled periodic FFT screen with subharmonic
+  low-frequency compensation (reference: atmosphere.m:449-474,518-591),
+  synthesized on the host in numpy float64 from an integer seed -- the
+  same code and seeds as the JAX package, so the screens are identical;
+* frozen flow is *sampling*: the pupil window slides across the periodic
+  screen along the wind vector (an integer window offset plus a 4-tap
+  bilinear blend) on the device;
+* the on-axis NGS phase is the plain sum over layers
+  (telescopeAbstract.m:446-447), piston-removed downstream.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..utils.config import AtmosphereConfig, TelescopeConfig
+from . import phase_stats
+
+
+@dataclass(frozen=True)
+class FrozenFlowLayers:
+    """Per-layer periodic screens + wind stepping.
+
+    screens: (L, Ns, Ns) float32 phase screens [rad], wrap-padded by R+1.
+    step_px: (L, 2) float32 wind displacement per step in (row, col) px.
+    step_px_host: a host copy of step_px, so a shared-window step computes
+    its window offsets without a device round trip.
+    """
+
+    screens: torch.Tensor
+    step_px: torch.Tensor
+    step_px_host: np.ndarray = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        object.__setattr__(self, "step_px_host",
+                           self.step_px.detach().cpu().numpy()
+                           .astype(np.float32))
+
+    @property
+    def n_layers(self) -> int:
+        return self.screens.shape[0]
+
+
+def synthesize_screen(seed: int, atm: AtmosphereConfig, n_pixels: int,
+                      pitch: float) -> np.ndarray:
+    """One Von Karman screen, (os*n_pixels)^2, periodic, float32.
+
+    fourierPhaseScreen (atmosphere.m:449-474):
+    map = real(ifft2(psdRoot .* fft2(randn(N))/N)) * N^2 * df, plus
+    atm.subharmonic_levels of subharmonic patches below the fundamental
+    frequency; os = atm.oversample.  ``atm`` should be a single-layer slab
+    (atm.layer(i)).  (The "straight" and "cholesky" methods are not
+    ported yet, ROADMAP.md A.12.)
+    """
+    subharmonic_levels = atm.subharmonic_levels
+    N = atm.oversample * n_pixels
+    df = 1.0 / (N * pitch)
+
+    fx = np.fft.fftfreq(N, d=pitch)
+    fr = np.sqrt(fx[:, None] ** 2 + fx[None, :] ** 2)
+    psd_root = np.sqrt(phase_stats.spectrum(fr, atm, np))
+    # zero DC: the subharmonics (or piston removal) cover it
+    psd_root[0, 0] = 0.0
+
+    rng = _host_rng(seed)
+    w = rng.standard_normal((N, N))
+    c = np.fft.fft2(w) / N
+    screen = np.real(np.fft.ifft2(psd_root * c)) * (N * N) * df
+    if subharmonic_levels > 0:
+        screen = screen + _subharmonics(rng, atm, N, pitch, df,
+                                        subharmonic_levels)
+    return np.asarray(screen, dtype=np.float32)
+
+
+def _host_rng(seed: int) -> np.random.Generator:
+    """Deterministic host RNG from an integer seed (the JAX package's
+    int-seed branch, so both packages draw the same screens)."""
+    if not isinstance(seed, (int, np.integer)):
+        raise TypeError(f"screen seeds are integers, got {type(seed)}")
+    return np.random.default_rng(np.random.SeedSequence([int(seed)]))
+
+
+def _subharmonics(rng: np.random.Generator, atm: AtmosphereConfig, N: int,
+                  pitch: float, df: float, levels: int) -> np.ndarray:
+    """Low-frequency compensation patches (Lane et al. 1992; the
+    reference's fourierSubHarmonicPhaseScreen, atmosphere.m:518-591).
+
+    For each level l, a 3x3 grid of frequencies at spacing df/3^l replaces
+    the coarser cell it subdivides; the central cell is left to the next
+    level, and DC is skipped.
+    """
+    x = np.arange(N) * pitch
+    XX = x[:, None, None].transpose(2, 0, 1)   # (1, N, 1)
+    YY = x[None, None, :]                      # (1, 1, N)
+    total = np.zeros((N, N))
+    for lvl in range(1, levels + 1):
+        df_l = df / (3.0 ** lvl)
+        f = np.asarray([(p * df_l, q * df_l)
+                        for p in (-1, 0, 1) for q in (-1, 0, 1)
+                        if not (p == 0 and q == 0)])            # (8, 2)
+        amp = np.sqrt(
+            phase_stats.spectrum(np.hypot(f[:, 0], f[:, 1]), atm, np)
+        ) * df_l
+        a = rng.standard_normal(f.shape[0]) * amp
+        b = rng.standard_normal(f.shape[0]) * amp
+        phase_arg = 2.0 * math.pi * (XX * f[:, 0:1, None]
+                                     + YY * f[:, 1:2, None])
+        total = total + np.sum(
+            a[:, None, None] * np.cos(phase_arg)
+            + b[:, None, None] * np.sin(phase_arg), axis=0)
+    return total
+
+
+def make_layers(seed: int, atm: AtmosphereConfig, tel: TelescopeConfig,
+                device: torch.device | str = "cpu") -> FrozenFlowLayers:
+    """Build all layer screens + per-step pixel shifts.
+
+    Wind shift per step: v * dt / pitch pixels along (sin, cos) of the
+    wind direction, in (row, col).  (The JAX package's ``cover_steps``
+    screen sizing is not ported yet, ROADMAP.md A.12.)
+    """
+    R = tel.resolution
+    pitch = tel.pixel_pitch
+    seeds = [int(seed) * 1000003 + i for i in range(atm.n_layers)]
+    steps = []
+    for i in range(atm.n_layers):
+        dpx = atm.wind_speeds[i] * tel.sampling_time / pitch
+        th = atm.wind_directions[i]
+        steps.append((dpx * math.sin(th), dpx * math.cos(th)))
+
+    screens = []
+    for i in range(atm.n_layers):
+        scr = synthesize_screen(seeds[i], atm.layer(i), R, pitch)
+        # wrap-pad by the window size so every window is one plain slice
+        screens.append(np.pad(scr, ((0, R + 1), (0, R + 1)), mode="wrap"))
+    return FrozenFlowLayers(
+        screens=torch.as_tensor(np.stack(screens), dtype=torch.float32,
+                                device=device),
+        step_px=torch.as_tensor(np.asarray(steps), dtype=torch.float32,
+                                device=device),
+    )
+
+
+def _weights(fy, fx):
+    """Bilinear tap weights, formed in float32 from float32 fractions
+    (numpy float32 scalars or tensors) in the JAX package's order."""
+    return ((1 - fy) * (1 - fx), (1 - fy) * fx, fy * (1 - fx), fy * fx)
+
+
+def _blend(w: torch.Tensor, weights, size: int) -> torch.Tensor:
+    """4-tap blend of (..., size+1, size+1) windows."""
+    a00, a01, a10, a11 = weights
+    return (a00 * w[..., :size, :size] + a01 * w[..., :size, 1:]
+            + a10 * w[..., 1:, :size] + a11 * w[..., 1:, 1:])
+
+
+def _bilinear_window(screen: torch.Tensor, offset_rc: np.ndarray,
+                     size: int) -> torch.Tensor:
+    """Periodic bilinear (size, size) window at a host float32 offset.
+
+    The integer part picks one slice of the wrap-padded screen, its start
+    wrapped into [0, N) by a non-negative modulo (as jnp.mod does); the
+    fractional part is the 4-tap blend.
+    """
+    N = screen.shape[0] - (size + 1)
+    oy, ox = np.float32(offset_rc[0]), np.float32(offset_rc[1])
+    iy, ix = np.floor(oy), np.floor(ox)
+    r0, c0 = int(iy) % N, int(ix) % N
+    w = screen[r0:r0 + size + 1, c0:c0 + size + 1]
+    weights = [float(a) for a in _weights(oy - iy, ox - ix)]
+    return _blend(w, weights, size)
+
+
+def _bilinear_windows(screens: torch.Tensor, offsets: torch.Tensor,
+                      size: int) -> torch.Tensor:
+    """Batched windows: offsets (B, L, 2) float32 -> (B, L, size, size)."""
+    N = screens.shape[-1] - (size + 1)
+    floor = torch.floor(offsets)
+    frac = (offsets - floor)[..., None, None]    # (B, L, 2, 1, 1)
+    start = torch.remainder(floor.to(torch.int64), N)
+    ar = torch.arange(size + 1, device=screens.device)
+    rows = start[..., 0, None] + ar              # (B, L, size+1)
+    cols = start[..., 1, None] + ar
+    layer = torch.arange(screens.shape[0], device=screens.device)
+    w = screens[layer[None, :, None, None], rows[..., :, None],
+                cols[..., None, :]]              # (B, L, size+1, size+1)
+    return _blend(w, _weights(frac[:, :, 0], frac[:, :, 1]), size)
+
+
+def phase_at(layers: FrozenFlowLayers, step, resolution: int) -> torch.Tensor:
+    """Summed multi-layer pupil phase at time step ``step`` (may be
+    fractional; the window slides continuously).  NOT piston-removed.
+
+    ``step`` is either a host number -- one window shared by every
+    scenario, offsets computed on the host, result (R, R) -- or a (B,)
+    tensor of per-scenario steps, gathered on the device, result
+    (B, R, R).  Offsets are float32 products step_px * step, as in the
+    JAX package, so both give the same windows.
+    """
+    if isinstance(step, torch.Tensor):
+        offsets = layers.step_px * step.to(torch.float32)[:, None, None]
+        win = _bilinear_windows(layers.screens, offsets, resolution)
+        out = win[:, 0]
+        for i in range(1, layers.n_layers):
+            out = out + win[:, i]
+        return out
+    offsets = layers.step_px_host * np.float32(step)
+    out = _bilinear_window(layers.screens[0], offsets[0], resolution)
+    for i in range(1, layers.n_layers):
+        out = out + _bilinear_window(layers.screens[i], offsets[i],
+                                     resolution)
+    return out

@@ -1,0 +1,238 @@
+"""The PyTorch port's closed loop vs the JAX package's, at R=64.
+
+(a) The JAX operators are carried across with ``interop`` and both
+    engines run the same loop with the same injected measurement noise
+    (closed_loop.simulate(noise_seq=...)), so the control step is tested
+    apart from the build; the shared-window Monte-Carlo batch is held
+    against per-scenario JAX runs.
+(b) The port's own ``pipeline.build`` and loop are held against the JAX
+    package's, noise-free.
+Tolerances are those of tests/test_golden_trajectory.py: residual RMS
+rtol 0.01 / atol 5e-3 and u atol 0.02 max|u|, unless stated.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpc_sensorlessao_tpu.models import closed_loop as jcl
+from mpc_sensorlessao_tpu.models import estimator as jestimator
+from mpc_sensorlessao_tpu.models import pipeline as jpipeline
+from mpc_sensorlessao_tpu.utils import config as jconfig
+from mpc_sensorlessao_tpu.utils import metrics as jmetrics
+from mpc_sensorlessao_tpu_torch import interop, reference_config
+from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
+from mpc_sensorlessao_tpu_torch.models import pipeline
+from mpc_sensorlessao_tpu_torch.parallel import montecarlo
+from mpc_sensorlessao_tpu_torch.utils import metrics
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+START = 350.0       # n_train + n_valid: the test window
+
+
+def _cfg(reference_config_fn):
+    cfg = reference_config_fn(resolution=64)
+    return cfg.replace(sim=dataclasses.replace(
+        cfg.sim, n_train=300, n_valid=50, n_test=20))
+
+
+@pytest.fixture(scope="module")
+def jax_system():
+    cfg = _cfg(jconfig.reference_config)
+    return cfg, jpipeline.build(cfg, jax.random.PRNGKey(0))
+
+
+@pytest.fixture(scope="module")
+def carried(jax_system):
+    """The JAX loop operators and screens, carried across to the port."""
+    _, system = jax_system
+    return (interop.loop_models_from_numpy(
+                jax.tree.map(np.asarray, system.loop), "cpu"),
+            interop.layers_from_numpy(
+                jax.tree.map(np.asarray, system.layers), "cpu"))
+
+
+@pytest.fixture(scope="module")
+def port_system():
+    cfg = _cfg(reference_config)
+    return cfg, pipeline.build(cfg, "cpu")
+
+
+def _assert_trajectory(u, rms, u_ref, rms_ref):
+    np.testing.assert_allclose(rms, rms_ref, rtol=0.01, atol=5e-3)
+    np.testing.assert_allclose(u, u_ref, atol=0.02 * np.abs(u_ref).max())
+
+
+def test_estimator_matches_jax(jax_system, port_system):
+    """The port's estimator build (complex128 linearization, float64 host
+    solve) vs the JAX one (complex64 linearization): A_s, b_s, noise_std
+    to 1e-5 of their scale; solve_op, through the (A'A)^-1 of
+    condition ~1e4, to 1e-4 of its scale."""
+    _, jsys = jax_system
+    _, sys_ = port_system
+    ours, theirs = sys_.est, jsys.loop.est
+    for name, tol in (("A_s", 1e-5), ("b_s", 1e-5), ("noise_std", 1e-5),
+                      ("solve_op", 1e-4)):
+        want = np.asarray(getattr(theirs, name))
+        got = getattr(ours, name).numpy()
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=tol * np.abs(want).max(),
+                                   err_msg=name)
+    # the loop's measure on one phase: the B1 plain version vs the JAX
+    # unfused path (rtol/atol 2e-4 of the unit-scale PSF, test_pallas)
+    rng = np.random.default_rng(0)
+    ph = (rng.normal(size=(2, 64, 64)) * 0.3).astype(np.float32)
+    want = np.asarray(jestimator.measure(theirs, jnp.asarray(ph)))
+    got = estimator.measure(ours, torch.as_tensor(ph)).numpy()
+    peak = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4 * peak)
+
+
+@pytest.mark.parametrize("solver", ["fastmpc", "closed_form"])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_simulate_matches_jax_with_carried_operators(jax_system, carried,
+                                                     solver, noisy):
+    cfg, jsys = jax_system
+    loop, layers = carried
+    n_steps, p = 10, loop.est.n_pixels
+    noise = np.zeros((n_steps, p), np.float32)
+    if noisy:
+        rng = np.random.default_rng(7)
+        noise = (float(loop.est.noise_std)
+                 * rng.standard_normal((n_steps, p))).astype(np.float32)
+    ref = jcl.simulate(jsys.loop, jsys.layers, cfg, jax.random.PRNGKey(9),
+                       n_steps=n_steps, start_step=START, solver=solver,
+                       noise_scale=1.0, noise_seq=jnp.asarray(noise))
+    out = closed_loop.simulate(loop, layers, _cfg(reference_config), None,
+                               n_steps=n_steps, start_step=START,
+                               solver=solver, noise_seq=torch.as_tensor(noise))
+    assert out.u.shape == (n_steps, loop.influence.shape[1])
+    for field in out:
+        assert torch.isfinite(field).all()
+    _assert_trajectory(out.u.numpy(), out.rms_res.numpy(),
+                       np.asarray(ref.u), np.asarray(ref.rms_res))
+    # exact Strehl from the same crops: float32 roundoff only
+    np.testing.assert_allclose(out.strehl_exact.numpy(),
+                               np.asarray(ref.strehl_exact), atol=1e-4)
+
+
+def test_run_batch_shared_window_matches_jax_per_scenario(jax_system,
+                                                          carried):
+    """Shared-window run_batch over B=3 scenarios with distinct D/r0 and
+    SNR vs one JAX simulate per scenario, fed the same noise the port's
+    generator drew (replayed from the batch's seed)."""
+    cfg, jsys = jax_system
+    loop, layers = carried
+    pcfg = _cfg(reference_config)
+    n_steps, p = 8, loop.est.n_pixels
+    scen = montecarlo.make_scenarios(
+        pcfg, torch.Generator().manual_seed(4), 3,
+        d_over_r0_grid=(5.0, 8.0), snr_db_grid=(10.0, 20.0))
+    out = montecarlo.run_batch(loop, layers, pcfg, scen, n_steps,
+                               shared_window="verified")
+    gen = torch.Generator().manual_seed(scen.noise_seed)
+    draws = torch.stack([estimator.sample_noise(loop.est, gen, (3,))
+                         for _ in range(n_steps)], dim=1).numpy()
+    assert out.u.shape == (3, n_steps, loop.influence.shape[1])
+    for i in range(3):
+        ref = jcl.simulate(
+            jsys.loop, jsys.layers, cfg, jax.random.PRNGKey(0),
+            n_steps=n_steps, start_step=START, mag=float(scen.mag[i]),
+            noise_scale=float(scen.noise_scale[i]),
+            noise_seq=jnp.asarray(draws[i]))
+        _assert_trajectory(out.u[i].numpy(), out.rms_res[i].numpy(),
+                           np.asarray(ref.u), np.asarray(ref.rms_res))
+
+
+def test_run_batch_batched_window_matches_shared(port_system):
+    """The per-scenario window gather gives the shared window's
+    trajectories (float32 blend roundoff only): when all starts agree,
+    run_batch's two paths agree; with distinct starts (start_range) each
+    scenario of the batched loop equals a shared-window loop at its own
+    start with the same injected noise."""
+    cfg, sys_ = port_system
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(2),
+                                     2)
+    shared = montecarlo.run_batch(sys_.loop, sys_.layers, cfg, scen, 6,
+                                  shared_window=True)
+    batched = montecarlo.run_batch(sys_.loop, sys_.layers, cfg, scen, 6)
+    scale = float(shared.u.abs().max())
+    torch.testing.assert_close(batched.u, shared.u, rtol=0,
+                               atol=1e-4 * scale)
+    torch.testing.assert_close(batched.rms_res, shared.rms_res, rtol=1e-4,
+                               atol=1e-6)
+
+    moved = montecarlo.make_scenarios(
+        cfg, torch.Generator().manual_seed(2), 2, start_range=(350, 400))
+    assert float(moved.start_step[0]) != float(moved.start_step[1])
+    with pytest.raises(ValueError, match="distinct start_steps"):
+        montecarlo.run_batch(sys_.loop, sys_.layers, cfg, moved, 2,
+                             shared_window=True)
+    rng = np.random.default_rng(3)
+    seq = torch.as_tensor((float(sys_.est.noise_std) * rng.standard_normal(
+        (2, 6, sys_.est.n_pixels))).astype(np.float32))
+    both = closed_loop.simulate(sys_.loop, sys_.layers, cfg, None, 6,
+                                start_step=moved.start_step, mag=moved.mag,
+                                noise_seq=seq)
+    for i in range(2):
+        one = closed_loop.simulate(
+            sys_.loop, sys_.layers, cfg, None, 6,
+            start_step=float(moved.start_step[i]), mag=float(moved.mag[i]),
+            noise_seq=seq[i])
+        torch.testing.assert_close(both.u[i], one.u, rtol=0,
+                                   atol=1e-4 * scale)
+        torch.testing.assert_close(both.rms_res[i], one.rms_res, rtol=1e-4,
+                                   atol=1e-6)
+    assert not torch.allclose(both.rms_turb[0], both.rms_turb[1])
+
+
+def test_own_build_matches_jax_settled_residual(jax_system, port_system):
+    """(b) The port's own build + loop vs the JAX build + loop, noise
+    free, 20 steps.  The builds differ in precision (the port fits the
+    VAR model and the MPC operators in float64, the JAX package in
+    float32), so the trajectories are not step-identical; the settled
+    residual RMS (mean over the last half) agrees within 2%."""
+    jcfg, jsys = jax_system
+    cfg, sys_ = port_system
+    n_steps = 20
+    zero = np.zeros((n_steps, sys_.est.n_pixels), np.float32)
+    ref = jcl.simulate(jsys.loop, jsys.layers, jcfg, jax.random.PRNGKey(9),
+                       n_steps=n_steps, start_step=START, noise_scale=1.0,
+                       noise_seq=jnp.asarray(zero))
+    out = closed_loop.simulate(sys_.loop, sys_.layers, cfg, None,
+                               n_steps=n_steps, start_step=START,
+                               noise_seq=torch.as_tensor(zero))
+    settled = out.rms_res[n_steps // 2:].mean().item()
+    settled_ref = float(np.asarray(ref.rms_res)[n_steps // 2:].mean())
+    assert abs(settled - settled_ref) <= 0.02 * settled_ref
+    # the screens and the open-loop series are built the same way
+    np.testing.assert_array_equal(sys_.layers.screens.numpy(),
+                                  np.asarray(jsys.layers.screens))
+    want = np.asarray(jsys.coeff_series)
+    np.testing.assert_allclose(sys_.coeff_series.numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+
+
+def test_run_closed_loop_and_summary(port_system):
+    """pipeline.run_closed_loop with seeded noise locks the loop (healthy
+    per the JAX package's drive: rejection > 1.5, Strehl > 0.9 at D/r0=5,
+    R=64, 20 steps) and metrics.summarize agrees with the JAX summary of
+    the same telemetry."""
+    cfg, sys_ = port_system
+    out = pipeline.run_closed_loop(sys_, cfg,
+                                   torch.Generator().manual_seed(1))
+    summ = metrics.to_dict(metrics.summarize(out))
+    assert summ["rejection"] > 1.5
+    assert summ["mean_strehl_exact"] > 0.9
+    jout = jcl.StepOutputs(*(jnp.asarray(f.numpy()) for f in out))
+    want = jmetrics.to_dict(jmetrics.summarize(jout))
+    assert set(summ) == set(want)
+    for k in summ:
+        assert summ[k] == pytest.approx(want[k], rel=1e-5), k
