@@ -4,22 +4,23 @@ The same sensorless adaptive-optics MPC system as the JAX package beside
 it -- frozen-flow Von Karman turbulence, Zernike modal decomposition, VAR
 aberration prediction, phase-diversity PSF estimation and a fixed-barrier
 Newton ("fastMPC") controller, batched over Monte-Carlo scenarios -- in
-PyTorch, with the fused diversity-PSF measure as a hand-written CUDA
-kernel for Hopper (csrc/psf_div3_sym.cu).
+PyTorch, with the diversity-PSF measurement kernels as hand-written CUDA
+kernels for Hopper (csrc/).
 
 Layout (module and function names follow the JAX package):
-  ops/       zernike, phase statistics, phase screens, partial DFT, PSF
-             formation, the PSF kernel wrapper, fixed Newton-KKT solves
-  models/    VAR system ID, DM influence, estimator, MPC matrices,
-             solvers, closed-loop engine, pipeline
-  parallel/  Monte-Carlo scenario batches
-  utils/     config, special functions, metrics
-  csrc/      CUDA sources, built with nvcc at first use
-  interop.py carries the JAX package's operators across as numpy arrays
+  ops/        zernike, phase statistics, phase screens, partial DFT, PSF
+              formation, the PSF kernel wrappers, fixed Newton-KKT solves
+  models/     VAR system ID, DM influence, estimator, MPC matrices,
+              solvers, closed-loop engine, pipeline
+  parallel/   Monte-Carlo scenario batches
+  utils/      config, special functions, metrics
+  csrc/       CUDA sources, built with nvcc at first use
+  benchmarks/ kernel_variants: the A/B of the measurement kernels
+  interop.py  carries the JAX package's operators across as numpy arrays
 
 Setup runs on the host in numpy float64 where precision matters; the
-control step runs on an explicit ``device``.  The package never imports
-jax.
+control step runs on the ``device`` given to the builders, the card
+("cuda") unless the caller passes "cpu".  The package never imports jax.
 """
 
 from .utils import config

@@ -68,7 +68,7 @@ def influence_maps_pupil(cfg: DMConfig, resolution: int,
 
 
 def build(cfg: DMConfig, basis: zernike.ZernikeBasis,
-          device: torch.device | str = "cpu") -> DMModel:
+          device: torch.device | str = "cuda") -> DMModel:
     """Modal influence matrix via Zernike LS projection (README.md:266-271)."""
     R = basis.resolution
     # keep the reference's physical geometry at any grid resolution

@@ -12,7 +12,7 @@ configured SNR relative to the zero-aberration PSF signal.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -32,10 +32,11 @@ class EstimatorModel:
     pupil:    (R, R).
     noise_std: 0-d noise std (from SNR dB).
     dft_op:   (w, R) complex64 partial centered DFT.
-    div_cos, div_sin: cos/sin of diversity_phases (the fused kernel's
-              inputs).
     scale:    PSF intensity scale (dx^4 * AU); crop_half: static int.
-    div_sym3: the diversity stack is the symmetric triple (-a, 0, +a).
+    div_cos, div_sin: cos/sin of diversity_phases, the fused kernels'
+              inputs; None measures the total phases unfused (kernel B3).
+    div_sym3: the diversity stack is the symmetric triple (-a, 0, +a):
+              measure with kernel B1, else with B2.
     """
 
     A_s: torch.Tensor
@@ -47,13 +48,29 @@ class EstimatorModel:
     dft_op: torch.Tensor
     scale: float
     crop_half: int
-    div_cos: torch.Tensor
-    div_sin: torch.Tensor
-    div_sym3: bool
+    div_cos: torch.Tensor | None = None
+    div_sin: torch.Tensor | None = None
+    div_sym3: bool = False
 
     @property
     def n_pixels(self) -> int:
         return self.A_s.shape[0]
+
+
+ROUTES = ("sym3", "general", "unfused")
+
+
+def with_route(model: EstimatorModel, route: str) -> EstimatorModel:
+    """The model measuring through one route of its switch: "sym3"
+    (kernel B1, the build's default), "general" (B2, ``div_sym3`` off) or
+    "unfused" (B3, no diversity cos/sin maps)."""
+    if route == "sym3":
+        return model
+    if route == "general":
+        return replace(model, div_sym3=False)
+    if route == "unfused":
+        return replace(model, div_cos=None, div_sin=None)
+    raise ValueError(f"unknown measure route '{route}'; one of {ROUTES}")
 
 
 def effective_pixel_pitch(cfg: EstimatorConfig) -> float:
@@ -125,7 +142,7 @@ def _linearize(mode_stack, diversity_phases, pupil, dft_op, scale):
 
 
 def build(cfg: EstimatorConfig, basis: zernike.ZernikeBasis,
-          device: torch.device | str = "cpu") -> EstimatorModel:
+          device: torch.device | str = "cuda") -> EstimatorModel:
     """Build the estimator by linearizing the exact PSF map.
 
     The piston column is dropped, matching the reference's

@@ -37,7 +37,7 @@ class System:
     coeff_series: torch.Tensor    # (n_id, n_modes) open-loop Zernike series
 
 
-def build(cfg: SystemConfig, device: torch.device | str = "cpu") -> System:
+def build(cfg: SystemConfig, device: torch.device | str = "cuda") -> System:
     """Build every subsystem from a config; screens are seeded from
     cfg.sim.seed."""
     if cfg.atmosphere.flow == "conditional":

@@ -1,2 +1,3 @@
 """Numerical building blocks of the PyTorch port: basis, turbulence,
-DFT, PSF formation, the CUDA PSF kernel wrapper and the Newton-KKT solve."""
+DFT, PSF formation, the CUDA PSF kernel wrappers and the Newton-KKT
+solve."""

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (sm_90a) into a shared library under the
-repository's ``build/kernels/`` directory, named by a hash of its source
-and flags (an edited source builds anew; an unchanged one is reused), and
-loaded with ctypes.  Nothing here runs at import time: this module is
-imported on machines without a GPU or nvcc.
+repository's ``build/kernels/`` directory, named by a hash of its source,
+the ``csrc/`` headers it includes and the flags (an edited source or
+header builds anew; an unchanged one is reused), and loaded with ctypes.  Nothing here
+runs at import time: this module is imported on machines without a GPU
+or nvcc.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,6 +43,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    headers = sorted(set(re.findall(rb'#include\s+"([^"]+)"', src)))
+    src += b"".join((CSRC / h.decode()).read_bytes() for h in headers)
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

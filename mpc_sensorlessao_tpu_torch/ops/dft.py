@@ -33,7 +33,7 @@ def _centered_partial_dft_np(n: int, crop_half: int) -> np.ndarray:
 
 
 def centered_partial_dft(n: int, crop_half: int,
-                         device: torch.device | str = "cpu") -> torch.Tensor:
+                         device: torch.device | str = "cuda") -> torch.Tensor:
     """(w, n) complex64 operator A, w = 2*crop_half+1."""
     return torch.as_tensor(_centered_partial_dft_np(n, crop_half),
                            device=device)

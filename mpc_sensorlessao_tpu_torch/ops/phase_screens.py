@@ -119,7 +119,7 @@ def _subharmonics(rng: np.random.Generator, atm: AtmosphereConfig, N: int,
 
 
 def make_layers(seed: int, atm: AtmosphereConfig, tel: TelescopeConfig,
-                device: torch.device | str = "cpu") -> FrozenFlowLayers:
+                device: torch.device | str = "cuda") -> FrozenFlowLayers:
     """Build all layer screens + per-step pixel shifts.
 
     Wind shift per step: v * dt / pitch pixels along (sin, cos) of the

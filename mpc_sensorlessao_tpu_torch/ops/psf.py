@@ -17,7 +17,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import dft, psf_kernels
+from . import psf_kernels
 
 
 @lru_cache(maxsize=8)
@@ -31,7 +31,7 @@ def pupil_mask_np(resolution: int) -> np.ndarray:
 
 
 def pupil_mask(resolution: int, dtype=torch.float32,
-               device: torch.device | str = "cpu") -> torch.Tensor:
+               device: torch.device | str = "cuda") -> torch.Tensor:
     return torch.as_tensor(pupil_mask_np(resolution), dtype=dtype,
                            device=device)
 
@@ -61,16 +61,6 @@ def measurement_vector(crops: torch.Tensor) -> torch.Tensor:
     return crops.transpose(-1, -2).reshape(*crops.shape[:-3], nd * w * w)
 
 
-def cropped_psf_intensity_dft(phase: torch.Tensor, pupil: torch.Tensor,
-                              dft_op: torch.Tensor,
-                              scale: float) -> torch.Tensor:
-    """PSF crop via the partial centered DFT: only the (2c+1)^2 window the
-    estimator consumes is computed.  ``dft_op`` is complex (w, R)."""
-    field = pupil * torch.exp(1j * phase.to(torch.float32))
-    spec = dft.partial_centered_fft2(field, dft_op)
-    return (spec.real ** 2 + spec.imag ** 2) * scale
-
-
 def diversity_measurements(
     phase_res: torch.Tensor,
     diversity_phases: torch.Tensor,
@@ -86,32 +76,32 @@ def diversity_measurements(
     vector(s) (..., p); diversity_phases (n_div, R, R) are the precomputed
     zd * Z_defocus maps (README.md:462-464).
 
-    With ``div_cos``/``div_sin`` (cos/sin of the diversity maps) and the
-    symmetric triple (-a, 0, +a) (``div_sym3``) this is the fused measure
-    of ops.psf_kernels.psf_crop_diversity_sym3 -- the CUDA kernel on a GPU
-    tensor, its plain version on a CPU tensor.  Without them it is the
-    plain unfused path: partial DFT with ``dft_op`` (CPU only: on the GPU
-    it is kernel B3, not ported yet), full FFT + crop without.
+    The routes of the JAX package's dispatch, each through its kernel in
+    ops.psf_kernels (the CUDA kernel on a GPU tensor, its plain version on
+    a CPU tensor):
+      * ``dft_op`` with ``div_cos``/``div_sin`` (cos/sin of the diversity
+        maps) and ``div_sym3`` (the stack is the symmetric triple
+        (-a, 0, +a)): the fused measure B1;
+      * ``dft_op`` with ``div_cos``/``div_sin`` otherwise: B2;
+      * ``dft_op`` alone: the total phases (..., n_div, R, R) through B3;
+      * no ``dft_op``: full FFT and crop in torch.fft.
     """
-    if div_cos is not None:
-        if dft_op is None or not (div_sym3 and div_cos.shape[0] == 3):
-            raise NotImplementedError(
-                "the general diversity-stack measure is kernel B2, not "
-                "ported yet (ROADMAP.md B)")
+    R = phase_res.shape[-1]
+    if dft_op is not None and div_cos is not None:
         lead = phase_res.shape[:-2]
-        R = phase_res.shape[-1]
-        crops = psf_kernels.psf_crop_diversity_sym3(
-            phase_res.reshape(-1, R, R), pupil, div_cos[2], div_sin[2],
-            dft_op, scale)
-        w = crops.shape[-1]
-        return measurement_vector(crops.reshape(*lead, 3, w, w))
+        flat = phase_res.reshape(-1, R, R)
+        if div_sym3 and div_cos.shape[0] == 3:
+            crops = psf_kernels.psf_crop_diversity_sym3(
+                flat, pupil, div_cos[2], div_sin[2], dft_op, scale)
+        else:
+            crops = psf_kernels.psf_crop_diversity(
+                flat, pupil, div_cos, div_sin, dft_op, scale)
+        return measurement_vector(crops.reshape(*lead, *crops.shape[1:]))
     total = phase_res[..., None, :, :] + diversity_phases
     if dft_op is not None:
-        if phase_res.device.type != "cpu":
-            raise NotImplementedError(
-                "the unfused partial-DFT measure on the GPU is kernel B3, "
-                "not ported yet (ROADMAP.md B)")
-        crops = cropped_psf_intensity_dft(total, pupil, dft_op, scale)
+        crops = psf_kernels.psf_crop_intensity(
+            total.reshape(-1, R, R), pupil, dft_op, scale)
+        crops = crops.reshape(*total.shape[:-2], *crops.shape[1:])
     else:
         crops = crop_center(psf_intensity(total, pupil, scale), crop_half)
     return measurement_vector(crops)

@@ -119,7 +119,7 @@ def _grid_polar(resolution: int):
 
 
 def make_basis(radial_order: int, resolution: int,
-               device: torch.device | str = "cpu") -> ZernikeBasis:
+               device: torch.device | str = "cuda") -> ZernikeBasis:
     """Build the basis stack + fit operator (host float64 precompute)."""
     r, theta, mask = _grid_polar(resolution)
     P = int(mask.sum())

@@ -35,7 +35,7 @@ class ScenarioBatch(NamedTuple):
 def make_scenarios(cfg: SystemConfig, generator: torch.Generator,
                    n_scenarios: int, d_over_r0_grid=(5.0,),
                    snr_db_grid=(10.0,), start_range=None,
-                   device: torch.device | str = "cpu") -> ScenarioBatch:
+                   device: torch.device | str = "cuda") -> ScenarioBatch:
     """Sample a scenario batch over (noise, D/r0, SNR[, window]) with a
     CPU ``generator``; tensors land on ``device``.
 

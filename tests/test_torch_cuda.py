@@ -1,4 +1,4 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels B1-B4 on the card, against their plain versions.
 
 These tests need an NVIDIA GPU with nvcc (marker ``gpu``) and skip
 without one.  They import neither jax nor the JAX package, so on the GPU
@@ -54,13 +54,72 @@ def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
 
 
+def _kernel_args(kernel, R, B, c, dev, n_div=3):
+    """(wrapper, plain version, arguments) of kernel B2, B3 or B4 on
+    speckled phases with the real defocus diversity (a = 3); B2 on
+    n_div maps (the symmetric triple for 3, random maps otherwise), B3 on
+    the (B*3, R, R) total phases."""
+    phase, pupil, cos_a, sin_a, op, scale = _b1_args(R, B, c, dev)
+    k = psf_kernels
+    if kernel == "b4":
+        return (k.psf_crop_diversity_sym3_thin,
+                k.psf_crop_diversity_sym3_thin_ref,
+                (phase, pupil, cos_a, sin_a, op, scale))
+    z4 = zernike.make_basis(6, R, device=dev).stack[4]
+    if n_div == 3:
+        div = torch.stack([-3.0 * z4, 0.0 * z4, 3.0 * z4])
+    else:
+        rng = np.random.default_rng(7)
+        div = torch.as_tensor((rng.normal(size=(n_div, R, R)) * 0.8).astype(
+            np.float32), device=dev)
+    if kernel == "b2":
+        return (k.psf_crop_diversity, k.psf_crop_diversity_ref,
+                (phase, pupil, torch.cos(div), torch.sin(div), op, scale))
+    total = (phase[:, None] + div).reshape(-1, R, R)
+    return (k.psf_crop_intensity, k.psf_crop_intensity_ref,
+            (total, pupil, op, scale))
+
+
 @pytest.mark.gpu
-def test_b1_wrapper_raises_on_bad_input(cuda_device):
-    """On a CUDA tensor the wrapper launches or raises: a crop wider than
-    the kernel's 32 and a float64 phase are refused, not rerouted."""
-    args = list(_b1_args(64, 2, 9, cuda_device))
+@pytest.mark.parametrize("kernel,n_div", [("b2", 3), ("b2", 5), ("b3", 3),
+                                          ("b4", 3)])
+@pytest.mark.parametrize("R,B,c", [(64, 5, 9), (128, 16, 15), (100, 3, 15),
+                                   (512, 2, 15)])
+def test_b2_b3_b4_cuda_kernels_match_plain(cuda_device, kernel, n_div, R, B,
+                                           c):
+    """Kernels B2 (3 and 5 maps), B3 and B4 vs their plain versions on
+    the card, on B1's grid of shapes: rtol 2e-4; atol 1e-5 of the
+    batch's peak (as B1)."""
+    wrapper, plain, args = _kernel_args(kernel, R, B, c, cuda_device, n_div)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(*args)
+    assert got.shape == want.shape
+    assert got.shape[-2:] == (2 * c + 1, 2 * c + 1)
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["b1", "b2", "b3", "b4"])
+def test_wrappers_raise_on_bad_input(cuda_device, kernel):
+    """On a CUDA tensor each wrapper launches or raises: a float64 phase,
+    a phase on another grid than the maps and a crop wider than the kernels' 32 are
+    refused, not rerouted."""
+    if kernel == "b1":
+        wrapper = psf_kernels.psf_crop_diversity_sym3
+        args = list(_b1_args(64, 2, 9, cuda_device))
+    else:
+        wrapper, _, args = _kernel_args(kernel, 64, 2, 9, cuda_device)
+        args = list(args)
+    before = wrapper.launches
     with pytest.raises(TypeError, match="float32"):
-        psf_kernels.psf_crop_diversity_sym3(args[0].double(), *args[1:])
-    args[4] = dft.centered_partial_dft(64, 16, device=cuda_device)
+        wrapper(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="shape"):
+        wrapper(args[0][:, :32, :32].contiguous(), *args[1:])
+    args[-2] = dft.centered_partial_dft(64, 16, device=cuda_device)
     with pytest.raises(ValueError, match="crop width"):
-        psf_kernels.psf_crop_diversity_sym3(*args)
+        wrapper(*args)
+    assert wrapper.launches == before

@@ -95,12 +95,46 @@ def test_estimator_matches_jax(jax_system, port_system):
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4 * peak)
 
 
+def test_interop_carries_the_measure_switch(jax_system, carried):
+    """estimator_from_numpy carries div_sym3 and the diversity cos/sin
+    maps across unchanged, absent maps included."""
+    _, jsys = jax_system
+    loop, _ = carried
+    assert loop.est.div_sym3 is True
+    np.testing.assert_array_equal(loop.est.div_cos.numpy(),
+                                  np.asarray(jsys.loop.est.div_cos))
+    jest = jsys.loop.est.replace(div_cos=None, div_sin=None, div_sym3=False)
+    est = interop.estimator_from_numpy(jax.tree.map(np.asarray, jest), "cpu")
+    assert est.div_cos is None and est.div_sin is None
+    assert est.div_sym3 is False
+
+
 @pytest.mark.parametrize("solver", ["fastmpc", "closed_form"])
 @pytest.mark.parametrize("noisy", [False, True])
 def test_simulate_matches_jax_with_carried_operators(jax_system, carried,
                                                      solver, noisy):
+    """The port's loop on the JAX operators, measuring through the
+    build's default route (B1's plain version), vs the JAX loop
+    (use_pallas=False, its jnp reference), same injected noise."""
+    _check_carried_loop(jax_system, carried, solver, noisy, "sym3")
+
+
+@pytest.mark.parametrize("route", ["general", "unfused"])
+@pytest.mark.parametrize("solver", ["fastmpc", "closed_form"])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_simulate_matches_jax_through_each_route(jax_system, carried,
+                                                 solver, noisy, route):
+    """As test_simulate_matches_jax_with_carried_operators, with the
+    port measuring through the other routes: B2's and B3's plain
+    versions."""
+    _check_carried_loop(jax_system, carried, solver, noisy, route)
+
+
+def _check_carried_loop(jax_system, carried, solver, noisy, route):
     cfg, jsys = jax_system
     loop, layers = carried
+    loop = dataclasses.replace(loop, est=estimator.with_route(loop.est,
+                                                              route))
     n_steps, p = 10, loop.est.n_pixels
     noise = np.zeros((n_steps, p), np.float32)
     if noisy:
@@ -134,7 +168,7 @@ def test_run_batch_shared_window_matches_jax_per_scenario(jax_system,
     n_steps, p = 8, loop.est.n_pixels
     scen = montecarlo.make_scenarios(
         pcfg, torch.Generator().manual_seed(4), 3,
-        d_over_r0_grid=(5.0, 8.0), snr_db_grid=(10.0, 20.0))
+        d_over_r0_grid=(5.0, 8.0), snr_db_grid=(10.0, 20.0), device="cpu")
     out = montecarlo.run_batch(loop, layers, pcfg, scen, n_steps,
                                shared_window="verified")
     gen = torch.Generator().manual_seed(scen.noise_seed)
@@ -159,7 +193,7 @@ def test_run_batch_batched_window_matches_shared(port_system):
     start with the same injected noise."""
     cfg, sys_ = port_system
     scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(2),
-                                     2)
+                                     2, device="cpu")
     shared = montecarlo.run_batch(sys_.loop, sys_.layers, cfg, scen, 6,
                                   shared_window=True)
     batched = montecarlo.run_batch(sys_.loop, sys_.layers, cfg, scen, 6)
@@ -170,7 +204,8 @@ def test_run_batch_batched_window_matches_shared(port_system):
                                atol=1e-6)
 
     moved = montecarlo.make_scenarios(
-        cfg, torch.Generator().manual_seed(2), 2, start_range=(350, 400))
+        cfg, torch.Generator().manual_seed(2), 2, start_range=(350, 400),
+        device="cpu")
     assert float(moved.start_step[0]) != float(moved.start_step[1])
     with pytest.raises(ValueError, match="distinct start_steps"):
         montecarlo.run_batch(sys_.loop, sys_.layers, cfg, moved, 2,

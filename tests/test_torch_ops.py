@@ -3,7 +3,7 @@
 The same numpy-seeded inputs go through the JAX function and its
 counterpart in ``mpc_sensorlessao_tpu_torch``; results are compared as
 numpy arrays with the tolerance stated at each check.  Where the JAX side
-reaches the Pallas kernel B1 it runs in interpret mode, as
+reaches a Pallas kernel (B1-B4) it runs in interpret mode, as
 tests/test_pallas.py does; the port side runs the kernel's plain version
 (its wrapper's choice for CPU tensors).
 """
@@ -28,10 +28,12 @@ from mpc_sensorlessao_tpu.ops import psf as jpsf
 from mpc_sensorlessao_tpu.ops import zernike as jz
 from mpc_sensorlessao_tpu.utils import config as jconfig
 from mpc_sensorlessao_tpu_torch import reference_config
+from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
 from mpc_sensorlessao_tpu_torch.models import closed_loop, dm, estimator
 from mpc_sensorlessao_tpu_torch.models import mpc, pipeline, solvers, var
 from mpc_sensorlessao_tpu_torch.ops import dft, newton_kkt, phase_screens
 from mpc_sensorlessao_tpu_torch.ops import psf, psf_kernels, zernike
+from mpc_sensorlessao_tpu_torch.parallel import montecarlo
 from mpc_sensorlessao_tpu_torch.utils import tree
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -62,7 +64,7 @@ def test_config_copy_matches_jax():
 def test_zernike_basis_matches_jax():
     """Host float64 precompute rounded once to float32 in both packages:
     identical up to 1 ulp of the pinv (rtol 1e-6)."""
-    ours = zernike.make_basis(6, 32)
+    ours = zernike.make_basis(6, 32, device="cpu")
     theirs = jz.make_basis(6, 32)
     for name in ("stack", "fit_full", "gram", "mode_mean"):
         np.testing.assert_allclose(npy(getattr(ours, name)),
@@ -82,18 +84,22 @@ def test_zernike_basis_matches_jax():
 
 def test_partial_dft_operator_matches_jax():
     """Both round the float64 operator once: exactly equal."""
-    A = npy(dft.centered_partial_dft(64, 9))
+    A = npy(dft.centered_partial_dft(64, 9, device="cpu"))
     stack = np.asarray(jdft.centered_partial_dft(64, 9))
     assert A.dtype == np.complex64 and A.shape == (19, 64)
     np.testing.assert_array_equal(A.real, stack[0])
     np.testing.assert_array_equal(A.imag, stack[1])
 
 
-@pytest.mark.parametrize("path", ["dft", "fft"])
+@pytest.mark.parametrize("path", ["dft", "fft", "sym3", "general"])
 def test_diversity_measurements_match_jax(path):
-    """Unfused measurement paths, column-major vector included.  float32
-    DFTs summed in another order: rtol 2e-4 (tests/test_pallas.py) with
-    atol 2e-4 of a unit-peak PSF for the dark pixels."""
+    """Each route of the measurement dispatch, column-major vector
+    included: "dft" (total phases through B3's plain version), "fft"
+    (full FFT and crop), "sym3" (B1) and "general" (B2), against the JAX
+    dispatch -- its Pallas kernels in interpret mode for sym3/general,
+    its jnp paths for dft/fft.  float32 DFTs summed in another order:
+    rtol 2e-4 (tests/test_pallas.py) with atol 2e-4 of a unit-peak PSF
+    for the dark pixels."""
     R, c, B = 64, 9, 3
     rng = np.random.default_rng(4)
     phase = rng.normal(size=(B, R, R)).astype(np.float32) * 0.4
@@ -101,13 +107,22 @@ def test_diversity_measurements_match_jax(path):
         size=(R, R)).astype(np.float32) * 0.5
     div = div.astype(np.float32)
     scale = 1.0 / float(jpsf.pupil_mask_np(R).sum()) ** 2
-    op = jdft.centered_partial_dft(R, c) if path == "dft" else None
+    fused = path in ("sym3", "general")
+    jkw, kw = {}, {}
+    if path != "fft":
+        jkw["dft_op"] = jdft.centered_partial_dft(R, c)
+        kw["dft_op"] = dft.centered_partial_dft(R, c, device="cpu")
+    if fused:
+        jkw.update(use_pallas=True, pallas_interpret=True,
+                   div_cos=jnp.cos(div), div_sin=jnp.sin(div),
+                   div_sym3=path == "sym3")
+        kw.update(div_cos=torch.cos(t32(div)), div_sin=torch.sin(t32(div)),
+                  div_sym3=path == "sym3")
     want = jpsf.diversity_measurements(jnp.asarray(phase), jnp.asarray(div),
-                                       jpsf.pupil_mask(R), scale, c,
-                                       dft_op=op)
+                                       jpsf.pupil_mask(R), scale, c, **jkw)
     got = psf.diversity_measurements(
-        t32(phase), t32(div), psf.pupil_mask(R), scale, c,
-        dft_op=dft.centered_partial_dft(R, c) if path == "dft" else None)
+        t32(phase), t32(div), psf.pupil_mask(R, device="cpu"), scale, c,
+        **kw)
     assert got.shape == (B, 3 * (2 * c + 1) ** 2)
     np.testing.assert_allclose(npy(got), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
@@ -145,8 +160,8 @@ def test_b1_plain_matches_jax_kernel_interpret():
         jnp.asarray(sin_a), jdft.centered_partial_dft(R, c), 2.0,
         interpret=True)
     got = psf_kernels.psf_crop_diversity_sym3_ref(
-        t32(phase), psf.pupil_mask(R), t32(cos_a), t32(sin_a),
-        dft.centered_partial_dft(R, c), 2.0)
+        t32(phase), psf.pupil_mask(R, device="cpu"), t32(cos_a),
+        t32(sin_a), dft.centered_partial_dft(R, c, device="cpu"), 2.0)
     assert got.shape == (4, 3, 2 * c + 1, 2 * c + 1)
     np.testing.assert_allclose(npy(got), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
@@ -156,8 +171,9 @@ def test_b1_wrapper_takes_plain_version_on_cpu():
     """A CPU tensor runs the plain version and launches nothing."""
     phase, zmap, a, c = _b1_inputs(B=2)
     R = phase.shape[-1]
-    args = (t32(phase), psf.pupil_mask(R), t32(np.cos(a * zmap)),
-            t32(np.sin(a * zmap)), dft.centered_partial_dft(R, c), 2.0)
+    args = (t32(phase), psf.pupil_mask(R, device="cpu"),
+            t32(np.cos(a * zmap)), t32(np.sin(a * zmap)),
+            dft.centered_partial_dft(R, c, device="cpu"), 2.0)
     before = psf_kernels.psf_crop_diversity_sym3.launches
     got = psf_kernels.psf_crop_diversity_sym3(*args)
     assert psf_kernels.psf_crop_diversity_sym3.launches == before
@@ -172,14 +188,163 @@ def test_sym3_dispatch_matches_unfused_path():
     phase, zmap, a, c = _b1_inputs(B=3, seed=5)
     R = phase.shape[-1]
     div = t32(np.stack([-a * zmap, 0.0 * zmap, a * zmap]))
-    op = dft.centered_partial_dft(R, c)
-    pupil = psf.pupil_mask(R)
+    op = dft.centered_partial_dft(R, c, device="cpu")
+    pupil = psf.pupil_mask(R, device="cpu")
     fused = psf.diversity_measurements(
         t32(phase), div, pupil, 2.0, c, dft_op=op,
         div_cos=torch.cos(div), div_sin=torch.sin(div), div_sym3=True)
     plain = psf.diversity_measurements(t32(phase), div, pupil, 2.0, c,
                                        dft_op=op)
     np.testing.assert_allclose(npy(fused), npy(plain), rtol=2e-4, atol=2e-4)
+
+
+# --------------------------------------------------------- kernels B2-B4
+
+def _unit_scale(R):
+    """PSF scale that puts the diffraction-limited peak at ~1."""
+    return 1.0 / float(jpsf.pupil_mask_np(R).sum()) ** 2
+
+
+@pytest.mark.parametrize("n_div", [3, 5])
+def test_b2_plain_matches_jax_kernel_interpret(n_div):
+    """psf_crop_diversity_ref == the Pallas general kernel (interpret
+    mode) on random 3- and 5-map stacks at R=64, c=9, B=3: rtol 2e-4,
+    atol 2e-4 of the unit-peak PSF (tests/test_pallas.py)."""
+    R, c, B = 64, 9, 3
+    rng = np.random.default_rng(10 + n_div)
+    phase = (rng.normal(size=(B, R, R)) * 0.4).astype(np.float32)
+    div = (rng.normal(size=(n_div, R, R)) * 0.8).astype(np.float32)
+    scale = _unit_scale(R)
+    want = jpk.psf_crop_diversity(
+        jnp.asarray(phase), jpsf.pupil_mask(R), jnp.cos(div), jnp.sin(div),
+        jdft.centered_partial_dft(R, c), scale, interpret=True)
+    got = psf_kernels.psf_crop_diversity_ref(
+        t32(phase), psf.pupil_mask(R, device="cpu"), torch.cos(t32(div)),
+        torch.sin(t32(div)), dft.centered_partial_dft(R, c, device="cpu"),
+        scale)
+    assert got.shape == (B, n_div, 2 * c + 1, 2 * c + 1)
+    np.testing.assert_allclose(npy(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_b3_plain_matches_jax_kernel_interpret():
+    """psf_crop_intensity_ref == the Pallas one-field kernel (interpret
+    mode) at R=64, half 7, N=5 (the shapes of tests/test_pallas.py):
+    rtol 2e-4, atol 2e-4 of the unit-peak PSF."""
+    R, half, N = 64, 7, 5
+    rng = np.random.default_rng(0)
+    phase = (rng.normal(size=(N, R, R)) * 0.4).astype(np.float32)
+    scale = _unit_scale(R)
+    want = jpk.psf_crop_intensity(
+        jnp.asarray(phase), jpsf.pupil_mask(R),
+        jdft.centered_partial_dft(R, half), scale, interpret=True)
+    got = psf_kernels.psf_crop_intensity_ref(
+        t32(phase), psf.pupil_mask(R, device="cpu"),
+        dft.centered_partial_dft(R, half, device="cpu"), scale)
+    assert got.shape == (N, 2 * half + 1, 2 * half + 1)
+    np.testing.assert_allclose(npy(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_b4_plain_matches_jax_kernel_interpret():
+    """psf_crop_diversity_sym3_thin_ref == the Pallas thin-row kernel
+    (interpret mode) at R=64, c=9, B=4, a=3: rtol 2e-4, atol 2e-4 of the
+    unit-peak PSF; and it is B1's function (B1's plain version, same
+    tolerance)."""
+    phase, zmap, a, c = _b1_inputs(seed=2)
+    R = phase.shape[-1]
+    scale = _unit_scale(R)
+    cos_a = np.cos(a * zmap).astype(np.float32)
+    sin_a = np.sin(a * zmap).astype(np.float32)
+    want = jpk.psf_crop_diversity_sym3_thin(
+        jnp.asarray(phase), jpsf.pupil_mask(R), jnp.asarray(cos_a),
+        jnp.asarray(sin_a), jdft.centered_partial_dft(R, c), scale,
+        interpret=True)
+    args = (t32(phase), psf.pupil_mask(R, device="cpu"), t32(cos_a),
+            t32(sin_a), dft.centered_partial_dft(R, c, device="cpu"), scale)
+    got = psf_kernels.psf_crop_diversity_sym3_thin_ref(*args)
+    assert got.shape == (4, 3, 2 * c + 1, 2 * c + 1)
+    np.testing.assert_allclose(npy(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(
+        npy(got), npy(psf_kernels.psf_crop_diversity_sym3_ref(*args)),
+        rtol=2e-4, atol=2e-4)
+
+
+def _wrapper_case(kernel):
+    """(wrapper, plain version, CPU arguments) of kernel B2, B3 or B4."""
+    phase, zmap, a, c = _b1_inputs(B=2)
+    R = phase.shape[-1]
+    pupil = psf.pupil_mask(R, device="cpu")
+    op = dft.centered_partial_dft(R, c, device="cpu")
+    k = psf_kernels
+    if kernel == "b2":
+        div = t32(np.stack([-a * zmap, 0.0 * zmap, a * zmap, 0.5 * zmap]))
+        return (k.psf_crop_diversity, k.psf_crop_diversity_ref,
+                (t32(phase), pupil, torch.cos(div), torch.sin(div), op, 2.0))
+    if kernel == "b3":
+        return (k.psf_crop_intensity, k.psf_crop_intensity_ref,
+                (t32(phase), pupil, op, 2.0))
+    return (k.psf_crop_diversity_sym3_thin,
+            k.psf_crop_diversity_sym3_thin_ref,
+            (t32(phase), pupil, t32(np.cos(a * zmap)),
+             t32(np.sin(a * zmap)), op, 2.0))
+
+
+@pytest.mark.parametrize("kernel", ["b2", "b3", "b4"])
+def test_wrapper_takes_plain_version_on_cpu(kernel):
+    """A CPU tensor runs the plain version and launches nothing; a tensor
+    on neither the CPU nor a CUDA device is refused, not rerouted."""
+    wrapper, plain, args = _wrapper_case(kernel)
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before
+    torch.testing.assert_close(got, plain(*args), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrapper(args[0].to("meta"), *args[1:])
+    assert wrapper.launches == before
+
+
+def test_kernel_variants_agree_on_cpu():
+    """The kernel A/B's four variants (benchmarks/kernel_variants.py) on
+    CPU tensors -- their wrappers take the plain versions -- measure the
+    same crops of the JAX script's inputs, at R=64, B=2: rtol 2e-4, atol
+    2e-4 of the peak."""
+    inp = kernel_variants.inputs(64, 2, "cpu")
+    out = {name: fn() for name, fn in kernel_variants.variants(inp).items()}
+    assert set(out) == set(kernel_variants.VARIANTS)
+    want = out["general"]
+    assert want.shape == (2, 3, kernel_variants.CROP, kernel_variants.CROP)
+    for name, got in out.items():
+        torch.testing.assert_close(got, want, rtol=2e-4,
+                                   atol=2e-4 * float(want.max()), msg=name)
+
+
+@pytest.mark.parametrize("builder", [
+    "pipeline", "make_scenarios", "estimator", "dm", "make_layers",
+    "make_basis", "centered_partial_dft", "pupil_mask"])
+def test_builders_default_to_the_card(builder):
+    """Every builder runs on the card unless the caller passes "cpu":
+    without a CUDA device, a call that names no device raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = reference_config(resolution=32)
+    basis = zernike.make_basis(6, 32, device="cpu")
+    tel = dataclasses.replace(cfg.telescope, resolution=32)
+    calls = {
+        "pipeline": lambda: pipeline.build(cfg),
+        "make_scenarios": lambda: montecarlo.make_scenarios(
+            cfg, torch.Generator().manual_seed(0), 2),
+        "estimator": lambda: estimator.build(cfg.estimator, basis),
+        "dm": lambda: dm.build(cfg.dm, basis),
+        "make_layers": lambda: phase_screens.make_layers(3, cfg.atmosphere,
+                                                         tel),
+        "make_basis": lambda: zernike.make_basis(6, 32),
+        "centered_partial_dft": lambda: dft.centered_partial_dft(32, 7),
+        "pupil_mask": lambda: psf.pupil_mask(32),
+    }
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
+        calls[builder]()
 
 
 # ------------------------------------------------------------- turbulence
@@ -189,7 +354,7 @@ def _small_layers():
     tel = dataclasses.replace(cfg.telescope, resolution=32)
     jcfg = jconfig.reference_config(resolution=32)
     jtel = dataclasses.replace(jcfg.telescope, resolution=32)
-    return (phase_screens.make_layers(3, cfg.atmosphere, tel),
+    return (phase_screens.make_layers(3, cfg.atmosphere, tel, device="cpu"),
             jps.make_layers(3, jcfg.atmosphere, jtel))
 
 
@@ -226,7 +391,7 @@ def test_turbulence_rollout_matches_jax():
     from mpc_sensorlessao_tpu.models import closed_loop as jcl
     ours, theirs = _small_layers()
     jb = jz.make_basis(6, 32)
-    b = zernike.make_basis(6, 32)
+    b = zernike.make_basis(6, 32, device="cpu")
     npix = float(np.asarray(jb.mask).sum())
     want = np.asarray(jcl.turbulence_rollout(
         theirs, jb.fit_full, jb.mask, jnp.float32(npix), n_steps=40,
@@ -244,7 +409,8 @@ def test_turbulence_rollout_matches_jax():
 def test_dm_matches_jax():
     """Host float64 projection in both: equal to float32 rounding."""
     cfg = reference_config(resolution=32)
-    ours = dm.build(cfg.dm, zernike.make_basis(6, 32))
+    ours = dm.build(cfg.dm, zernike.make_basis(6, 32, device="cpu"),
+                    device="cpu")
     theirs = jdm.build(jconfig.reference_config(resolution=32).dm,
                        jz.make_basis(6, 32))
     np.testing.assert_allclose(npy(ours.influence),
@@ -454,11 +620,13 @@ def test_unported_branches_raise(branch):
         solver = branch
     if branch in ("mmse", "bfloat16"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            estimator.build(cfg.estimator, zernike.make_basis(6, 32))
+            estimator.build(cfg.estimator,
+                            zernike.make_basis(6, 32, device="cpu"),
+                            device="cpu")
         return
     if branch == "conditional":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pipeline.build(cfg)
+            pipeline.build(cfg, "cpu")
         return
     if branch == "warm_start":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
