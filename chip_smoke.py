@@ -7,17 +7,20 @@ non-zero (so does a machine without CUDA, or a directory without the
 package):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: compile kernels B1-B4 (csrc/psf_div3_sym.cu, psf_div.cu,
-   psf_crop.cu, psf_div3_sym_thin.cu) with nvcc for sm_90a, one nvcc
-   each, all started together; print each build's seconds and ptxas
-   registers, shared memory and spills.
-3. kernel: each kernel against its plain PyTorch version on the card at
-   the shapes phase 4 times: R=128, B=4096 (the main path's; B3 at
-   N=12,288) and R=512, B=256, on speckled phases (std 0.4 rad) with the
-   real defocus diversity; B2 also on a random 5-map stack, B3 on the
+2. build: compile kernels B1-B5 (csrc/psf_div3_sym.cu, psf_div.cu,
+   psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu, transc_cos.cu)
+   with nvcc for sm_90a, one nvcc each, all started together; print each
+   build's seconds and ptxas registers, shared memory and spills.
+3. kernel: each kernel against its plain PyTorch version on the card.
+   B1-B4 at the shapes phase 4 times: R=128, B=4096 (the main path's; B3
+   at N=12,288) and R=512, B=256, on speckled phases (std 0.4 rad) with
+   the real defocus diversity; B2 also on a random 5-map stack, B3 on the
    total phases (rtol 2e-4; atol 1e-5 of the batch's PSF peak, because
    both sum R^2 unit-modulus field terms in float32 in different orders
-   -- an error that scales with the peak amplitude).
+   -- an error that scales with the peak amplitude).  B5a/B5b at (4096,
+   4096) and at the ragged (1000, 1000), k = 8 and 32, on the JAX
+   script's inputs (all 0.7) and on seeded U(-3, 3) (atol 1e-6: both
+   chains contract, so rounding does not grow with k).
 4. variants: the kernel A/B entry point (benchmarks/kernel_variants.py)
    at R=128, B=4096 -- the main path's shapes, B3 at N=12,288 -- and at
    R=512, B=256, in turns kernels, plain versions, kernels.  Its first
@@ -32,7 +35,20 @@ package):
    the best of 3 timed runs.  The same loop at B=4 with injected noise
    on the card and on the CPU (plain versions) must agree (residual RMS
    rtol 0.01, u atol 0.02 max|u|, as tests/test_golden_trajectory.py).
-6. one JSON line listing the kernels, then the last line
+6. trace: one torch.profiler trace of a 25-step B1 run, right after the
+   timed runs: device busy time, the idle share of the traced run, and
+   the top device kernels and ops.
+7. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+   path of B5a/B5b: every measured ceiling beside the card's name and
+   power limit; each kernel must launch >= k1 + k2 times, and no rate may
+   exceed 105% of its published peak.
+8. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+   on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
+   at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
+   N=2 B=1024 -- each as a share of the published and of the measured
+   peaks (none may exceed 105%); B1-B4 against the measured FP32
+   ceiling.
+9. one JSON line listing the kernels, then the last line
    {"ok": true, "device": {...}}.
 """
 
@@ -41,18 +57,20 @@ import dataclasses
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
-from mpc_sensorlessao_tpu_torch import reference_config
-from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
+from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
+from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants, roofline
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
 from mpc_sensorlessao_tpu_torch.models import pipeline
 from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, psf, psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
 from mpc_sensorlessao_tpu_torch.parallel import montecarlo
-from mpc_sensorlessao_tpu_torch.utils import tree
+from mpc_sensorlessao_tpu_torch.utils import profiling, tree
 
 PALLAS = "mpc_sensorlessao_tpu/ops/pallas_kernels.py"
 CSRC = "mpc_sensorlessao_tpu_torch/csrc"
@@ -70,6 +88,20 @@ KERNELS = (
      K.psf_crop_diversity_sym3_thin_ref, f"{PALLAS}:178", "sym3_thin",
      None),
 )
+P = device_peaks
+PEAKS_SRC = "benchmarks/device_peaks.py"
+# (library, wrapper, plain version, kernel body it replaces) of the chain
+# kernels, whose path is the device-peaks run
+CHAINS = (
+    ("transc_sincos", P.transc_sincos_chain, P.transc_sincos_chain_ref,
+     f"{PEAKS_SRC}:152"),
+    ("transc_cos", P.transc_cos_chain, P.transc_cos_chain_ref,
+     f"{PEAKS_SRC}:195"),
+)
+CHAIN_SHAPES = ((4096, 4096), (1000, 1000))
+CHAIN_ATOL = 1e-6
+MAX_SHARE = 1.05
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "trace"
 CROP_HALF = 15
 DIVERSITY_AMP = 3.0
 STEPS = 25
@@ -78,9 +110,6 @@ BATCH = 4096
 SHAPES = ((128, BATCH), (512, 256))
 MIN_STREHL = 0.975
 ROUTE_STREHL_TOL = 0.002
-# H100 SXM data sheet at 700 W: FP32 outside the tensor cores, HBM3
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str):
@@ -88,14 +117,14 @@ def fail(msg: str):
 
 
 def reset_launches() -> None:
-    for _, wrapper, *_ in KERNELS:
+    for _, wrapper, *_ in KERNELS + CHAINS:
         wrapper.launches = 0
 
 
 def device_phase() -> str:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this needs an NVIDIA GPU")
-    card = kernel_variants.card()
+    card = profiling.card()
     print(card)
     print(f"device: {torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}; CUDA {torch.version.cuda}; "
@@ -109,7 +138,7 @@ def build_phase() -> None:
         path, log = cuda_build.build(name, ptxas_info=True)
         return path, log, time.time() - t0
 
-    names = [k[0] for k in KERNELS]
+    names = [k[0] for k in KERNELS + CHAINS]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         results = list(pool.map(build, names))
     for name, (path, log, secs) in zip(names, results):
@@ -178,25 +207,37 @@ def kernel_phase(dev) -> dict:
                 fail(f"{label} disagrees with its plain version at R={R} "
                      f"B={B}")
             max_err[lib] = max(max_err[lib], float(err.max()))
+    rng = np.random.default_rng(2)
+    for shape in CHAIN_SHAPES:
+        inputs = (("0.7", torch.full(shape, 0.7, device=dev)),
+                  ("U(-3,3)", torch.as_tensor(rng.uniform(
+                      -3, 3, size=shape).astype(np.float32), device=dev)))
+        for lib, wrapper, plain, _ in CHAINS:
+            for label, x in inputs:
+                for k in (P.K1, P.K2):
+                    got = wrapper(x, k)
+                    torch.cuda.synchronize()
+                    err = float((got - plain(x, k)).abs().max())
+                    print(f"kernel {lib} vs plain, {shape} {label} k={k}: "
+                          f"max_abs_err {err:.3e}; tolerance atol "
+                          f"{CHAIN_ATOL:g}")
+                    if not err <= CHAIN_ATOL:
+                        fail(f"{lib} disagrees with its plain version at "
+                             f"{shape}, {label}, k={k}")
+                    max_err[lib] = max(max_err.get(lib, 0.0), err)
     return max_err
 
 
-def bound(variant: str, R: int, B: int, w: int = 2 * CROP_HALF + 1):
+def bound(variant: str, R: int, B: int, f32_flops: float | None = None):
     """(bound ms, "operations" or "bytes") of one call of a variant of
-    the A/B at (R, B): the larger of its FP32 FMAs over the FP32 peak and
-    the bytes it must move over the HBM rate.  Every variant forms 3 B
-    fields and takes each through A F A^T: 4 w R^2 + 4 w^2 R FMAs (the
-    field's sincosf and products, O(R^2), are left out).  Bytes: each
-    input read once -- the phases (B3: the 3 B total phases), the
-    pupil, the diversity maps (B1, B4: cos/sin of a Z4; B2: cos/sin of
-    the 3 maps) and the complex operator -- and the (3 B, w, w) output
-    written once."""
-    fields = 3 * B
-    flops = 2 * 4 * fields * (w * R * R + w * w * R)
-    maps = {"sym3": 2, "sym3_thin": 2, "general": 6, "unfused": 0}[variant]
-    phases = fields if variant == "unfused" else B
-    floats = (phases + 1 + maps) * R * R + 2 * w * R + fields * w * w
-    t_ops, t_bytes = flops / PEAK_FP32, 4 * floats / PEAK_BYTES
+    the A/B at (R, B): the larger of its FLOPs
+    (``roofline.measure_work``) over the published FP32 peak -- or over
+    ``f32_flops``, a measured ceiling -- and its bytes over the published
+    HBM rate."""
+    work = roofline.measure_work(variant, R, roofline.CROP, B)
+    peak = profiling.DEVICE_PEAKS[profiling.device_kind()]
+    t_ops = work["flops"] / (f32_flops or peak["fp32_flops"])
+    t_bytes = work["bytes_accessed"] / peak["hbm_bytes_per_s"]
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -229,12 +270,70 @@ def variants_phase(card: str) -> tuple[dict, dict]:
     return times, launches
 
 
+def peaks_phase(card: str) -> tuple[dict, dict, dict]:
+    """The device-peaks entry point, the path of B5a/B5b.  Returns its
+    report, the chain kernels' launches in it, and their entries of the
+    kernels line (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    reset_launches()
+    report = device_peaks.run()
+    launches = {lib: wrapper.launches for lib, wrapper, *_ in CHAINS}
+    for lib, n in launches.items():
+        if n < P.K1 + P.K2:
+            fail(f"the device-peaks run launched {lib} {n} times, fewer "
+                 f"than k1 + k2 = {P.K1 + P.K2}")
+    published = profiling.DEVICE_PEAKS[profiling.device_kind()]
+    peaks = report["peaks"]
+    for key, pub, unit in (("f32_flops", "fp32_flops", "TFLOP/s"),
+                           ("tf32_flops", "tf32_flops", "TFLOP/s"),
+                           ("bf16_flops", "bf16_flops", "TFLOP/s"),
+                           ("hbm_bytes_per_s", "hbm_bytes_per_s", "TB/s")):
+        share = peaks[key] / published[pub]
+        print(f"peaks: {key} {peaks[key] / 1e12:.3f} {unit} measured, "
+              f"{100 * share:.1f}% of the published {published[pub] / 1e12:g}"
+              f" [{card}]")
+        if share > MAX_SHARE:
+            fail(f"measured {key} is {100 * share:.1f}% of its published "
+                 "peak")
+    for key in ("transc_cos", "transc_exp", "transc_cos_kernel",
+                "transc_sincos_kernel"):
+        e = report[key]
+        print(f"peaks: {key} {e['gtransc_per_s']:.2f} G transcendentals/s "
+              f"(slope of t_k{e['k1']} {e['t_k1_ms']:.4f} ms, t_k{e['k2']} "
+              f"{e['t_k2_ms']:.4f} ms over {e['elements']} elements) "
+              f"[{card}]")
+    print(f"peaks: transc_per_s {peaks['transc_per_s'] / 1e9:.2f} G/s (best),"
+          f" transc_torch_per_s {peaks['transc_torch_per_s'] / 1e9:.2f} G/s "
+          f"[{card}]")
+    # one call at the peaks run's shape and depth k2, beside the plain
+    # version and the torch chain of k2 torch.cos (no single PyTorch call
+    # computes k links; for B5b the chain is its plain version)
+    x = torch.full(P.KERNEL_SHAPE, 0.7, device="cuda")
+    library_ms = profiling.cuda_time_ms(
+        lambda: P.transc_cos_chain_ref(x, P.K2), 3)
+    line = {}
+    for lib, _, plain, _ in CHAINS:
+        ms = report[lib + "_kernel"]["t_k2_ms"]
+        plain_ms = (library_ms if lib == "transc_cos" else
+                    profiling.cuda_time_ms(lambda: plain(x, P.K2), 3))
+        b = P.chain_bound(lib, P.KERNEL_SHAPE, P.K2)
+        print(f"chain {lib} {P.KERNEL_SHAPE} k={P.K2}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch cos chain {library_ms:.4f} "
+              f"ms; per element and link {b['fp32']:g} FP32 / "
+              f"{b['issued']:g} issued SASS instructions (recorded); bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; FP32 "
+              f"{b['ops_ms']:.4f} ms at {b['sms']} SMs x 128 lanes x "
+              f"{b['max_sm_clock_hz'] / 1e6:g} MHz, bytes "
+              f"{b['bytes_ms']:.4f} ms, issue {b['issue_ms']:.4f} ms), "
+              f"{100 * b['bound_ms'] / ms:.1f}% of bound [{card}]")
+        line[lib] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+    return report, launches, line
+
+
 def slice_cfg():
-    cfg = reference_config(resolution=128)
-    return cfg.replace(
-        sim=dataclasses.replace(cfg.sim, n_train=300, n_valid=50,
-                                n_test=STEPS),
-        estimator=dataclasses.replace(cfg.estimator, gauss_newton_iters=0))
+    cfg = roofline.bench_cfg(128)
+    return cfg.replace(estimator=dataclasses.replace(cfg.estimator,
+                                                     gauss_newton_iters=0))
 
 
 def on_route(loop, route: str):
@@ -242,14 +341,9 @@ def on_route(loop, route: str):
                                                               route))
 
 
-def slice_phase(dev, card: str) -> dict:
-    """Launches of each route's kernel in its 25-step loop."""
-    cfg = slice_cfg()
-    t0 = time.time()
-    system = pipeline.build(cfg, dev)
-    torch.cuda.synchronize()
-    print(f"slice: pipeline.build at R={cfg.resolution} in "
-          f"{time.time() - t0:.2f} s")
+def slice_phase(system, cfg, dev, card: str) -> tuple[dict, dict]:
+    """Launches of each route's kernel in its 25-step loop, and each
+    route's best run seconds."""
     scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
                                      BATCH, device=dev)
     montecarlo.assert_shared_window(scen)
@@ -262,7 +356,6 @@ def slice_phase(dev, card: str) -> dict:
                                    shared_window="verified")
         torch.cuda.synchronize()
         return out
-
     launches = {}
     strehl_b1 = None
     for lib, wrapper, route in routes:
@@ -305,7 +398,82 @@ def slice_phase(dev, card: str) -> dict:
     for route, ts in times.items():
         print(f"slice ({route}) run: {min(ts):.4f} s (best of {ts}), "
               f"{BATCH * STEPS / min(ts):.1f} solves/s [{card}]")
-    return launches
+    return launches, {route: min(ts) for route, ts in times.items()}
+
+
+def roofline_phase(system, cfg, peaks: dict, times: dict, card: str):
+    """Roofline rows on the slice's build, against the published and the
+    measured peaks; B1-B4 against the measured FP32 ceiling."""
+    rows = [roofline.measure_row(R, B, peaks) for R, B in SHAPES]
+    rows += [roofline.step_row(system, cfg, BATCH, gn, peaks)
+             for gn in (0, 1)]
+    rows.append(roofline.solve_row(system, peaks=peaks))
+    for r in rows:
+        print(f"roofline {r['label']}: {r['wall_us_per_iter']:.2f} us per "
+              f"iteration; {r['achieved_tflops']:.3f} TFLOP/s = "
+              f"{r['pct_published_fp32']:.2f}% of published FP32, "
+              f"{r['pct_measured_fp32']:.2f}% of measured; "
+              f"{r['achieved_gbps']:.1f} GB/s = {r['pct_published_hbm']:.2f}% "
+              f"of published HBM, {r['pct_measured_hbm']:.2f}% of measured; "
+              f"{r['achieved_gtransc_per_s']:.2f} G transcendentals/s = "
+              f"{r['pct_measured_transc']:.2f}% of measured; bound "
+              f"{r['bound']} [{card}]")
+        for key in ("pct_published_fp32", "pct_published_hbm",
+                    "pct_measured_fp32", "pct_measured_hbm",
+                    "pct_measured_transc"):
+            if r[key] > 100 * MAX_SHARE:
+                fail(f"roofline {r['label']}: {key} = {r[key]:.1f}%")
+    for v, (k_ms, _) in times.items():
+        pub_ms, _ = bound(v, 128, BATCH)
+        meas_ms, _ = bound(v, 128, BATCH, f32_flops=peaks["f32_flops"])
+        print(f"variant {v} R=128 B={BATCH}: {k_ms:.4f} ms; "
+              f"{100 * pub_ms / k_ms:.1f}% of the published-FP32 bound "
+              f"{pub_ms:.4f} ms, {100 * meas_ms / k_ms:.1f}% of the "
+              f"measured-FP32 bound {meas_ms:.4f} ms [{card}]")
+        if meas_ms / k_ms > MAX_SHARE:
+            fail(f"variant {v} beats the measured FP32 ceiling by more "
+                 "than 5%")
+
+
+def trace_phase(system, cfg, untraced_s: float, card: str) -> None:
+    """One torch.profiler trace of the 25-step B1 run: device busy time
+    against the traced run's own wall time (and, beside it, against the
+    untraced run timed just before), and the top kernels and ops by
+    device time."""
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
+                                     BATCH, device="cuda")
+    with profiling.trace(str(TRACE_DIR)) as prof:
+        t0 = time.perf_counter()
+        montecarlo.run_batch(system.loop, system.layers, cfg, scen, STEPS,
+                             shared_window="verified")
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    avg = prof.key_averages()
+    kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print("trace: key_averages() shows no device time; the CUDA-event "
+              "and host-clock times above stand")
+        return
+    print(f"trace: {STEPS}-step B1 run, B={BATCH}: device busy {busy_ms:.3f}"
+          f" ms in {traced_s * 1e3:.2f} ms traced, so the device is idle "
+          f"{100 * (1 - busy_ms / (traced_s * 1e3)):.1f}% of the traced "
+          f"run ({100 * (1 - busy_ms / (untraced_s * 1e3)):.1f}% of the "
+          f"best untraced run just before, {untraced_s * 1e3:.2f} ms); "
+          f"{len(kernels)} kernel names [{card}]")
+    for e in kernels[:10]:
+        ms = e.self_device_time_total / 1e3
+        name = e.key.replace("void ", "").replace("at::native::", "")
+        print(f"trace kernel: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%), "
+              f"{e.count} calls: {name[:120]}")
+    ops = sorted((e for e in avg if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    for e in ops[:10]:
+        ms = e.self_device_time_total / 1e3
+        print(f"trace op: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%), "
+              f"{e.count} calls: {e.key}")
 
 
 def reference_phase(loop, layers, cfg, dev, route: str) -> None:
@@ -343,7 +511,16 @@ def main() -> None:
     build_phase()
     max_err = kernel_phase(dev)
     times, variant_launches = variants_phase(card)
-    loop_launches = slice_phase(dev, card)
+    cfg = slice_cfg()
+    t0 = time.time()
+    system = pipeline.build(cfg, dev)
+    torch.cuda.synchronize()
+    print(f"slice: pipeline.build at R={cfg.resolution} in "
+          f"{time.time() - t0:.2f} s")
+    loop_launches, run_s = slice_phase(system, cfg, dev, card)
+    trace_phase(system, cfg, run_s["sym3"], card)
+    report, chain_launches, chain_line = peaks_phase(card)
+    roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []
     for lib, _, _, replaces, variant, route in KERNELS:
         ms, plain_ms = times[variant]
@@ -355,6 +532,11 @@ def main() -> None:
                          else variant_launches[lib]),
             "max_abs_err": max_err[lib], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    for lib, _, _, replaces in CHAINS:
+        kernels.append({
+            "name": lib, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
+            "replaces": replaces, "launches": chain_launches[lib],
+            "max_abs_err": max_err[lib], **chain_line[lib]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

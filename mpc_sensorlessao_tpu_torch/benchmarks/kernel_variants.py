@@ -12,7 +12,8 @@ a = 3, scale 1.7e-3) of B seeded phases (std 0.3 rad) at resolution R
   sym3_thin  B4, ``psf_crop_diversity_sym3_thin``
   unfused    B3, ``psf_crop_intensity`` on the (B*3, R, R) total phases
 
-timed with CUDA events after a warm-up, and prints one JSON line:
+timed with CUDA events (``profiling.cuda_time_ms``: the median of 5
+repeats of ``reps`` calls, after a warm-up), and prints one JSON line:
 ``<variant>_us_per_scen``, ``<variant>_rel_diff_vs_general`` (relative
 difference of the output sums), ``R``, ``B``, ``device`` and ``card``
 (the card's name and power limit as nvidia-smi gives them).  Raises
@@ -22,13 +23,13 @@ without a CUDA device.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
 from ..ops import dft, psf, psf_kernels, zernike
+from ..utils import profiling
 
 VARIANTS = ("general", "sym3", "sym3_thin", "unfused")
 CROP = 31
@@ -80,29 +81,6 @@ def variants(inp: dict, plain: bool = False) -> dict:
     }
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean ms per call over ``reps`` calls, CUDA events, after one
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
-def card() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def run(R: int, B: int, plain: bool = False, reps: int = 20) -> dict:
     """The A/B at (R, B) on the first CUDA device: the JSON line's
     fields, plus ``<variant>_ms`` per call."""
@@ -113,7 +91,7 @@ def run(R: int, B: int, plain: bool = False, reps: int = 20) -> dict:
            "plain": plain}
     ref = None
     for name, fn in variants(inp, plain).items():
-        ms = time_ms(fn, reps)
+        ms = profiling.cuda_time_ms(fn, reps)
         out[name + "_ms"] = ms
         out[name + "_us_per_scen"] = ms * 1e3 / B
         total = float(fn().double().sum())
@@ -128,7 +106,7 @@ def main() -> None:
     R = int(sys.argv[1]) if len(sys.argv) > 1 else 512
     B = int(sys.argv[2]) if len(sys.argv) > 2 else 8
     out = run(R, B)
-    out["card"] = card()
+    out["card"] = profiling.card()
     print(json.dumps(out))
 
 

@@ -88,3 +88,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)[0]))
         _loaded[name] = lib
     return lib
+
+
+def function(name: str, argtypes: list):
+    """The C entry point ``name`` of csrc/<name>.cu, which returns a
+    cudaError_t as int, as a call that raises RuntimeError on a non-zero
+    code, named by the library's ``<name>_error_string``."""
+    lib = load(name)
+    fn, err_string = getattr(lib, name), getattr(lib, f"{name}_error_string")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        err_string.argtypes = [ctypes.c_int]
+        err_string.restype = ctypes.c_char_p
+
+    def call(*args) -> None:
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: "
+                               f"{err_string(err).decode()} ({err})")
+    return call

@@ -144,20 +144,11 @@ def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
     out = torch.empty((B, *per_item, w, w), dtype=torch.float32, device=dev)
     ptrs = [phase, *(t for _, t, _ in maps), a_ri[0], a_ri[1], out]
     ints = (B, *counts, R, w)
-    lib = cuda_build.load(name)
-    fn, err_string = getattr(lib, name), getattr(lib, f"{name}_error_string")
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * len(ptrs)
-                       + [ctypes.c_int] * len(ints)
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        err_string.argtypes = [ctypes.c_int]
-        err_string.restype = ctypes.c_char_p
-    err = fn(*(t.data_ptr() for t in ptrs), *ints, float(scale), dev.index,
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{err_string(err).decode()} ({err})")
+    launch = cuda_build.function(
+        name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    launch(*(t.data_ptr() for t in ptrs), *ints, float(scale), dev.index,
+           torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels B1-B4 on the card, against their plain versions.
+"""The port's CUDA kernels B1-B5 on the card, against their plain versions.
 
 These tests need an NVIDIA GPU with nvcc (marker ``gpu``) and skip
 without one.  They import neither jax nor the JAX package, so on the GPU
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
 from mpc_sensorlessao_tpu_torch.ops import dft, psf, psf_kernels, zernike
 
 
@@ -123,3 +124,82 @@ def test_wrappers_raise_on_bad_input(cuda_device, kernel):
     with pytest.raises(ValueError, match="crop width"):
         wrapper(*args)
     assert wrapper.launches == before
+
+
+CHAINS = {"b5a": (device_peaks.transc_sincos_chain,
+                  device_peaks.transc_sincos_chain_ref, "transc_sincos"),
+          "b5b": (device_peaks.transc_cos_chain,
+                  device_peaks.transc_cos_chain_ref, "transc_cos")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4096, 4096), (1000, 1000), (3, 7)])
+@pytest.mark.parametrize("kernel", ["b5a", "b5b"])
+def test_b5_cuda_kernels_match_plain(cuda_device, kernel, shape):
+    """Kernels B5a/B5b vs their plain versions on the card, at the peaks
+    run's shape and at shapes no block size divides, k in {0, 1, 8, 32},
+    on 0.7 and on U(-3, 3): atol 1e-6 (both chains contract)."""
+    wrapper, plain, _ = CHAINS[kernel]
+    rng = np.random.default_rng(4)
+    for x in (torch.full(shape, 0.7, device=cuda_device),
+              torch.as_tensor(rng.uniform(-3, 3, size=shape).astype(
+                  np.float32), device=cuda_device)):
+        for k in (0, 1, 8, 32):
+            before = wrapper.launches
+            got = wrapper(x, k)
+            torch.cuda.synchronize()
+            assert wrapper.launches == before + 1
+            torch.testing.assert_close(got, plain(x, k), rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["b5a", "b5b"])
+def test_b5_wrappers_raise_on_bad_input(cuda_device, kernel):
+    """float64, 1-D, non-contiguous inputs and k < 0 are refused on the
+    card, and nothing is launched."""
+    wrapper, _, _ = CHAINS[kernel]
+    x = torch.zeros((64, 96), device=cuda_device)
+    before = wrapper.launches
+    with pytest.raises(TypeError, match="float32"):
+        wrapper(x.double(), 1)
+    with pytest.raises(ValueError, match="rows, cols"):
+        wrapper(x.reshape(-1), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(x.t(), 1)
+    with pytest.raises(ValueError, match="k must be >= 0"):
+        wrapper(x, -1)
+    assert wrapper.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["b5a", "b5b"])
+def test_b5_link_is_counted_from_the_built_sass(cuda_device, kernel):
+    """The built library's SASS has the link loop link_instructions looks
+    for: one range check per element a thread carries (4), no MUFU
+    (full-precision sincosf / cosf), and no more FP32 or issued
+    instructions per element and link than the recorded counts the B5
+    bound is computed from (device_peaks.LINK_INSTRUCTIONS)."""
+    _, _, name = CHAINS[kernel]
+    text = device_peaks.sass(name)
+    assert "MUFU.SIN" not in text and "MUFU.COS" not in text
+    got = device_peaks.link_instructions(text)
+    recorded = device_peaks.LINK_INSTRUCTIONS[name]
+    assert got["elements"] == 4
+    assert 0 < got["fp32"] <= recorded["fp32"]
+    assert got["fp32"] < got["issued"] <= recorded["issued"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prior", [False, True])
+def test_matmul_tf32_restores_the_tf32_setting(cuda_device, prior):
+    """Only the TF32 measurement turns TF32 on, and it puts back the
+    setting it found."""
+    torch.backends.cuda.matmul.allow_tf32 = prior
+    try:
+        got = device_peaks.matmul_peak(torch.float32, tf32=True, n=256)
+        assert torch.backends.cuda.matmul.allow_tf32 is prior
+        assert got["tf32"] and got["tflops"] > 0
+        device_peaks.matmul_peak(torch.float32, n=256)
+        assert torch.backends.cuda.matmul.allow_tf32 is prior
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
