@@ -10,7 +10,10 @@ package):
 2. build: compile kernels B1-B5 (csrc/psf_div3_sym.cu, psf_div.cu,
    psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu, transc_cos.cu)
    with nvcc for sm_90a, one nvcc each, all started together; print each
-   build's seconds and ptxas registers, shared memory and spills.
+   build's seconds and ptxas registers, shared memory and spills.  B1
+   (3xTF32 on the tensor cores): its registers, dynamic shared memory,
+   spills and the HMMA (tensor-core) instructions in its SASS; a spill,
+   or SASS without HMMA, fails.
 3. kernel: each kernel against its plain PyTorch version on the card.
    B1-B4 at the shapes phase 4 times: R=128, B=4096 (the main path's; B3
    at N=12,288) and R=512, B=256, on speckled phases (std 0.4 rad) with
@@ -25,6 +28,9 @@ package):
    at R=128, B=4096 -- the main path's shapes, B3 at N=12,288 -- and at
    R=512, B=256, in turns kernels, plain versions, kernels.  Its first
    run is the path that launches B4: every kernel must launch there.
+   Each time beside its bound (roofline.measure_bound: the least time at
+   float32 accuracy, the DFT stages as 3 TF32 passes on the tensor
+   cores) and beside the FP32 bound (every FLOP on FP32).
 5. slice: reference_config(resolution=128) cut as bench.py cuts it
    (n_train=300, n_valid=50, 25 steps, gauss_newton_iters=0): build on
    the card, 4096 shared-window scenarios, run_batch for 25 steps,
@@ -46,15 +52,18 @@ package):
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
-   peaks (none may exceed 105%); B1-B4 against the measured FP32
-   ceiling.
-9. one JSON line listing the kernels, then the last line
-   {"ok": true, "device": {...}}.
+   peaks, B1's DFT stages against TF32 (none may exceed 105%); B1-B4
+   against their bound at the measured ceilings (none may exceed 105%),
+   beside the measured-FP32 bound (every FLOP on FP32).
+9. one JSON line listing the kernels (bound_ms and bound_by from
+   measure_bound at the published peaks, fp32_bound_ms beside them),
+   then the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
 import dataclasses
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -147,6 +156,27 @@ def build_phase() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
+    b1_resources(results[names.index("psf_div3_sym")][1])
+
+
+def b1_resources(log: str) -> None:
+    """B1's registers, stack and spills (ptxas), dynamic shared memory
+    and HMMA count (its SASS); fails on a spill or on no HMMA."""
+    lib = "psf_div3_sym"
+    res = cuda_build.ptxas_resources(log or cuda_build.ptxas_report(lib))
+    hmma = len(re.findall(r"\bHMMA\.", device_peaks.sass(lib)))
+    smem = cuda_build.load(lib).psf_div3_sym_smem_bytes()
+    for fn, r in res.items():
+        print(f"build: B1 {fn}: {r['registers']} registers, {r['stack']} B "
+              f"stack, {r['spill_stores']} B spill stores, "
+              f"{r['spill_loads']} B spill loads")
+    print(f"build: B1 psf_div3_sym_kernel: {smem} B dynamic shared memory a "
+          f"block; {hmma} HMMA (tensor-core) instructions in the SASS")
+    if not res or hmma == 0:
+        fail(f"B1's build shows {hmma} HMMA instructions, ptxas {res}")
+    for fn, r in res.items():
+        if r["spill_stores"] or r["spill_loads"]:
+            fail(f"B1 kernel {fn} spills: {r}")
 
 
 def b1_args(R: int, B: int, dev):
@@ -228,18 +258,12 @@ def kernel_phase(dev) -> dict:
     return max_err
 
 
-def bound(variant: str, R: int, B: int, f32_flops: float | None = None):
-    """(bound ms, "operations" or "bytes") of one call of a variant of
-    the A/B at (R, B): the larger of its FLOPs
-    (``roofline.measure_work``) over the published FP32 peak -- or over
-    ``f32_flops``, a measured ceiling -- and its bytes over the published
-    HBM rate."""
-    work = roofline.measure_work(variant, R, roofline.CROP, B)
-    peak = profiling.DEVICE_PEAKS[profiling.device_kind()]
-    t_ops = work["flops"] / (f32_flops or peak["fp32_flops"])
-    t_bytes = work["bytes_accessed"] / peak["hbm_bytes_per_s"]
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+def check_shares(label: str, shares: dict) -> None:
+    """Fails if any share (in %) of a ceiling exceeds 105%: it can only
+    mean a wrong work count or timing."""
+    for key, pct in shares.items():
+        if pct > 100 * MAX_SHARE:
+            fail(f"{label}: {key} = {pct:.1f}%")
 
 
 def variants_phase(card: str) -> tuple[dict, dict]:
@@ -257,11 +281,14 @@ def variants_phase(card: str) -> tuple[dict, dict]:
             print("variants: " + json.dumps(run_))
         for v in kernel_variants.VARIANTS:
             k_ms, p_ms = min(k1[v + "_ms"], k2[v + "_ms"]), plain[v + "_ms"]
-            b_ms, b_by = bound(v, R, B)
+            b = roofline.measure_bound(v, R, B)
             print(f"variant {v} R={R} B={B}: kernel {k1[v + '_ms']:.4f} / "
                   f"{k2[v + '_ms']:.4f} ms, plain {p_ms:.4f} ms per call, "
-                  f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% "
-                  f"of bound [{card}]")
+                  f"bound {b['bound_ms']:.4f} ms ({b['limit']}: tensor "
+                  f"{b['tensor_ms']:.4f}, fp32 {b['fp32_ms']:.4f}, bytes "
+                  f"{b['bytes_ms']:.4f}), {100 * b['bound_ms'] / k_ms:.1f}% "
+                  f"of bound; FP32 bound {b['fp32_bound_ms']:.4f} ms, "
+                  f"{100 * b['fp32_bound_ms'] / k_ms:.1f}% [{card}]")
             if (R, B) == (128, BATCH):
                 times[v] = (k_ms, p_ms)
     for lib, n in launches.items():
@@ -403,36 +430,43 @@ def slice_phase(system, cfg, dev, card: str) -> tuple[dict, dict]:
 
 def roofline_phase(system, cfg, peaks: dict, times: dict, card: str):
     """Roofline rows on the slice's build, against the published and the
-    measured peaks; B1-B4 against the measured FP32 ceiling."""
+    measured peaks; B1-B4 against their bound at the measured ceilings,
+    beside the measured-FP32 bound (every FLOP on FP32)."""
     rows = [roofline.measure_row(R, B, peaks) for R, B in SHAPES]
     rows += [roofline.step_row(system, cfg, BATCH, gn, peaks)
              for gn in (0, 1)]
     rows.append(roofline.solve_row(system, peaks=peaks))
     for r in rows:
+        tensor = (f"DFT stages {r['pct_published_tf32']:.2f}% of published "
+                  f"TF32, {r['pct_measured_tf32']:.2f}% of measured; "
+                  if "pct_measured_tf32" in r else "")
         print(f"roofline {r['label']}: {r['wall_us_per_iter']:.2f} us per "
-              f"iteration; {r['achieved_tflops']:.3f} TFLOP/s = "
-              f"{r['pct_published_fp32']:.2f}% of published FP32, "
-              f"{r['pct_measured_fp32']:.2f}% of measured; "
+              f"iteration; {r['achieved_tflops']:.3f} TFLOP/s; {tensor}"
+              f"other FLOPs {r['pct_published_fp32']:.2f}% of published "
+              f"FP32, {r['pct_measured_fp32']:.2f}% of measured; "
               f"{r['achieved_gbps']:.1f} GB/s = {r['pct_published_hbm']:.2f}% "
               f"of published HBM, {r['pct_measured_hbm']:.2f}% of measured; "
               f"{r['achieved_gtransc_per_s']:.2f} G transcendentals/s = "
               f"{r['pct_measured_transc']:.2f}% of measured; bound "
               f"{r['bound']} [{card}]")
-        for key in ("pct_published_fp32", "pct_published_hbm",
-                    "pct_measured_fp32", "pct_measured_hbm",
-                    "pct_measured_transc"):
-            if r[key] > 100 * MAX_SHARE:
-                fail(f"roofline {r['label']}: {key} = {r[key]:.1f}%")
+        check_shares(f"roofline {r['label']}",
+                     {k: v for k, v in r.items() if k.startswith("pct_")
+                      and k != "pct_of_binding_peak"})
     for v, (k_ms, _) in times.items():
-        pub_ms, _ = bound(v, 128, BATCH)
-        meas_ms, _ = bound(v, 128, BATCH, f32_flops=peaks["f32_flops"])
+        pub = roofline.measure_bound(v, 128, BATCH)
+        meas = roofline.measure_bound(v, 128, BATCH, peaks=peaks)
         print(f"variant {v} R=128 B={BATCH}: {k_ms:.4f} ms; "
-              f"{100 * pub_ms / k_ms:.1f}% of the published-FP32 bound "
-              f"{pub_ms:.4f} ms, {100 * meas_ms / k_ms:.1f}% of the "
-              f"measured-FP32 bound {meas_ms:.4f} ms [{card}]")
-        if meas_ms / k_ms > MAX_SHARE:
-            fail(f"variant {v} beats the measured FP32 ceiling by more "
-                 "than 5%")
+              f"{100 * pub['bound_ms'] / k_ms:.1f}% of the bound "
+              f"{pub['bound_ms']:.4f} ms at the published peaks, "
+              f"{100 * meas['bound_ms'] / k_ms:.1f}% of the bound "
+              f"{meas['bound_ms']:.4f} ms ({meas['limit']}) at the measured "
+              f"ones; {100 * meas['fp32_bound_ms'] / k_ms:.1f}% of the "
+              f"measured-FP32 bound {meas['fp32_bound_ms']:.4f} ms [{card}]")
+        check_shares(f"variant {v}", {
+            "share of the bound at the published peaks":
+                100 * pub["bound_ms"] / k_ms,
+            "share of the bound at the measured ceilings":
+                100 * meas["bound_ms"] / k_ms})
 
 
 def trace_phase(system, cfg, untraced_s: float, card: str) -> None:
@@ -524,14 +558,15 @@ def main() -> None:
     kernels = []
     for lib, _, _, replaces, variant, route in KERNELS:
         ms, plain_ms = times[variant]
-        bound_ms, bound_by = bound(variant, 128, BATCH)
+        b = roofline.measure_bound(variant, 128, BATCH)
         kernels.append({
             "name": lib, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
             "replaces": replaces,
             "launches": (loop_launches[lib] if route
                          else variant_launches[lib]),
             "max_abs_err": max_err[lib], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "fp32_bound_ms": b["fp32_bound_ms"], "library_ms": None})
     for lib, _, _, replaces in CHAINS:
         kernels.append({
             "name": lib, "route": "cuda", "source": f"{CSRC}/{lib}.cu",

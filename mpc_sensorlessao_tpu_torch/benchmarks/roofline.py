@@ -6,8 +6,10 @@
 For each target, the achieved FLOP/s, bytes/s and transcendentals/s,
 each as a share of the card's published peak (``profiling.DEVICE_PEAKS``)
 and, when a peaks report of ``benchmarks/device_peaks.py`` is given, of
-the ceiling measured on the card, with the bound named: operations,
-bytes or transcendentals.
+the ceiling measured on the card, with the bound named: tensor,
+operations, bytes or transcendentals.  The measurement kernels' DFT
+stages count against the TF32 tensor-core rate, 3 passes each
+(``measure_bound``), the rest of the FLOPs against FP32.
 
 Targets (the JAX script's rows):
   measure_sym3  kernel B1 on fixed inputs, R=128 B=1024, R=128 B=4096
@@ -61,7 +63,8 @@ def measure_work(variant: str, R: int, w: int, B: int) -> dict:
 
     flops: per scenario both DFT stages, 12 w R^2 + 12 w^2 R complex
     multiply-adds (2 real FLOPs per real multiply-add, 4 of those per
-    complex one), plus the elementwise products that form the fields: 12
+    complex one; ``dft_flops``), plus the elementwise products that form
+    the fields: 12
     R^2 for the symmetric triple (the JAX ``pallas_measure_work``), 24 R^2
     for B2's three maps by angle addition, 6 R^2 for B3's pupil products.
     transcendentals: cos and sin of every phase read, 2 R^2 per phase.
@@ -82,6 +85,57 @@ def measure_work(variant: str, R: int, w: int, B: int) -> dict:
     return {"flops": B * (per_scen + elementwise * R * R),
             "bytes_accessed": 4.0 * floats,
             "transcendentals": 2.0 * phases * R * R}
+
+
+def dft_flops(R: int, w: int, B: int) -> float:
+    """The DFT-stage part of ``measure_work``'s flops, the same for every
+    variant: both stages for the three diversities of B scenarios, 2 (12
+    w R^2 + 12 w^2 R) real FLOPs per scenario.  These are matrix products;
+    the rest of the flops forms the fields elementwise."""
+    return B * 2.0 * (12.0 * w * R * R + 12.0 * w * w * R)
+
+
+def measure_bound(variant: str, R: int, B: int, w: int = CROP,
+                  peaks: dict | None = None) -> dict:
+    """The least time the card could take for one call of measurement
+    kernel ``variant`` (as in ``measure_work``) at float32 accuracy,
+    whatever the kernel's implementation: the largest of
+
+      tensor           ``TF32_PASSES`` x the DFT FLOPs (``dft_flops``) over
+                       the TF32 tensor-core rate -- 3xTF32 is the cheapest
+                       float32-accurate route for the products on this card;
+      fp32             the field-forming FLOPs (the rest of measure_work's
+                       flops) over the FP32 rate;
+      bytes            measure_work's bytes over the HBM rate;
+      transcendentals  over the measured rate, given ``peaks`` (no rate is
+                       published).
+
+    Rates: the card's published peaks, or given ``peaks`` (a device_peaks
+    report's) the ceilings measured on it.  Returns ``<part>_ms`` for
+    each part, ``bound_ms`` (the largest), ``limit`` (its part),
+    ``bound_by`` ("operations" or "bytes") and ``fp32_bound_ms``, the FP32
+    bound for comparison: every FLOP over the FP32 rate, against the
+    bytes.
+    """
+    work = measure_work(variant, R, w, B)
+    dft = dft_flops(R, w, B)
+    if peaks is None:
+        pub = profiling.DEVICE_PEAKS[profiling.device_kind()]
+        tf32, fp32 = pub["tf32_flops"], pub["fp32_flops"]
+        hbm, transc = pub["hbm_bytes_per_s"], None
+    else:
+        tf32, fp32 = peaks["tf32_flops"], peaks["f32_flops"]
+        hbm, transc = peaks["hbm_bytes_per_s"], peaks["transc_per_s"]
+    ms = {"tensor": 1e3 * profiling.TF32_PASSES * dft / tf32,
+          "fp32": 1e3 * (work["flops"] - dft) / fp32,
+          "bytes": 1e3 * work["bytes_accessed"] / hbm}
+    if transc is not None:
+        ms["transcendentals"] = 1e3 * work["transcendentals"] / transc
+    limit = max(ms, key=ms.get)
+    return {**{f"{k}_ms": v for k, v in ms.items()},
+            "bound_ms": ms[limit], "limit": limit,
+            "bound_by": "bytes" if limit == "bytes" else "operations",
+            "fp32_bound_ms": max(1e3 * work["flops"] / fp32, ms["bytes"])}
 
 
 def load_peaks(path: str) -> dict:
@@ -105,10 +159,12 @@ def measure_row(R: int, B: int, peaks: dict | None = None) -> dict:
     inp = kernel_variants.inputs(R, B, "cuda")
     call = kernel_variants.variants(inp)["sym3"]
     t_iter = profiling.cuda_time_ms(call, 10) * 1e-3
-    row = profiling.roofline_row(f"measure_sym3_R{R}_B{B}",
-                                 measure_work("sym3", R, CROP, B), t_iter, B,
+    work = {**measure_work("sym3", R, CROP, B),
+            "tensor_flops": dft_flops(R, CROP, B)}
+    row = profiling.roofline_row(f"measure_sym3_R{R}_B{B}", work, t_iter, B,
                                  peaks)
-    row["work_model"] = "analytic work of kernel B1 (measure_work)"
+    row["work_model"] = ("analytic work of kernel B1 (measure_work), its "
+                         "DFT stages (dft_flops) on the tensor cores")
     row["harness_note"] = (
         "CUDA events around repeated calls on fixed inputs: no scan and no "
         "carry perturbation, so nothing outside the kernel is timed")
@@ -142,12 +198,13 @@ def step_row(system: pipeline.System, cfg, B: int, gn: int,
     w = 2 * system.est.crop_half + 1
     meas = measure_work("sym3", cfg.resolution, w, B)
     work = {k: eager[k] + (1 + gn) * meas[k] for k in eager}
+    work["tensor_flops"] = (1 + gn) * dft_flops(cfg.resolution, w, B)
     row = profiling.roofline_row(f"step_R{cfg.resolution}_B{B}_gn{gn}", work,
                                  t_iter, B, peaks)
     row["work_model"] = (
         "profiling.cost of a one-step run_batch (every eager aten op) plus "
         f"{1 + gn} x measure_work('sym3') for the kernel B1 launches it "
-        "cannot see")
+        "cannot see, their DFT stages (dft_flops) on the tensor cores")
     row["harness_note"] = (f"host clock around {STEPS}-step run_batch "
                            f"calls ending in a synchronize, best of "
                            f"{REPEATS}, divided by the steps")

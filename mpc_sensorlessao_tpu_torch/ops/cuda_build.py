@@ -49,6 +49,20 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
+def _nvcc(name: str, out: str, ptxas_info: bool) -> str:
+    """Compile csrc/<name>.cu into the library ``out``; returns nvcc's
+    diagnostic output, raises on a failed build."""
+    cmd = [nvcc_path(), *NVCC_FLAGS]
+    if ptxas_info:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", out, str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {name}.cu:\n"
+                           f"{proc.stderr}{proc.stdout}")
+    return proc.stderr + proc.stdout
+
+
 def build(name: str, ptxas_info: bool = False) -> tuple[Path, str]:
     """Compile csrc/<name>.cu unless its library exists.
 
@@ -65,20 +79,43 @@ def build(name: str, ptxas_info: bool = False) -> tuple[Path, str]:
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-",
                                suffix=".so")
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if ptxas_info:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(CSRC / f"{name}.cu")]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{name}.cu:\n{proc.stderr}{proc.stdout}")
+        log = _nvcc(name, tmp, ptxas_info)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, proc.stderr + proc.stdout
+    return out, log
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's per-kernel register, stack and spill report (``-Xptxas
+    -v``) for csrc/<name>.cu, from a build into a temporary directory: a
+    cached library has none to give."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return _nvcc(name, os.path.join(tmp, f"lib{name}.so"), True)
+
+
+def ptxas_resources(report: str) -> dict:
+    """{kernel's mangled name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} (bytes but the registers) read from a ``-Xptxas -v``
+    report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack=int(m[1]), spill_stores=int(m[2]),
+                             spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m[1])
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

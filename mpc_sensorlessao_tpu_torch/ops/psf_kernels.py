@@ -25,7 +25,7 @@ import torch
 from . import cuda_build, dft
 
 MAX_CROP = 32          # crop width the kernels' warp layout holds
-
+B1_TILE = 32           # B1's K tile: its operator scratch holds whole tiles
 
 
 def _intensity(fields: torch.Tensor, dft_op: torch.Tensor,
@@ -113,8 +113,8 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 
 def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
-            per_item: tuple, scale: float,
-            counts: tuple = ()) -> torch.Tensor:
+            per_item: tuple, scale: float, counts: tuple = (),
+            workspace: int = 0) -> torch.Tensor:
     """Check the inputs of kernel library ``name`` and launch it on
     PyTorch's current stream.
 
@@ -122,9 +122,9 @@ def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
     float32 inputs; ``dft_op`` the complex64 (w, R) operator, passed as
     its real and imaginary parts; the output is (B, *per_item, w, w)
     float32.  The C entry point ``name`` takes the pointers (phase, maps,
-    real and imaginary operator, output), the ints (B, *counts, R, w),
-    then scale, device and stream; ``<name>_error_string`` names its
-    error codes.
+    real and imaginary operator, with ``workspace`` > 0 a scratch of that
+    many float32, output), the ints (B, *counts, R, w), then scale, device
+    and stream; ``<name>_error_string`` names its error codes.
     """
     if phase.device.type != "cuda":
         raise ValueError(f"kernel {name} runs on CUDA tensors, got "
@@ -142,7 +142,9 @@ def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
         _check(label, t, shape, dev)
     _check("dft_op (real part)", a_ri[0], (w, R), dev)
     out = torch.empty((B, *per_item, w, w), dtype=torch.float32, device=dev)
-    ptrs = [phase, *(t for _, t, _ in maps), a_ri[0], a_ri[1], out]
+    scratch = ([torch.empty(workspace, dtype=torch.float32, device=dev)]
+               if workspace else [])
+    ptrs = [phase, *(t for _, t, _ in maps), a_ri[0], a_ri[1], *scratch, out]
     ints = (B, *counts, R, w)
     launch = cuda_build.function(
         name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
@@ -158,12 +160,16 @@ def psf_crop_diversity_sym3(phase: torch.Tensor, pupil: torch.Tensor,
                             scale: float) -> torch.Tensor:
     """Kernel B1: fused diversity-PSF crops for the symmetric triple
     (-a, 0, +a), (B, R, R) -> (B, 3, w, w).  Same arguments as
-    ``psf_crop_diversity_sym3_ref``."""
+    ``psf_crop_diversity_sym3_ref``.  Both DFT stages run on the tensor
+    cores in 3xTF32 (float32 accuracy); the operator is laid out in
+    32 x 32 tiles in a scratch of ``2 * 32 * 32 * ceil(R / 32)`` floats."""
     if phase.device.type == "cpu":
         return psf_crop_diversity_sym3_ref(phase, pupil, cos_a, sin_a,
                                            dft_op, scale)
+    R = phase.shape[-1]
     out = _launch("psf_div3_sym", phase,
-                  _sym3_maps(phase, pupil, cos_a, sin_a), dft_op, (3,), scale)
+                  _sym3_maps(phase, pupil, cos_a, sin_a), dft_op, (3,), scale,
+                  workspace=2 * B1_TILE * MAX_CROP * -(-R // B1_TILE))
     psf_crop_diversity_sym3.launches += 1
     return out
 

@@ -45,6 +45,9 @@ DEVICE_PEAKS = {
     },
 }
 TIME_REPEATS = 5
+# TF32 passes of a float32-accurate product on the tensor cores: x = hi +
+# lo with hi and lo TF32, and a b = a_lo b_hi + a_hi b_lo + a_hi b_hi
+TF32_PASSES = 3
 
 
 def device_kind(device: torch.device | str | None = None) -> str:
@@ -196,16 +199,26 @@ def roofline_row(label: str, work: dict, t_iter: float, n_items: int,
     transcendentals) done in ``t_iter`` seconds over ``n_items`` items,
     against the published peaks of ``device``'s card (``device_kind``;
     default CUDA device 0) and, given ``peaks`` (a device_peaks report's),
-    the measured ceilings.  ``bound`` names the largest share -- of the
-    measured ceilings when given (operations, bytes or transcendentals),
-    else of the published peaks (operations or bytes: there is no
-    published transcendental rate)."""
+    the measured ceilings.  ``work`` may name in ``tensor_flops`` the part
+    of its flops that are matrix products at float32 accuracy: they count
+    ``TF32_PASSES`` times against the TF32 tensor-core rate (share
+    ``tensor``), the rest of the flops against FP32 (share
+    ``operations``); the achieved TFLOP/s counts every flop.  ``bound``
+    names the largest share -- of the measured ceilings when given
+    (tensor, operations, bytes or transcendentals), else of the published
+    peaks (tensor, operations or bytes: there is no published
+    transcendental rate)."""
     pub = DEVICE_PEAKS[device_kind(device)]
+    tensor = work.get("tensor_flops", 0.0)
     fps = work["flops"] / t_iter
+    fp32_ps = (work["flops"] - tensor) / t_iter
+    tc_ps = TF32_PASSES * tensor / t_iter
     bps = work["bytes_accessed"] / t_iter
     tps = work["transcendentals"] / t_iter
-    shares = {"operations": fps / pub["fp32_flops"],
+    shares = {"operations": fp32_ps / pub["fp32_flops"],
               "bytes": bps / pub["hbm_bytes_per_s"]}
+    if tensor:
+        shares["tensor"] = tc_ps / pub["tf32_flops"]
     row = {
         "label": label,
         "wall_us_per_iter": t_iter * 1e6,
@@ -219,13 +232,19 @@ def roofline_row(label: str, work: dict, t_iter: float, n_items: int,
         "pct_published_fp32": 100 * shares["operations"],
         "pct_published_hbm": 100 * shares["bytes"],
     }
+    if tensor:
+        row.update({"tensor_flops_per_iter": tensor,
+                    "pct_published_tf32": 100 * shares["tensor"]})
     if peaks is not None:
-        shares = {"operations": fps / peaks["f32_flops"],
+        shares = {"operations": fp32_ps / peaks["f32_flops"],
                   "bytes": bps / peaks["hbm_bytes_per_s"],
                   "transcendentals": tps / peaks["transc_per_s"]}
         row.update({"pct_measured_fp32": 100 * shares["operations"],
                     "pct_measured_hbm": 100 * shares["bytes"],
                     "pct_measured_transc": 100 * shares["transcendentals"]})
+        if tensor:
+            shares["tensor"] = tc_ps / peaks["tf32_flops"]
+            row["pct_measured_tf32"] = 100 * shares["tensor"]
     bound = max(shares, key=shares.get)
     row.update({"bound": bound, "pct_of_binding_peak": 100 * shares[bound],
                 "peaks": ("measured (device_peaks.py)" if peaks is not None

@@ -7,12 +7,15 @@ machine they run without the repo's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
 
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
-from mpc_sensorlessao_tpu_torch.ops import dft, psf, psf_kernels, zernike
+from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, psf, psf_kernels
+from mpc_sensorlessao_tpu_torch.ops import zernike
 
 
 @pytest.fixture
@@ -37,13 +40,15 @@ def _b1_args(R, B, c, dev, seed=0, a=3.0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("R,B,c", [(64, 5, 9), (128, 16, 15), (100, 3, 15),
-                                   (512, 2, 15)])
+                                   (512, 2, 15), (128, 1, 15), (98, 3, 15)])
 def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
-    """Kernel B1 vs its plain version on the card, including a grid that
-    is not a multiple of the 32-px tile and a crop narrower than a warp:
-    rtol 2e-4; atol 1e-5 of the batch's peak (both sum R^2 unit-modulus
-    terms in float32 in different orders, an error that scales with the
-    peak amplitude)."""
+    """Kernel B1 vs its plain version on the card, including grids that
+    are not a multiple of the 32-px tile (R=98 also not of 4, so the maps
+    reach shared memory in 4-byte copies), a crop narrower than a warp
+    and a single scenario: rtol 2e-4; atol 1e-5 of the batch's peak (both sum
+    R^2 unit-modulus terms in float32 in different orders -- B1 in 3xTF32
+    on the tensor cores -- an error that scales with the peak
+    amplitude)."""
     args = _b1_args(R, B, c, cuda_device)
     before = psf_kernels.psf_crop_diversity_sym3.launches
     got = psf_kernels.psf_crop_diversity_sym3(*args)
@@ -53,6 +58,19 @@ def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
     assert got.shape == (B, 3, 2 * c + 1, 2 * c + 1)
     peak = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
+
+
+@pytest.mark.gpu
+def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device):
+    """B1's built SASS holds HMMA (tensor-core) instructions, and ptxas
+    reports no spill for either of its kernels, within the 128 registers
+    a thread that two resident blocks per SM allow."""
+    res = cuda_build.ptxas_resources(cuda_build.ptxas_report("psf_div3_sym"))
+    assert any("psf_div3_sym_kernel" in fn for fn in res)
+    for fn, r in res.items():
+        assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (fn, r)
+        assert r["registers"] <= 128, (fn, r)
+    assert re.findall(r"\bHMMA\.", device_peaks.sass("psf_div3_sym"))
 
 
 def _kernel_args(kernel, R, B, c, dev, n_div=3):

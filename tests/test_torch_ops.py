@@ -167,6 +167,73 @@ def test_b1_plain_matches_jax_kernel_interpret():
                                atol=2e-4)
 
 
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 to the nearest TF32, ties away from zero, as
+    cvt.rna.tf32.f32: add half of the 13 dropped bits, then drop them."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as B1's tensor cores take it: each float32 operand split
+    into TF32 hi = rna(x) and lo = rna(x - hi); 3 passes lo*hi + hi*lo +
+    hi*hi (1 pass: hi*hi), each product exact in float32 and summed in
+    float32."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _b1_tf32(phase, pupil, cos_a, sin_a, dft_op, scale, passes=3):
+    """Kernel B1's arithmetic on the CPU: the three fields by angle
+    addition in float32, then both complex DFT stages as real products
+    through ``_mm_tf32``."""
+    c, s = torch.cos(phase), torch.sin(phase)
+    pcd, psd = pupil * cos_a, pupil * sin_a
+    t1, t2, t3, t4 = c * pcd, s * psd, s * pcd, c * psd
+    fre = torch.stack([t1 + t2, pupil * c, t1 - t2], dim=1)   # (B,3,R,R)
+    fim = torch.stack([t3 - t4, pupil * s, t3 + t4], dim=1)
+    are, aim = dft_op.real.contiguous(), dft_op.imag.contiguous()
+
+    def mm(a, b):
+        return _mm_tf32(a, b, passes)
+    gre = mm(are, fre) - mm(aim, fim)                          # (B,3,w,R)
+    gim = mm(aim, fre) + mm(are, fim)
+    ore = mm(gre, are.T) - mm(gim, aim.T)                      # (B,3,w,w)
+    oim = mm(gre, aim.T) + mm(gim, are.T)
+    return (ore ** 2 + oim ** 2) * scale
+
+
+def test_b1_3xtf32_arithmetic_matches_jax_kernel_and_plain():
+    """B1's 3xTF32 arithmetic, emulated here, == the Pallas sym3 kernel
+    (interpret mode) at R=64, c=9, B=4, a=3 at that test's tolerance
+    (rtol 2e-4, atol 2e-4), and == the float32 plain version at rtol 2e-4,
+    atol 1e-5 of the peak.
+
+    Against the float64 plain version at these inputs (on the CPU): 3
+    passes err 1.0e-7 of the peak (float32's plain version 4.9e-7), one
+    TF32 pass 1.0e-4 of the peak and up to 1.6e-2 relative on pixels
+    above 1e-6 of the peak -- why the kernel takes three."""
+    phase, zmap, a, c = _b1_inputs()
+    R = phase.shape[-1]
+    cos_a = np.cos(a * zmap).astype(np.float32)
+    sin_a = np.sin(a * zmap).astype(np.float32)
+    args = (t32(phase), psf.pupil_mask(R, device="cpu"), t32(cos_a),
+            t32(sin_a), dft.centered_partial_dft(R, c, device="cpu"), 2.0)
+    got = _b1_tf32(*args)
+    want = jpk.psf_crop_diversity_sym3(
+        jnp.asarray(phase), jpsf.pupil_mask(R), jnp.asarray(cos_a),
+        jnp.asarray(sin_a), jdft.centered_partial_dft(R, c), 2.0,
+        interpret=True)
+    assert got.shape == (4, 3, 2 * c + 1, 2 * c + 1)
+    np.testing.assert_allclose(npy(got), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    plain = psf_kernels.psf_crop_diversity_sym3_ref(*args)
+    peak = float(plain.abs().max())
+    torch.testing.assert_close(got, plain, rtol=2e-4, atol=1e-5 * peak)
+
+
 def test_b1_wrapper_takes_plain_version_on_cpu():
     """A CPU tensor runs the plain version and launches nothing."""
     phase, zmap, a, c = _b1_inputs(B=2)
