@@ -10,10 +10,10 @@ package):
 2. build: compile kernels B1-B5 (csrc/psf_div3_sym.cu, psf_div.cu,
    psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu, transc_cos.cu)
    with nvcc for sm_90a, one nvcc each, all started together; print each
-   build's seconds and ptxas registers, shared memory and spills.  B1
-   (3xTF32 on the tensor cores): its registers, dynamic shared memory,
-   spills and the HMMA (tensor-core) instructions in its SASS; a spill,
-   or SASS without HMMA, fails.
+   build's seconds and ptxas registers, shared memory and spills.  B1,
+   B2 and B3 (3xTF32 on the tensor cores, csrc/psf_mma.cuh): each one's
+   registers, dynamic shared memory, spills and the HMMA (tensor-core)
+   instructions in its SASS; a spill, or SASS without HMMA, fails.
 3. kernel: each kernel against its plain PyTorch version on the card.
    B1-B4 at the shapes phase 4 times: R=128, B=4096 (the main path's; B3
    at N=12,288) and R=512, B=256, on speckled phases (std 0.4 rad) with
@@ -97,6 +97,8 @@ KERNELS = (
      K.psf_crop_diversity_sym3_thin_ref, f"{PALLAS}:178", "sym3_thin",
      None),
 )
+# (label, library) of the kernels on the tensor-core engine
+MMA_KERNELS = (("B1", "psf_div3_sym"), ("B2", "psf_div"), ("B3", "psf_crop"))
 P = device_peaks
 PEAKS_SRC = "benchmarks/device_peaks.py"
 # (library, wrapper, plain version, kernel body it replaces) of the chain
@@ -156,27 +158,28 @@ def build_phase() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
-    b1_resources(results[names.index("psf_div3_sym")][1])
+    for label, lib in MMA_KERNELS:
+        mma_resources(label, lib, results[names.index(lib)][1])
 
 
-def b1_resources(log: str) -> None:
-    """B1's registers, stack and spills (ptxas), dynamic shared memory
-    and HMMA count (its SASS); fails on a spill or on no HMMA."""
-    lib = "psf_div3_sym"
+def mma_resources(label: str, lib: str, log: str) -> None:
+    """A tensor-core kernel's registers, stack and spills (ptxas),
+    dynamic shared memory and HMMA count (its SASS); fails on a spill or
+    on no HMMA."""
     res = cuda_build.ptxas_resources(log or cuda_build.ptxas_report(lib))
     hmma = len(re.findall(r"\bHMMA\.", device_peaks.sass(lib)))
-    smem = cuda_build.load(lib).psf_div3_sym_smem_bytes()
+    smem = getattr(cuda_build.load(lib), f"{lib}_smem_bytes")()
     for fn, r in res.items():
-        print(f"build: B1 {fn}: {r['registers']} registers, {r['stack']} B "
-              f"stack, {r['spill_stores']} B spill stores, "
+        print(f"build: {label} {fn}: {r['registers']} registers, "
+              f"{r['stack']} B stack, {r['spill_stores']} B spill stores, "
               f"{r['spill_loads']} B spill loads")
-    print(f"build: B1 psf_div3_sym_kernel: {smem} B dynamic shared memory a "
+    print(f"build: {label} {lib}_kernel: {smem} B dynamic shared memory a "
           f"block; {hmma} HMMA (tensor-core) instructions in the SASS")
     if not res or hmma == 0:
-        fail(f"B1's build shows {hmma} HMMA instructions, ptxas {res}")
+        fail(f"{label}'s build shows {hmma} HMMA instructions, ptxas {res}")
     for fn, r in res.items():
         if r["spill_stores"] or r["spill_loads"]:
-            fail(f"B1 kernel {fn} spills: {r}")
+            fail(f"{label} kernel {fn} spills: {r}")
 
 
 def b1_args(R: int, B: int, dev):

@@ -1,4 +1,5 @@
-// Kernel B3: PSF crop of one field per item (the unfused measure).
+// Kernel B3: PSF crop of one field per item (the unfused measure), with
+// both DFT stages on the tensor cores at float32 accuracy (3xTF32).
 //
 // Replaces the TPU kernel mpc_sensorlessao_tpu/ops/pallas_kernels.py
 // `_psf_kernel` (wrapper `psf_crop_intensity`).  For every item n of a
@@ -6,69 +7,106 @@
 //
 //   out[n] = |A F_n A^T|^2 * scale,     F_n = pupil e^{i phase_n}.
 //
-// Bound: FP32 issue and shared-memory loads, as B1 -- 4 w R^2 + 4 w^2 R
-// FMAs per item against R^2 floats of phase read.  Against the fused
-// kernels it reads the materialised total phase (n_div times the bytes)
-// and takes n_div times the sincosf, and with one field per block each
-// operator value loaded from shared memory feeds 4 FMAs instead of 12.
+// What bounds it: the DFT stages, as in B1 -- B3's items are B1's fields,
+// so at N = 3 B its tensor-core work is B1's (3 passes of 62.0 GFLOP at
+// R=128, N=12,288).  Against B1 it also reads the materialised total
+// phases (3x the phase bytes: 805 MB at that shape) and takes 3x the
+// sincosf (201 M), both overlapped with the products through cp.async.
 //
-// Design: the tiling of B1 (psf_tiles.cuh) with one field per block,
-// grid (N); 16 accumulator floats a thread.  float32 throughout, sincosf
-// (not __sincosf), no fast math.
+// Design: the tensor-core DFT engine of B1 (psf_mma.cuh), one block per
+// three consecutive items, grid ceil(N / 3).  Its field-forming policy
+// loads the three items' phases and the pupil a K tile -- four maps, B1's
+// shared-memory footprint -- and takes a full-precision sincosf per item
+// and pixel (no angle addition: the +-3 rad diversity is already inside
+// each total phase).  In the last block, items at or beyond N read as
+// zero fields and store nothing.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
 
 #include <cuda_runtime.h>
 
-#include "psf_tiles.cuh"
+#include "psf_mma.cuh"
 
 namespace {
 
-using psf_tiles::kCrop;
-using psf_tiles::kThreads;
-using psf_tiles::kTile;
-using psf_tiles::kWarps;
+using psf_mma::kFields;
+using psf_mma::kTilePixels;
 
-__global__ void __launch_bounds__(kThreads)
-psf_crop_kernel(const float* __restrict__ phase,  // (N, R, R)
-                const float* __restrict__ pupil,  // (R, R)
-                const float* __restrict__ are,    // (w, R)
-                const float* __restrict__ aim,    // (w, R)
-                float* __restrict__ out,          // (N, w, w)
-                int R, int w, float scale) {
-  const float* ph = phase + static_cast<size_t>(blockIdx.x) * R * R;
-  auto fields = [=](size_t idx, float2* f) {
-    float s, c;
-    sincosf(ph[idx], &s, &c);
-    const float p = pupil[idx];
-    f[0] = make_float2(p * c, p * s);
-  };
-  psf_tiles::crop_intensity<1>(fields, are, aim,
-                               out + static_cast<size_t>(blockIdx.x) * w * w,
-                               R, w, scale);
+// Block k: items 3 k, 3 k + 1, 3 k + 2 of the N.
+struct PhaseFields {
+  static constexpr int kMaps = kFields + 1;   // the items' phases, pupil
+  const float* phase;                         // (N, R, R)
+  const float* pupil;                         // (R, R)
+  float* out_;                                // (N, w, w)
+  int n;
+
+  __device__ int first() const { return kFields * blockIdx.x; }
+  __device__ const float* map(int a, int R) const {
+    // an absent item reads (as zeros) from the last one's plane
+    return a == kFields ? pupil
+                        : phase + static_cast<size_t>(min(first() + a, n - 1)) *
+                                      R * R;
+  }
+  __device__ bool present(int a) const {
+    return a == kFields || first() + a < n;
+  }
+  __device__ int fields() const { return min(kFields, n - first()); }
+  __device__ float* out(int w) const {
+    return out_ + static_cast<size_t>(first()) * w * w;
+  }
+  __device__ void form(const float* m, float2 (&f)[kFields]) const {
+    const float p = m[kFields * kTilePixels];
+    const int live = fields();
+#pragma unroll
+    for (int j = 0; j < kFields; ++j) {
+      f[j] = make_float2(0.f, 0.f);
+      if (j < live) {
+        float s, c;
+        sincosf(m[j * kTilePixels], &s, &c);
+        f[j] = make_float2(p * c, p * s);
+      }
+    }
+  }
+};
+
+constexpr size_t kSmemBytes = psf_mma::smem_bytes(PhaseFields::kMaps);
+
+__global__ void __launch_bounds__(psf_mma::kThreads, 2)
+psf_crop_kernel(PhaseFields fields, const float2* __restrict__ tiles, int R,
+                int w, float scale, int vec16) {
+  psf_mma::crop_block(fields, tiles, R, w, scale, vec16);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` (a cudaStream_t) of CUDA device
-// `device`.  Returns cudaGetLastError(): 0 when the launch was accepted.
+// Lays the operator out in `work` -- ceil(R / 32) * 32 * 32 * 2 floats,
+// 16-byte aligned, allocated by the caller -- and launches the kernel,
+// both on `stream` (a cudaStream_t) of CUDA device `device`.  Returns
+// cudaGetLastError(): 0 when both launches were accepted.
 int psf_crop(const float* phase, const float* pupil, const float* are,
-             const float* aim, float* out, int batch, int R, int w,
-             float scale, int device, void* stream) {
+             const float* aim, float* work, float* out, int batch, int R,
+             int w, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0) return 0;
-  if (R <= 0 || w <= 0 || w > kCrop) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  psf_crop_kernel<<<batch, dim3(kTile, kWarps), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      phase, pupil, are, aim, out, R, w, scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = psf_mma::prepare(psf_crop_kernel, PhaseFields::kMaps, are, aim, work,
+                         R, w, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using psf_mma::aligned16;
+  const int vec16 = R % 4 == 0 && aligned16(phase) && aligned16(pupil);
+  psf_crop_kernel<<<(batch + kFields - 1) / kFields, psf_mma::kThreads,
+                    kSmemBytes, s>>>(PhaseFields{phase, pupil, out, batch},
+                                     reinterpret_cast<float2*>(work), R, w,
+                                     scale, vec16);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory a block of the kernel takes, in bytes.
+int psf_crop_smem_bytes() { return static_cast<int>(kSmemBytes); }
 
 const char* psf_crop_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

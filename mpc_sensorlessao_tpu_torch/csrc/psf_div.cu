@@ -1,120 +1,124 @@
 // Kernel B2: fused diversity-PSF measure for a general stack of n_div
-// diversity maps.
+// diversity maps, with both DFT stages on the tensor cores at float32
+// accuracy (3xTF32).
 //
 // Replaces the TPU kernel mpc_sensorlessao_tpu/ops/pallas_kernels.py
 // `_psf_div_kernel` (wrapper `psf_crop_diversity`).  For every scenario b
 // and diversity d it computes
 //
 //   out[b, d] = |A F_bd A^T|^2 * scale,
-//   F_bd = pupil (c cd_d - s sd_d, s cd_d + c sd_d),
+//   F_bd = (c pcd_d - s psd_d, s pcd_d + c psd_d),
 //
 // c, s = cos, sin of the residual phase (taken once per pixel and block)
-// and cd_d, sd_d the precomputed cos/sin of the diversity map d -- the
+// and pcd_d, psd_d = pupil cos, pupil sin of the diversity map d, formed
+// once per call by the wrapper (exact: the pupil is a 0/1 mask) -- the
 // angle-addition identity of the TPU kernel, so the (B, n_div, R, R)
 // summed phase is never formed.
 //
-// Bound: as B1, FP32 issue and shared-memory loads -- 4 w R^2 + 4 w^2 R
-// FMAs per (scenario, diversity) against R^2 floats of phase read per
-// scenario; the maps are shared by all scenarios and stay in L2.
+// What bounds it: the DFT stages, as in B1 (3 passes of 62.0 GFLOP per
+// call at R=128, B=4096 on three maps); the maps are shared by all
+// scenarios and stay in L2.
 //
-// Design: the tiling of B1 (psf_tiles.cuh).  The TPU kernel unrolls all
-// n_div diversities in one program; here each diversity holds 16
-// accumulator floats a thread, so a whole 5-map stack in one block would
-// spill.  The diversities go in groups of at most 3 instead: grid
-// (B, n_div / 3) of 3-field blocks, plus one launch of 1- or 2-field
-// blocks for the rest; each block takes the phase's sincosf itself.
-// Everything is float32 with sincosf (not __sincosf) and no fast math:
-// the diversity alone reaches +-3 rad.
+// Design: the tensor-core DFT engine of B1 (psf_mma.cuh), one block per
+// scenario and group of up to three diversities, grid (B, ceil(n_div /
+// 3)).  Its field-forming policy loads the phase and the group's pcd and
+// psd a K tile -- 7 maps, 74,752 B of shared memory a block, still two
+// blocks per SM -- and takes one full-precision sincosf per pixel, then
+// angle addition per diversity.  A group of 1 or 2 diversities (the last,
+// when 3 does not divide n_div) reads the missing maps as zeros, so their
+// fields are zero, and stores nothing for them: one instantiation and one
+// warp layout, since the engine's warp roles are cut for three fields,
+// and the loop's route (n_div = 3) has no such group.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
 
 #include <cuda_runtime.h>
 
-#include "psf_tiles.cuh"
+#include "psf_mma.cuh"
 
 namespace {
 
-using psf_tiles::kCrop;
-using psf_tiles::kThreads;
-using psf_tiles::kTile;
-using psf_tiles::kWarps;
+using psf_mma::kFields;
+using psf_mma::kTilePixels;
 
-constexpr int kGroup = 3;            // diversities per block
+// Block (b, k): scenario b, diversities 3 k, 3 k + 1, 3 k + 2 of the n_div.
+struct DiversityFields {
+  // phase, then (pcd, psd) of each diversity of the group
+  static constexpr int kMaps = 1 + 2 * kFields;
+  const float* phase;                 // (B, R, R)
+  const float* pcd;                   // (n_div, R, R)
+  const float* psd;                   // (n_div, R, R)
+  float* out_;                        // (B, n_div, w, w)
+  int n_div;
 
-// Block (b, group): diversities d0 + G * blockIdx.y + [0, G).
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-psf_div_kernel(const float* __restrict__ phase,  // (B, R, R)
-               const float* __restrict__ pupil,  // (R, R)
-               const float* __restrict__ cosd,   // (n_div, R, R)
-               const float* __restrict__ sind,   // (n_div, R, R)
-               const float* __restrict__ are,    // (w, R)
-               const float* __restrict__ aim,    // (w, R)
-               float* __restrict__ out,          // (B, n_div, w, w)
-               int R, int w, int n_div, int d0, float scale) {
-  const size_t plane = static_cast<size_t>(R) * R;
-  const int d = d0 + G * blockIdx.y;
-  const float* ph = phase + blockIdx.x * plane;
-  const float* cd = cosd + d * plane;
-  const float* sd = sind + d * plane;
-  auto fields = [=](size_t idx, float2* f) {
+  __device__ int first() const { return kFields * blockIdx.y; }
+  __device__ const float* map(int a, int R) const {
+    const size_t plane = static_cast<size_t>(R) * R;
+    if (a == 0) return phase + blockIdx.x * plane;
+    // an absent diversity reads (as zeros) from the last one's plane
+    const int d = min(first() + (a - 1) / 2, n_div - 1);
+    return (a % 2 ? pcd : psd) + d * plane;
+  }
+  __device__ bool present(int a) const {
+    return a == 0 || first() + (a - 1) / 2 < n_div;
+  }
+  __device__ int fields() const { return min(kFields, n_div - first()); }
+  __device__ float* out(int w) const {
+    return out_ +
+           (static_cast<size_t>(blockIdx.x) * n_div + first()) * w * w;
+  }
+  __device__ void form(const float* m, float2 (&f)[kFields]) const {
     float s, c;
-    sincosf(ph[idx], &s, &c);
-    const float p = pupil[idx];
+    sincosf(m[0], &s, &c);
 #pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float cg = cd[g * plane + idx], sg = sd[g * plane + idx];
-      f[g] = make_float2(p * (c * cg - s * sg), p * (s * cg + c * sg));
+    for (int j = 0; j < kFields; ++j) {
+      const float pc = m[(1 + 2 * j) * kTilePixels],
+                  ps = m[(2 + 2 * j) * kTilePixels];
+      f[j] = make_float2(c * pc - s * ps, s * pc + c * ps);
     }
-  };
-  float* o = out + (static_cast<size_t>(blockIdx.x) * n_div + d) * w * w;
-  psf_tiles::crop_intensity<G>(fields, are, aim, o, R, w, scale);
-}
+  }
+};
 
-template <int G>
-void launch(dim3 grid, cudaStream_t stream, const float* phase,
-            const float* pupil, const float* cosd, const float* sind,
-            const float* are, const float* aim, float* out, int R, int w,
-            int n_div, int d0, float scale) {
-  psf_div_kernel<G><<<grid, dim3(kTile, kWarps), 0, stream>>>(
-      phase, pupil, cosd, sind, are, aim, out, R, w, n_div, d0, scale);
+constexpr size_t kSmemBytes = psf_mma::smem_bytes(DiversityFields::kMaps);
+
+__global__ void __launch_bounds__(psf_mma::kThreads, 2)
+psf_div_kernel(DiversityFields fields, const float2* __restrict__ tiles,
+               int R, int w, float scale, int vec16) {
+  psf_mma::crop_block(fields, tiles, R, w, scale, vec16);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream` (a cudaStream_t) of CUDA device
-// `device`.  Returns cudaGetLastError(): 0 when the launches were
-// accepted.
-int psf_div(const float* phase, const float* pupil, const float* cosd,
-            const float* sind, const float* are, const float* aim,
-            float* out, int batch, int n_div, int R, int w, float scale,
-            int device, void* stream) {
+// Lays the operator out in `work` -- ceil(R / 32) * 32 * 32 * 2 floats,
+// 16-byte aligned, allocated by the caller -- and launches the kernel,
+// both on `stream` (a cudaStream_t) of CUDA device `device`.  Returns
+// cudaGetLastError(): 0 when both launches were accepted.
+int psf_div(const float* phase, const float* pcd, const float* psd,
+            const float* are, const float* aim, float* work, float* out,
+            int batch, int n_div, int R, int w, float scale, int device,
+            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || n_div <= 0) return 0;
-  if (R <= 0 || w <= 0 || w > kCrop) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int full = n_div / kGroup;
-  const int rest = n_div % kGroup;
-  const int d0 = full * kGroup;
-  if (full > 0) {
-    launch<kGroup>(dim3(batch, full), s, phase, pupil, cosd, sind, are, aim,
-                   out, R, w, n_div, 0, scale);
-  }
-  if (rest == 1) {
-    launch<1>(dim3(batch, 1), s, phase, pupil, cosd, sind, are, aim, out, R,
-              w, n_div, d0, scale);
-  } else if (rest == 2) {
-    launch<2>(dim3(batch, 1), s, phase, pupil, cosd, sind, are, aim, out, R,
-              w, n_div, d0, scale);
-  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = psf_mma::prepare(psf_div_kernel, DiversityFields::kMaps, are, aim,
+                         work, R, w, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using psf_mma::aligned16;
+  const int vec16 =
+      R % 4 == 0 && aligned16(phase) && aligned16(pcd) && aligned16(psd);
+  const dim3 grid(batch, (n_div + kFields - 1) / kFields);
+  psf_div_kernel<<<grid, psf_mma::kThreads, kSmemBytes, s>>>(
+      DiversityFields{phase, pcd, psd, out, n_div},
+      reinterpret_cast<float2*>(work), R, w, scale, vec16);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory a block of the kernel takes, in bytes.
+int psf_div_smem_bytes() { return static_cast<int>(kSmemBytes); }
 
 const char* psf_div_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -16,385 +16,65 @@
 //   F_+a = (c pcd - s psd, s pcd + c psd)
 //   F_-a = (c pcd + s psd, s pcd - c psd).
 //
-// What bounds it.  98.7% of the work is the two complex matrix products
-// (stage 1 G_d = A F_d, stage 2 G_d A^T): 62.0 GFLOP per call at R=128,
-// B=4096.  The FP32 design this replaces ran them as scalar fmaf chains
-// and took 1.954 ms there (NVIDIA H100 80GB HBM3, 700 W), issue-bound on
-// FP32 and shared-memory loads.  Here they run as mma.sync.m16n8k8 TF32
-// products.  One TF32 pass keeps 11 significant bits and errs by 1e-4
-// of the peak on this function, 200x the float32 plain version
-// (tests/test_torch_ops.py emulates both), so every float32 operand x is
-// split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and each
-// product is lo*hi + hi*lo + hi*hi (3xTF32), as close to the exact
-// result as the float32 plain version.  That triples the tensor-core work, so the
-// kernel is bound first by TF32 tensor-core issue for the 3 passes
-// (94.4 M mma per call at R=128, B=4096), then by the shared-memory
-// fragment loads that feed them and the hi/lo splits.
-//
-// Design:
-//   * one block of 8 warps per scenario (4096 blocks at the main path's
-//     B, two resident per SM), walking the R x R field in 32-column
-//     strips; any R works (the field never has to fit in shared memory);
-//   * shared memory holds float32 (re, im) pairs, at a row stride that
-//     keeps the 8-byte fragment loads free of bank conflicts; each value
-//     is split into hi/lo in registers as its fragment is loaded, which
-//     moves half the bytes of storing the split and frees the
-//     field-forming step of it;
-//   * stage 1 per strip and 32-row K tile: the block forms the three
-//     field tiles (one full-precision sincosf per pixel -- the diversity
-//     alone reaches +-3 rad) from the tile's phase, pupil, pcd and psd,
-//     which cp.async brought into shared memory during the previous
-//     step's products; each warp accumulates a 16 x 24 tile of G (32 crop
-//     rows x 3 diversities x 32 columns, re and im: 24 floats a thread)
-//     with 12 mma per k8 step and 8-column tile: Gre = Are Fre + Aim
-//     (-Fim), Gim = Aim Fre + Are Fim, 3 passes each;
-//   * stage 2 per strip: the strip's G goes to shared memory, and each
-//     warp folds it into its 16 x 8 tile of the (3, w, w) complex
-//     output, O_d += G_d A_strip^T, which stays in registers for the
-//     whole scenario (24 floats a thread).  The strip's products
-//     accumulate in the (then free) G registers and are added to O in
-//     float32: the tensor cores' accumulation is not IEEE round to
-//     nearest, and one chain over all strips left 1.6x the error against
-//     the plain version at R=512 (5.9e-6 against 3.8e-6 of the peak in
-//     chip_smoke.py's kernel check, NVIDIA H100 80GB HBM3, 700 W);
-//   * a small kernel (psf_div3_sym_tiles) lays the operator out once per
-//     call as 32 x 32 tiles of (re, im), zero-padded to 32 rows and a
-//     whole number of tiles; they stream from L2 into a double-buffered
-//     shared-memory ring with cp.async, the next tile arriving while the
-//     current one is used.  The stream is, per strip, the R/32 tiles of
-//     stage 1, then the strip's own tile for stage 2;
-//   * the K loops are unrolled only as far as the 128 registers a thread
-//     (two blocks per SM) hold without spilling.
-//   Neither the (B, 3, R, R) fields nor the (B, 3, w, R) row intermediate
-//   ever reaches device memory -- what the TPU kernel kept in VMEM.
-//
-// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32; g = lane / 4, t = lane % 4):
-//   A (16 x 8, row): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-//   B (8 x 8, col):  b0 (t, g), b1 (t + 4, g)
-//   C (16 x 8):      c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// What bounds it, and the design: the tensor-core DFT engine that B1, B2
+// and B3 share (psf_mma.cuh), whose block here is one scenario's three
+// diversities: 62.0 GFLOP of DFT stages per call at R=128, B=4096, 98.7%
+// of the work.  The FP32 design this replaced ran them as scalar fmaf
+// chains and took 1.954 ms there (NVIDIA H100 80GB HBM3, 700 W),
+// issue-bound on FP32 and shared-memory loads.  B1's field-forming policy
+// loads four maps a K tile (phase, pupil, pcd, psd) and takes one
+// full-precision sincosf per pixel -- the diversity alone reaches +-3 rad.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
 
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "psf_mma.cuh"
 
 namespace {
 
-constexpr int kTile = 32;           // field tile edge, K tile depth
-constexpr int kWarps = 8;           // warps per block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kCrop = 32;           // crop width padded to two m16 tiles
-constexpr int kDiv = 3;             // diversities
-// row stride, in (re, im) pairs, of the shared-memory tiles: A fragments
-// read rows g, B fragments rows t, both free of bank conflicts for 8-byte
-// loads at a stride of 4 mod 16
-constexpr int kStride = kTile + 4;
-constexpr int kFieldPairs = kDiv * kTile * kStride;  // field, then G
-constexpr int kOpPairs = kCrop * kStride;
-constexpr int kMaps = 4;            // phase, pupil, pcd, psd
-constexpr size_t kSmemBytes =
-    (kFieldPairs + 2 * kOpPairs) * sizeof(float2) +
-    kMaps * kTile * kTile * sizeof(float);
+using psf_mma::kFields;
+using psf_mma::kTilePixels;
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// Block b: scenario b's fields (-a, 0, +a) by angle addition.
+struct Sym3Fields {
+  static constexpr int kMaps = 4;     // phase, pupil, pcd, psd
+  const float* phase;                 // (B, R, R)
+  const float* pupil;                 // (R, R)
+  const float* pcd;                   // (R, R)
+  const float* psd;                   // (R, R)
+  float* out_;                        // (B, 3, w, w)
 
-// TF32 round to nearest, ties away from zero (cvt.rna.tf32.f32): add half
-// of the 13 dropped bits to the magnitude, then drop them
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t x) {
-  return (x + 0x1000u) & 0xFFFFE000u;
-}
-
-// x = hi + lo to float32 accuracy, hi and lo TF32
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(__float_as_uint(x));
-  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
-}
-
-// the (hi, lo) halves of the re and im parts of N complex operands
-template <int N>
-struct Frag {
-  uint32_t re_hi[N], re_lo[N], im_hi[N], im_lo[N];
-  __device__ __forceinline__ explicit Frag(const float2 (&v)[N]) {
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      split(v[r].x, re_hi[r], re_lo[r]);
-      split(v[r].y, im_hi[r], im_lo[r]);
-    }
+  __device__ const float* map(int a, int R) const {
+    return a == 0   ? phase + static_cast<size_t>(blockIdx.x) * R * R
+           : a == 1 ? pupil
+           : a == 2 ? pcd
+                    : psd;
   }
-  __device__ __forceinline__ void negate_im(uint32_t (&hi)[N],
-                                            uint32_t (&lo)[N]) const {
-#pragma unroll
-    for (int r = 0; r < N; ++r) {
-      hi[r] = im_hi[r] ^ 0x80000000u;
-      lo[r] = im_lo[r] ^ 0x80000000u;
-    }
+  __device__ bool present(int) const { return true; }
+  __device__ int fields() const { return kFields; }
+  __device__ float* out(int w) const {
+    return out_ + static_cast<size_t>(blockIdx.x) * kFields * w * w;
+  }
+  __device__ void form(const float* m, float2 (&f)[kFields]) const {
+    const float p = m[kTilePixels], pc = m[2 * kTilePixels],
+                ps = m[3 * kTilePixels];
+    float s, c;
+    sincosf(m[0], &s, &c);
+    const float t1 = c * pc, t2 = s * ps, t3 = s * pc, t4 = c * ps;
+    f[0] = make_float2(t1 + t2, t3 - t4);
+    f[1] = make_float2(p * c, p * s);
+    f[2] = make_float2(t1 - t2, t3 + t4);
   }
 };
 
-// c += a b in float32 accuracy: lo*hi + hi*lo + hi*hi
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_hi)[4],
-                                     const uint32_t (&a_lo)[4],
-                                     const uint32_t (&b_hi)[2],
-                                     const uint32_t (&b_lo)[2]) {
-  mma(c, a_lo, b_hi);
-  mma(c, a_hi, b_lo);
-  mma(c, a_hi, b_hi);
-}
+constexpr size_t kSmemBytes = psf_mma::smem_bytes(Sym3Fields::kMaps);
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// copies `bytes` (16 or 0) of src and zero-fills the rest of the 16
-__device__ __forceinline__ void cp_async16_fill(void* dst, const void* src,
-                                                unsigned bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_addr(dst)), "l"(src), "r"(bytes));
-}
-
-// copies `bytes` (4 or 0) of src and zero-fills the rest of the 4
-__device__ __forceinline__ void cp_async4_fill(void* dst, const void* src,
-                                               unsigned bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
-                   smem_addr(dst)), "l"(src), "r"(bytes));
-}
-
-// Operator tiles: tiles[k][u][x] = A[u][32 k + x] as (re, im), zero for
-// u >= w or 32 k + x >= R; nk * 32 * 32 pairs.
-__global__ void psf_div3_sym_tiles(const float* __restrict__ are,
-                                   const float* __restrict__ aim,
-                                   float2* __restrict__ tiles, int R, int w,
-                                   int nk) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= nk * kCrop * kTile) return;
-  const int k = e / (kCrop * kTile), u = (e / kTile) % kCrop;
-  const int x = k * kTile + e % kTile;
-  float2 a = make_float2(0.f, 0.f);
-  if (u < w && x < R) {
-    a = make_float2(are[static_cast<size_t>(u) * R + x],
-                    aim[static_cast<size_t>(u) * R + x]);
-  }
-  tiles[e] = a;
-}
-
-__global__ void __launch_bounds__(kThreads, 2)
-psf_div3_sym_kernel(const float* __restrict__ phase,   // (B, R, R)
-                    const float* __restrict__ pupil,   // (R, R)
-                    const float* __restrict__ pcd,     // (R, R)
-                    const float* __restrict__ psd,     // (R, R)
-                    const float2* __restrict__ tiles,  // (nk, 32, 32)
-                    float* __restrict__ out,           // (B, 3, w, w)
+__global__ void __launch_bounds__(psf_mma::kThreads, 2)
+psf_div3_sym_kernel(Sym3Fields fields, const float2* __restrict__ tiles,
                     int R, int w, float scale, int vec16) {
-  extern __shared__ float4 smem[];
-  // the three field tiles [d][x][y], then the strip's G [d][u][y]
-  float2* const fbuf = reinterpret_cast<float2*>(smem);
-  float2* const ring = fbuf + kFieldPairs;    // two operator tiles [u][x]
-  // the next field tile's phase, pupil, pcd, psd: [map][row][column]
-  float* const raw = reinterpret_cast<float*>(ring + 2 * kOpPairs);
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int nk = (R + kTile - 1) / kTile;
-  const int steps = nk * (nk + 1);          // per strip: nk K tiles + 1
-  const float* const maps[kMaps] = {
-      phase + static_cast<size_t>(blockIdx.x) * R * R, pupil, pcd, psd};
-
-  // stage 1 roles: m16 tile m1 of the 32 crop rows, n8 tiles 3 n1 .. 3 n1
-  // + 2 of the 12 (3 diversities x 4) of the strip's 96 columns
-  const int m1 = warp & 1, n1 = warp >> 1;
-  // stage 2 roles: m16 tile m2 of the output rows u, n8 tile n2 of v
-  const int m2 = warp & 1, n2 = warp >> 1;
-
-  // stage 1: the strip's G; stage 2: the strip's part of O
-  float g_re[3][4] = {}, g_im[3][4] = {};
-  float o_re[kDiv][4] = {}, o_im[kDiv][4] = {};
-
-  // operator tile of `step` into its ring slot, two pairs a copy
-  auto load_tile = [&](int step) {
-    const int strip = step / (nk + 1), j = step % (nk + 1);
-    const float2* src = tiles + static_cast<size_t>(j < nk ? j : strip) *
-                                    kCrop * kTile;
-    float2* dst = ring + (step & 1) * kOpPairs;
-#pragma unroll
-    for (int i = 0; i < kCrop * kTile / 2 / kThreads; ++i) {
-      const int e = 2 * (threadIdx.x + i * kThreads);
-      cp_async16_fill(dst + (e / kTile) * kStride + e % kTile, src + e, 16u);
-    }
-  };
-  // the maps of field tile rows 32 kt.., columns 32 strip.. into raw,
-  // zero outside the R x R grid
-  auto load_raw = [&](int kt, int strip) {
-    const int x0 = kt * kTile, y0 = strip * kTile;
-    if (vec16) {
-      // R % 4 == 0 and aligned maps: one 16-byte chunk of each map a thread
-      const int i = threadIdx.x / 8, c = 4 * (threadIdx.x % 8);
-      const int x = x0 + i, y = y0 + c;
-      const bool ok = x < R && y < R;
-      const size_t idx = ok ? static_cast<size_t>(x) * R + y : 0;
-#pragma unroll
-      for (int a = 0; a < kMaps; ++a) {
-        cp_async16_fill(raw + (a * kTile + i) * kTile + c, maps[a] + idx,
-                        ok ? 16u : 0u);
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < kTile / kWarps; ++r) {
-        const int i = warp + kWarps * r, x = x0 + i, y = y0 + lane;
-        const bool ok = x < R && y < R;
-        const size_t idx = ok ? static_cast<size_t>(x) * R + y : 0;
-#pragma unroll
-        for (int a = 0; a < kMaps; ++a) {
-          cp_async4_fill(raw + (a * kTile + i) * kTile + lane, maps[a] + idx,
-                         ok ? 4u : 0u);
-        }
-      }
-    }
-  };
-
-  load_tile(0);
-  load_raw(0, 0);
-  asm volatile("cp.async.commit_group;");
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-  __syncthreads();
-  for (int step = 0; step < steps; ++step) {
-    const int strip = step / (nk + 1), kt = step % (nk + 1);
-    const bool stage1 = kt < nk;
-
-    if (stage1) {
-      // the field tiles from raw: rows i, column lane
-#pragma unroll
-      for (int r = 0; r < kTile / kWarps; ++r) {
-        const int i = warp + kWarps * r;
-        const float* m = raw + i * kTile + lane;
-        const float p = m[kTile * kTile], pc = m[2 * kTile * kTile],
-                    ps = m[3 * kTile * kTile];
-        float s, c;
-        sincosf(m[0], &s, &c);
-        const float t1 = c * pc, t2 = s * ps, t3 = s * pc, t4 = c * ps;
-        fbuf[(0 * kTile + i) * kStride + lane] = make_float2(t1 + t2, t3 - t4);
-        fbuf[(1 * kTile + i) * kStride + lane] = make_float2(p * c, p * s);
-        fbuf[(2 * kTile + i) * kStride + lane] = make_float2(t1 - t2, t3 + t4);
-      }
-    } else {
-      // the strip's G from the stage-1 accumulators: rows u, u + 8,
-      // columns yo, yo + 1 as two (re, im) pairs a store
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int n = 3 * n1 + j, d = n / 4, yo = (n % 4) * 8 + 2 * t;
-        float4* row = reinterpret_cast<float4*>(
-            fbuf + (d * kCrop + 16 * m1 + g) * kStride + yo);
-        row[0] = make_float4(g_re[j][0], g_im[j][0], g_re[j][1], g_im[j][1]);
-        row[4 * kStride] =
-            make_float4(g_re[j][2], g_im[j][2], g_re[j][3], g_im[j][3]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) g_re[j][r] = g_im[j][r] = 0.f;
-      }
-    }
-    // fbuf ready; raw and the other ring slot are free
-    __syncthreads();
-    if (step + 1 < steps) load_tile(step + 1);
-    if (stage1 && (kt + 1 < nk || strip + 1 < nk)) {
-      // the maps of the next stage-1 step: this strip's next K tile, else
-      // the next strip's first
-      if (kt + 1 < nk) {
-        load_raw(kt + 1, strip);
-      } else {
-        load_raw(0, strip + 1);
-      }
-    }
-    asm volatile("cp.async.commit_group;");
-    const float2* op = ring + (step & 1) * kOpPairs;
-
-    if (stage1) {
-#pragma unroll 2  // deeper unrolling spills at 128 registers
-      for (int ks = 0; ks < kTile / 8; ++ks) {
-        // A fragments of the operator rows u = 16 m1 + (g, g + 8), columns
-        // k = 8 ks + (t, t + 4)
-        const float2* ar = op + (16 * m1 + g) * kStride + 8 * ks + t;
-        const float2 av[4] = {ar[0], ar[8 * kStride], ar[4],
-                              ar[8 * kStride + 4]};
-        const Frag<4> a(av);
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const int n = 3 * n1 + j, d = n / 4, yo = (n % 4) * 8;
-          // B fragments of the field rows x = 8 ks + (t, t + 4), column g
-          const float2* br =
-              fbuf + (d * kTile + 8 * ks + t) * kStride + yo + g;
-          const float2 bv[2] = {br[0], br[4 * kStride]};
-          const Frag<2> f(bv);
-          uint32_t nf_hi[2], nf_lo[2];
-          f.negate_im(nf_hi, nf_lo);
-          // G = A F: re = Are Fre + Aim (-Fim), im = Aim Fre + Are Fim
-          mma3(g_re[j], a.re_hi, a.re_lo, f.re_hi, f.re_lo);
-          mma3(g_re[j], a.im_hi, a.im_lo, nf_hi, nf_lo);
-          mma3(g_im[j], a.im_hi, a.im_lo, f.re_hi, f.re_lo);
-          mma3(g_im[j], a.re_hi, a.re_lo, f.im_hi, f.im_lo);
-        }
-      }
-    } else {
-      // the strip's products go to the G registers, zero since G went to
-      // shared memory, and are added to O in float32 at the end of the
-      // strip: the tensor cores' accumulation is not IEEE round to
-      // nearest, and O would otherwise take every strip's mma chain
-#pragma unroll 2  // as stage 1
-      for (int ks = 0; ks < kTile / 8; ++ks) {
-        // B fragments of A_strip^T: B[y][v] = A[v][y], v = 8 n2 + g,
-        // y = 8 ks + (t, t + 4)
-        const float2* br = op + (8 * n2 + g) * kStride + 8 * ks + t;
-        const float2 bv[2] = {br[0], br[4]};
-        const Frag<2> b(bv);
-        uint32_t nb_hi[2], nb_lo[2];
-        b.negate_im(nb_hi, nb_lo);
-#pragma unroll
-        for (int d = 0; d < kDiv; ++d) {
-          // A fragments of G_d rows u = 16 m2 + (g, g + 8), columns
-          // y = 8 ks + (t, t + 4)
-          const float2* ar =
-              fbuf + (d * kCrop + 16 * m2 + g) * kStride + 8 * ks + t;
-          const float2 av[4] = {ar[0], ar[8 * kStride], ar[4],
-                                ar[8 * kStride + 4]};
-          const Frag<4> gf(av);
-          // G A^T: re = Gre Are^T + Gim (-Aim)^T, im = Gre Aim^T + Gim Are^T
-          mma3(g_re[d], gf.re_hi, gf.re_lo, b.re_hi, b.re_lo);
-          mma3(g_re[d], gf.im_hi, gf.im_lo, nb_hi, nb_lo);
-          mma3(g_im[d], gf.re_hi, gf.re_lo, b.im_hi, b.im_lo);
-          mma3(g_im[d], gf.im_hi, gf.im_lo, b.re_hi, b.re_lo);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < kDiv; ++d) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          o_re[d][r] += g_re[d][r];
-          o_im[d][r] += g_im[d][r];
-          g_re[d][r] = g_im[d][r] = 0.f;
-        }
-      }
-    }
-    // the next step's operator tile and maps have landed; fbuf is free
-    asm volatile("cp.async.wait_group 0;" ::: "memory");
-    __syncthreads();
-  }
-
-  float* o = out + static_cast<size_t>(blockIdx.x) * kDiv * w * w;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int u = 16 * m2 + g + 8 * (r / 2), v = 8 * n2 + 2 * t + r % 2;
-    if (u < w && v < w) {
-#pragma unroll
-      for (int d = 0; d < kDiv; ++d) {
-        o[(d * w + u) * w + v] =
-            (o_re[d][r] * o_re[d][r] + o_im[d][r] * o_im[d][r]) * scale;
-      }
-    }
-  }
+  psf_mma::crop_block(fields, tiles, R, w, scale, vec16);
 }
 
 }  // namespace
@@ -412,29 +92,17 @@ int psf_div3_sym(const float* phase, const float* pupil, const float* pcd,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0) return 0;
-  if (R <= 0 || w <= 0 || w > kCrop) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  err = cudaFuncSetAttribute(psf_div3_sym_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nk = (R + kTile - 1) / kTile;
-  const int pairs = nk * kCrop * kTile;
-  float2* tiles = reinterpret_cast<float2*>(work);
-  psf_div3_sym_tiles<<<(pairs + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      are, aim, tiles, R, w, nk);
-  err = cudaGetLastError();
+  err = psf_mma::prepare(psf_div3_sym_kernel, Sym3Fields::kMaps, are, aim,
+                         work, R, w, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   // the maps go to shared memory in 16-byte copies where rows allow it
-  const auto aligned = [](const float* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const int vec16 = R % 4 == 0 && aligned(phase) && aligned(pupil) &&
-                    aligned(pcd) && aligned(psd);
-  psf_div3_sym_kernel<<<batch, kThreads, kSmemBytes, s>>>(
-      phase, pupil, pcd, psd, tiles, out, R, w, scale, vec16);
+  using psf_mma::aligned16;
+  const int vec16 = R % 4 == 0 && aligned16(phase) && aligned16(pupil) &&
+                    aligned16(pcd) && aligned16(psd);
+  psf_div3_sym_kernel<<<batch, psf_mma::kThreads, kSmemBytes, s>>>(
+      Sym3Fields{phase, pupil, pcd, psd, out}, reinterpret_cast<float2*>(work),
+      R, w, scale, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,9 +27,8 @@
 // issue and shared-memory loads.  Design as B1 otherwise: one block of
 // 8 warps per scenario, 32 x 32 tiles of the six products in shared
 // memory, rows and the 3 x w x w output in registers; the operator-tile
-// load, the second-stage fold and the store are B2's and B3's
-// (psf_tiles.cuh).  float32 throughout, sincosf (not __sincosf), no fast
-// math.
+// load, the second-stage fold and the store are psf_tiles.cuh's.  float32
+// throughout, sincosf (not __sincosf), no fast math.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).

@@ -1,19 +1,16 @@
-// Tiled partial-DFT crop shared by kernels B2 (psf_div.cu), B3
-// (psf_crop.cu) and B4 (psf_div3_sym_thin.cu): for G complex fields F_g
-// (R x R) of one block's item it computes
+// Tiled partial-DFT helpers of kernel B4 (psf_div3_sym_thin.cu), on the
+// FP32 units: for one block's item, with
 //
 //   out[g] = |A F_g A^T|^2 * scale,      A the (w, R) partial DFT, w <= 32,
 //
-// with the design of kernel B1 (psf_div3_sym.cu): one block of 8 warps,
-// 32 x 32 field tiles through shared memory, the row intermediate
-// G_g = A F_g and the w x w output kept in registers (16 G floats a
-// thread), so nothing of size R^2 or w R leaves the SM.  The caller forms
-// the fields pixel by pixel (cos/sin of its phase and its maps), which is
-// where B2 and B3 differ; B4 runs its own first stage on real products
-// and shares the operator-tile load, the second-stage fold and the store.
-// Work per field: 4 w R^2 + 4 w^2 R FP32 FMAs (w padded to 32) against
-// R^2 floats of phase read: FP32-issue and shared-memory-load bound, not
-// memory bound.
+// one block of 8 warps, 32 x 32 tiles through shared memory, the row
+// intermediate and the w x w output kept in registers, so nothing of size
+// R^2 or w R leaves the SM.  B4 runs its own first stage on real products
+// and takes the operator-tile load, the second-stage fold and the store
+// from here.  Work per field: 4 w R^2 + 4 w^2 R FP32 FMAs (w padded to
+// 32) against R^2 floats of phase read: FP32-issue and shared-memory-load
+// bound, not memory bound.  (B1, B2 and B3 run on the tensor cores:
+// psf_mma.cuh.)
 
 #pragma once
 
@@ -91,81 +88,6 @@ __device__ __forceinline__ void store_intensity(
       }
     }
   }
-}
-
-// Called by every thread of a (kTile, kWarps) block.  `fields(idx, f)`
-// writes the G field values (re, im) of the in-grid pixel idx = x R + y
-// into f[0..G).  `out` is this item's (G, w, w) output.
-template <int G, class Fields>
-__device__ __forceinline__ void crop_intensity(const Fields& fields,
-                                               const float* __restrict__ are,
-                                               const float* __restrict__ aim,
-                                               float* __restrict__ out,
-                                               int R, int w, float scale) {
-  // field tiles [g][x][y]; reused for the row intermediate [g][u][y]
-  __shared__ float2 field[G][kTile][kTile];
-  // operator tile transposed, [k][u] = A[u][k0 + k]; padded row
-  __shared__ float2 at[kTile][kCrop + 1];
-
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-
-  // out_g[u][v] for u = warp + kWarps * j, v = lane
-  float o_re[G][kRowsPerWarp] = {};
-  float o_im[G][kRowsPerWarp] = {};
-
-  for (int y0 = 0; y0 < R; y0 += kTile) {
-    // G_g[u][y] for u = warp + kWarps * j, y = y0 + lane
-    float g_re[G][kRowsPerWarp] = {};
-    float g_im[G][kRowsPerWarp] = {};
-    const int y = y0 + lane;
-
-    for (int x0 = 0; x0 < R; x0 += kTile) {
-      for (int i = warp; i < kTile; i += kWarps) {
-        const int x = x0 + i;
-        float2 f[G];
-        if (x < R && y < R) {
-          fields(static_cast<size_t>(x) * R + y, f);
-        } else {
-#pragma unroll
-          for (int g = 0; g < G; ++g) f[g] = make_float2(0.f, 0.f);
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) field[g][i][lane] = f[g];
-      }
-      load_operator_tile(at, are, aim, x0, R, w);
-      __syncthreads();
-
-#pragma unroll 4
-      for (int k = 0; k < kTile; ++k) {
-        float2 f[G];
-#pragma unroll
-        for (int g = 0; g < G; ++g) f[g] = field[g][k][lane];
-#pragma unroll
-        for (int j = 0; j < kRowsPerWarp; ++j) {
-          const float2 a = at[k][warp + kWarps * j];
-#pragma unroll
-          for (int g = 0; g < G; ++g) {
-            g_re[g][j] = fmaf(a.x, f[g].x, fmaf(-a.y, f[g].y, g_re[g][j]));
-            g_im[g][j] = fmaf(a.x, f[g].y, fmaf(a.y, f[g].x, g_im[g][j]));
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // fold the strip into the output
-#pragma unroll
-    for (int j = 0; j < kRowsPerWarp; ++j) {
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        field[g][warp + kWarps * j][lane] =
-            make_float2(g_re[g][j], g_im[g][j]);
-      }
-    }
-    fold_strip<G>(field, at, are, aim, y0, R, w, o_re, o_im);
-  }
-  store_intensity<G>(o_re, o_im, out, w, scale);
 }
 
 }  // namespace psf_tiles

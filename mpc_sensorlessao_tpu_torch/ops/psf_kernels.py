@@ -13,7 +13,9 @@ of ``mpc_sensorlessao_tpu/ops/pallas_kernels.py``).
 On a CUDA tensor each wrapper launches its hand-written kernel (built with
 nvcc at first use, bound with ctypes, counted in ``<wrapper>.launches``)
 or raises; on a CPU tensor it runs its plain PyTorch version
-``<wrapper>_ref``.  There is no other fallback.
+``<wrapper>_ref``.  There is no other fallback.  B1-B3 run both DFT
+stages on the tensor cores in 3xTF32 (float32 accuracy) on one engine,
+``csrc/psf_mma.cuh``; B4 on the FP32 units.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 from . import cuda_build, dft
 
 MAX_CROP = 32          # crop width the kernels' warp layout holds
-B1_TILE = 32           # B1's K tile: its operator scratch holds whole tiles
+MMA_TILE = 32          # K tile of B1-B3: their operator scratch holds whole
+                       # tiles
 
 
 def _intensity(fields: torch.Tensor, dft_op: torch.Tensor,
@@ -160,16 +163,13 @@ def psf_crop_diversity_sym3(phase: torch.Tensor, pupil: torch.Tensor,
                             scale: float) -> torch.Tensor:
     """Kernel B1: fused diversity-PSF crops for the symmetric triple
     (-a, 0, +a), (B, R, R) -> (B, 3, w, w).  Same arguments as
-    ``psf_crop_diversity_sym3_ref``.  Both DFT stages run on the tensor
-    cores in 3xTF32 (float32 accuracy); the operator is laid out in
-    32 x 32 tiles in a scratch of ``2 * 32 * 32 * ceil(R / 32)`` floats."""
+    ``psf_crop_diversity_sym3_ref``."""
     if phase.device.type == "cpu":
         return psf_crop_diversity_sym3_ref(phase, pupil, cos_a, sin_a,
                                            dft_op, scale)
-    R = phase.shape[-1]
     out = _launch("psf_div3_sym", phase,
                   _sym3_maps(phase, pupil, cos_a, sin_a), dft_op, (3,), scale,
-                  workspace=2 * B1_TILE * MAX_CROP * -(-R // B1_TILE))
+                  workspace=_operator_scratch(phase))
     psf_crop_diversity_sym3.launches += 1
     return out
 
@@ -189,6 +189,12 @@ def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
     return out
 
 
+def _operator_scratch(phase) -> int:
+    """Floats of the scratch in which B1-B3 lay the operator out as
+    32 x 32 tiles of (re, im): ``2 * 32 * 32 * ceil(R / 32)``."""
+    return 2 * MMA_TILE * MAX_CROP * -(-phase.shape[-1] // MMA_TILE)
+
+
 def _sym3_maps(phase, pupil, cos_a, sin_a):
     """B1's and B4's maps: pupil, pupil cos(a Z4), pupil sin(a Z4), each
     (R, R) of the phase's grid."""
@@ -203,16 +209,19 @@ def psf_crop_diversity(phase: torch.Tensor, pupil: torch.Tensor,
                        dft_op: torch.Tensor, scale: float) -> torch.Tensor:
     """Kernel B2: fused diversity-PSF crops for a general stack,
     (B, R, R) -> (B, n_div, w, w).  Same arguments as
-    ``psf_crop_diversity_ref``."""
+    ``psf_crop_diversity_ref``.  The kernel's maps are pupil * div_cos
+    and pupil * div_sin, formed here once per call (as B1's pcd, psd)."""
     if phase.device.type == "cpu":
         return psf_crop_diversity_ref(phase, pupil, div_cos, div_sin,
                                       dft_op, scale)
     n_div, R = div_cos.shape[0], phase.shape[-1]
     out = _launch("psf_div", phase,
-                  [("pupil", pupil, (R, R)),
-                   ("div_cos", div_cos, (n_div, R, R)),
-                   ("div_sin", div_sin, (n_div, R, R))],
-                  dft_op, (n_div,), scale, counts=(n_div,))
+                  [("pupil * div_cos", (pupil * div_cos).contiguous(),
+                    (n_div, R, R)),
+                   ("pupil * div_sin", (pupil * div_sin).contiguous(),
+                    (n_div, R, R))],
+                  dft_op, (n_div,), scale, counts=(n_div,),
+                  workspace=_operator_scratch(phase))
     psf_crop_diversity.launches += 1
     return out
 
@@ -225,7 +234,7 @@ def psf_crop_intensity(phase: torch.Tensor, pupil: torch.Tensor,
         return psf_crop_intensity_ref(phase, pupil, dft_op, scale)
     R = phase.shape[-1]
     out = _launch("psf_crop", phase, [("pupil", pupil, (R, R))], dft_op,
-                  (), scale)
+                  (), scale, workspace=_operator_scratch(phase))
     psf_crop_intensity.launches += 1
     return out
 

@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -25,17 +26,33 @@ class LoopSummary(NamedTuple):
     max_abs_volts: torch.Tensor
 
 
-def summarize(outputs) -> LoopSummary:
-    """Reduce StepOutputs over the settled half of the time axis; works
-    on (T, ...) single-scenario or (S, T, ...) batched outputs (the time
-    axis is rms_res's last dim)."""
-    s = outputs.rms_res.shape[-1] // 2
+def percentile(x: torch.Tensor, q: float) -> torch.Tensor:
+    """The q-th percentile of all of ``x``, interpolated linearly between
+    the two nearest order statistics (``jnp.percentile``'s default), by
+    ``kthvalue``: ``torch.quantile`` refuses inputs above 2^24
+    elements."""
+    flat = x.reshape(-1)
+    pos = q / 100.0 * (flat.numel() - 1)
+    k = math.floor(pos)
+    lo = torch.kthvalue(flat, k + 1).values
+    if k + 1 == flat.numel():
+        return lo
+    hi = torch.kthvalue(flat, k + 2).values
+    return lo + (hi - lo) * (pos - k)
+
+
+def summarize(outputs, settle_fraction: float = 0.5) -> LoopSummary:
+    """Reduce StepOutputs over the settled tail of the time axis, from
+    step ``int(T * settle_fraction)`` on; works on (T, ...)
+    single-scenario or (S, T, ...) batched outputs (the time axis is
+    rms_res's last dim)."""
+    s = int(outputs.rms_res.shape[-1] * settle_fraction)
     res = outputs.rms_res[..., s:]
     turb = outputs.rms_turb[..., s:]
     exact = outputs.strehl_exact[..., s:]
     return LoopSummary(
         mean_rms_res=torch.mean(res),
-        p95_rms_res=torch.quantile(res.reshape(-1), 0.95),
+        p95_rms_res=percentile(res, 95),
         mean_rms_turb=torch.mean(turb),
         rejection=torch.mean(turb) / torch.mean(res),
         mean_strehl=torch.mean(outputs.strehl[..., s:]),

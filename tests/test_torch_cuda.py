@@ -61,16 +61,18 @@ def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
 
 
 @pytest.mark.gpu
-def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device):
-    """B1's built SASS holds HMMA (tensor-core) instructions, and ptxas
-    reports no spill for either of its kernels, within the 128 registers
-    a thread that two resident blocks per SM allow."""
-    res = cuda_build.ptxas_resources(cuda_build.ptxas_report("psf_div3_sym"))
-    assert any("psf_div3_sym_kernel" in fn for fn in res)
+@pytest.mark.parametrize("lib", ["psf_div3_sym", "psf_div", "psf_crop"])
+def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
+    """The built SASS of B1, and of B2 and B3 on its engine, holds HMMA
+    (tensor-core) instructions, and ptxas reports no spill for either of
+    a library's kernels, within the 128 registers a thread that two
+    resident blocks per SM allow."""
+    res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))
+    assert any(f"{lib}_kernel" in fn for fn in res)
     for fn, r in res.items():
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (fn, r)
         assert r["registers"] <= 128, (fn, r)
-    assert re.findall(r"\bHMMA\.", device_peaks.sass("psf_div3_sym"))
+    assert re.findall(r"\bHMMA\.", device_peaks.sass(lib))
 
 
 def _kernel_args(kernel, R, B, c, dev, n_div=3):
@@ -117,6 +119,40 @@ def test_b2_b3_b4_cuda_kernels_match_plain(cuda_device, kernel, n_div, R, B,
     want = plain(*args)
     assert got.shape == want.shape
     assert got.shape[-2:] == (2 * c + 1, 2 * c + 1)
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [98, 128])
+@pytest.mark.parametrize("kernel,count", [("b2", 1), ("b2", 2), ("b2", 4),
+                                          ("b3", 1), ("b3", 7)])
+def test_b2_b3_ragged_groups_match_plain(cuda_device, kernel, count, R):
+    """B2 on n_div = 1, 2, 4 random maps and B3 on N = 1, 7 total phases:
+    a group of fewer than three diversities, or a last block of fewer
+    than three items, reads its missing fields as zeros and stores
+    nothing for them.  R=98 is a ragged edge of the 32-px tile and not a
+    multiple of 4 (4-byte map copies).  rtol 2e-4; atol 1e-5 of the
+    peak (as B1)."""
+    phase, pupil, _, _, op, scale = _b1_args(R, 3, 15, cuda_device)
+    rng = np.random.default_rng(8)
+    maps = torch.as_tensor((rng.normal(size=(count, R, R)) * 0.8).astype(
+        np.float32), device=cuda_device)
+    k = psf_kernels
+    if kernel == "b2":
+        wrapper, plain = k.psf_crop_diversity, k.psf_crop_diversity_ref
+        args = (phase, pupil, torch.cos(maps), torch.sin(maps), op, scale)
+        shape = (3, count, 31, 31)
+    else:
+        wrapper, plain = k.psf_crop_intensity, k.psf_crop_intensity_ref
+        args = (maps, pupil, op, scale)
+        shape = (count, 31, 31)
+    before = wrapper.launches
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    want = plain(*args)
+    assert got.shape == want.shape == shape
     peak = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpc_sensorlessao_tpu.models import closed_loop as jcl
 from mpc_sensorlessao_tpu.models import dm as jdm
 from mpc_sensorlessao_tpu.models import mpc as jmpc
 from mpc_sensorlessao_tpu.models import solvers as jsolvers
@@ -27,6 +28,7 @@ from mpc_sensorlessao_tpu.ops import phase_screens as jps
 from mpc_sensorlessao_tpu.ops import psf as jpsf
 from mpc_sensorlessao_tpu.ops import zernike as jz
 from mpc_sensorlessao_tpu.utils import config as jconfig
+from mpc_sensorlessao_tpu.utils import metrics as jmetrics
 from mpc_sensorlessao_tpu_torch import reference_config
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
 from mpc_sensorlessao_tpu_torch.models import closed_loop, dm, estimator
@@ -34,7 +36,7 @@ from mpc_sensorlessao_tpu_torch.models import mpc, pipeline, solvers, var
 from mpc_sensorlessao_tpu_torch.ops import dft, newton_kkt, phase_screens
 from mpc_sensorlessao_tpu_torch.ops import psf, psf_kernels, zernike
 from mpc_sensorlessao_tpu_torch.parallel import montecarlo
-from mpc_sensorlessao_tpu_torch.utils import tree
+from mpc_sensorlessao_tpu_torch.utils import metrics, tree
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -185,51 +187,96 @@ def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
     return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
 
 
-def _b1_tf32(phase, pupil, cos_a, sin_a, dft_op, scale, passes=3):
-    """Kernel B1's arithmetic on the CPU: the three fields by angle
-    addition in float32, then both complex DFT stages as real products
-    through ``_mm_tf32``."""
-    c, s = torch.cos(phase), torch.sin(phase)
-    pcd, psd = pupil * cos_a, pupil * sin_a
-    t1, t2, t3, t4 = c * pcd, s * psd, s * pcd, c * psd
-    fre = torch.stack([t1 + t2, pupil * c, t1 - t2], dim=1)   # (B,3,R,R)
-    fim = torch.stack([t3 - t4, pupil * s, t3 + t4], dim=1)
+def _crops_tf32(fre, fim, dft_op, scale, passes=3):
+    """The tensor-core engine of kernels B1-B3 (csrc/psf_mma.cuh) on the
+    CPU: fields (..., R, R) formed in float32, then both complex DFT
+    stages as real products through ``_mm_tf32``.  Each field's
+    arithmetic is its own, whatever block it shares with two others."""
     are, aim = dft_op.real.contiguous(), dft_op.imag.contiguous()
 
     def mm(a, b):
         return _mm_tf32(a, b, passes)
-    gre = mm(are, fre) - mm(aim, fim)                          # (B,3,w,R)
+    gre = mm(are, fre) - mm(aim, fim)                          # (...,w,R)
     gim = mm(aim, fre) + mm(are, fim)
-    ore = mm(gre, are.T) - mm(gim, aim.T)                      # (B,3,w,w)
+    ore = mm(gre, are.T) - mm(gim, aim.T)                      # (...,w,w)
     oim = mm(gre, aim.T) + mm(gim, are.T)
     return (ore ** 2 + oim ** 2) * scale
 
 
-def test_b1_3xtf32_arithmetic_matches_jax_kernel_and_plain():
-    """B1's 3xTF32 arithmetic, emulated here, == the Pallas sym3 kernel
-    (interpret mode) at R=64, c=9, B=4, a=3 at that test's tolerance
-    (rtol 2e-4, atol 2e-4), and == the float32 plain version at rtol 2e-4,
-    atol 1e-5 of the peak.
-
-    Against the float64 plain version at these inputs (on the CPU): 3
-    passes err 1.0e-7 of the peak (float32's plain version 4.9e-7), one
-    TF32 pass 1.0e-4 of the peak and up to 1.6e-2 relative on pixels
-    above 1e-6 of the peak -- why the kernel takes three."""
+def _engine_case(kernel):
+    """(kernel's arithmetic emulated, JAX kernel in interpret mode, plain
+    version) at R=64, c=9: B1 on B=4 (a=3, scale 2); B2 on B=4 with the
+    symmetric triple (the loop's ``div_sym3=False`` route) or 5 random
+    maps; B3 on N=5 total phases (not a multiple of the engine's three
+    fields a block); B2 and B3 at a unit-peak scale.  Each kernel's
+    fields as it forms them: B1 by angle addition from pupil cos/sin of
+    a Z, B2 by angle addition from each map's pupil cos/sin (formed by
+    its wrapper), B3 as pupil (cos, sin) of each total phase."""
     phase, zmap, a, c = _b1_inputs()
     R = phase.shape[-1]
-    cos_a = np.cos(a * zmap).astype(np.float32)
-    sin_a = np.sin(a * zmap).astype(np.float32)
-    args = (t32(phase), psf.pupil_mask(R, device="cpu"), t32(cos_a),
-            t32(sin_a), dft.centered_partial_dft(R, c, device="cpu"), 2.0)
-    got = _b1_tf32(*args)
-    want = jpk.psf_crop_diversity_sym3(
-        jnp.asarray(phase), jpsf.pupil_mask(R), jnp.asarray(cos_a),
-        jnp.asarray(sin_a), jdft.centered_partial_dft(R, c), 2.0,
-        interpret=True)
-    assert got.shape == (4, 3, 2 * c + 1, 2 * c + 1)
+    pupil = psf.pupil_mask(R, device="cpu")
+    op = dft.centered_partial_dft(R, c, device="cpu")
+    jop, jpupil = jdft.centered_partial_dft(R, c), jpsf.pupil_mask(R)
+    if kernel == "b1":
+        cos_a = np.cos(a * zmap).astype(np.float32)
+        sin_a = np.sin(a * zmap).astype(np.float32)
+        args = (t32(phase), pupil, t32(cos_a), t32(sin_a), op, 2.0)
+        cp, sp = torch.cos(args[0]), torch.sin(args[0])
+        pcd, psd = pupil * args[2], pupil * args[3]
+        t1, t2, t3, t4 = cp * pcd, sp * psd, sp * pcd, cp * psd
+        fre = torch.stack([t1 + t2, pupil * cp, t1 - t2], dim=1)
+        fim = torch.stack([t3 - t4, pupil * sp, t3 + t4], dim=1)
+        want = jpk.psf_crop_diversity_sym3(
+            jnp.asarray(phase), jpupil, jnp.asarray(cos_a),
+            jnp.asarray(sin_a), jop, 2.0, interpret=True)
+        plain = psf_kernels.psf_crop_diversity_sym3_ref(*args)
+        return _crops_tf32(fre, fim, op, 2.0), want, plain
+    scale = _unit_scale(R)
+    if kernel == "b3":
+        total = (np.random.default_rng(12).normal(size=(5, R, R))
+                 * 0.4).astype(np.float32)
+        args = (t32(total), pupil, op, scale)
+        fre = pupil * torch.cos(args[0])
+        fim = pupil * torch.sin(args[0])
+        want = jpk.psf_crop_intensity(jnp.asarray(total), jpupil, jop, scale,
+                                      interpret=True)
+        plain = psf_kernels.psf_crop_intensity_ref(*args)
+        return _crops_tf32(fre, fim, op, scale), want, plain
+    n_div = int(kernel[-1])
+    if n_div == 3:
+        div = np.stack([-a * zmap, 0.0 * zmap, a * zmap])
+    else:
+        div = np.random.default_rng(13).normal(size=(n_div, R, R)) * 0.8
+    div_cos = np.cos(div).astype(np.float32)
+    div_sin = np.sin(div).astype(np.float32)
+    args = (t32(phase), pupil, t32(div_cos), t32(div_sin), op, scale)
+    cp, sp = torch.cos(args[0])[:, None], torch.sin(args[0])[:, None]
+    pcd, psd = pupil * args[2], pupil * args[3]
+    fre, fim = cp * pcd - sp * psd, sp * pcd + cp * psd
+    want = jpk.psf_crop_diversity(
+        jnp.asarray(phase), jpupil, jnp.asarray(div_cos),
+        jnp.asarray(div_sin), jop, scale, interpret=True)
+    plain = psf_kernels.psf_crop_diversity_ref(*args)
+    return _crops_tf32(fre, fim, op, scale), want, plain
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2_3", "b2_5", "b3"])
+def test_b1_3xtf32_arithmetic_matches_jax_kernel_and_plain(kernel):
+    """B1's 3xTF32 arithmetic, emulated here, and B2's and B3's on the
+    same engine (``_engine_case``) == the Pallas kernel it replaces
+    (interpret mode) at that kernel's test tolerance (rtol 2e-4, atol
+    2e-4), and == the float32 plain version at rtol 2e-4, atol 1e-5 of
+    the peak.
+
+    For B1 against the float64 plain version at these inputs (on the
+    CPU): 3 passes err 1.0e-7 of the peak (float32's plain version
+    4.9e-7), one TF32 pass 1.0e-4 of the peak and up to 1.6e-2 relative
+    on pixels above 1e-6 of the peak -- why the engine takes three."""
+    got, want, plain = _engine_case(kernel)
+    assert got.shape == plain.shape
+    assert got.shape[-2:] == (19, 19)
     np.testing.assert_allclose(npy(got), np.asarray(want), rtol=2e-4,
                                atol=2e-4)
-    plain = psf_kernels.psf_crop_diversity_sym3_ref(*args)
     peak = float(plain.abs().max())
     torch.testing.assert_close(got, plain, rtol=2e-4, atol=1e-5 * peak)
 
@@ -412,6 +459,73 @@ def test_builders_default_to_the_card(builder):
     }
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
         calls[builder]()
+
+
+def test_estimator_build_refuses_wide_crops_on_cuda():
+    """crop_half=16 (33-px crops, wider than the kernels' 32) raises at
+    estimator.build for a CUDA device, naming ROADMAP.md C.2, before
+    anything is allocated there (so this runs without a card); the CPU
+    build at the same width runs, and its measure takes the width through
+    the plain versions."""
+    cfg = reference_config(resolution=64)
+    est_cfg = dataclasses.replace(cfg.estimator, crop_half=16)
+    basis = zernike.make_basis(6, 64, device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP.md C.2"):
+        estimator.check_crop_width(16, torch.device("cuda", 0))
+    with pytest.raises(ValueError, match="ROADMAP.md C.2"):
+        estimator.build(est_cfg, basis, device="cuda")
+    estimator.check_crop_width(15, "cuda")       # 31 px: the kernels' width
+    model = estimator.build(est_cfg, basis, device="cpu")
+    y = estimator.measure(model, torch.zeros(2, 64, 64))
+    assert y.shape == (2, 3 * 33 * 33)
+    torch.testing.assert_close(y[0], model.b_s, rtol=1e-4,
+                               atol=1e-6 * float(model.b_s.max()))
+
+
+# ---------------------------------------------------------------- metrics
+
+def _telemetry(S, T, nu=5, nx=4, seed=20):
+    """Seeded positive (S, T, ...) telemetry with StepOutputs' fields."""
+    rng = np.random.default_rng(seed)
+    wide = {"u": nu, "du": nu, "volts": nu, "x_est": nx}
+    return [(rng.random((S, T, wide[f]) if f in wide else (S, T)) + 0.1)
+            .astype(np.float32) for f in closed_loop.StepOutputs._fields]
+
+
+@pytest.mark.parametrize("settle_fraction", [0.5, 0.3])
+def test_summarize_matches_jax(settle_fraction):
+    """metrics.summarize == the JAX summarize on the same (S, T, ...)
+    telemetry, from step int(T * settle_fraction) on (the JAX function
+    jitted with settle_fraction static, as a Python float): rtol 1e-6
+    (float32 reductions in another order; the p95 by order statistics in
+    both)."""
+    arrays = _telemetry(3, 10)
+    got = metrics.to_dict(metrics.summarize(
+        closed_loop.StepOutputs(*map(t32, arrays)), settle_fraction))
+    jsummarize = jax.jit(jmetrics.summarize.__wrapped__, static_argnums=1)
+    want = jmetrics.to_dict(jsummarize(
+        jcl.StepOutputs(*map(jnp.asarray, arrays)), settle_fraction))
+    assert set(got) == set(want)
+    for k in got:
+        assert got[k] == pytest.approx(want[k], rel=1e-6), k
+
+
+def test_summarize_p95_above_2_to_24_elements():
+    """p95_rms_res over 2^24 + 1 settled samples -- where torch.quantile
+    refuses its input -- == numpy.percentile (linear interpolation, as
+    jnp.percentile): rtol 1e-6.  The other series share rms_res's
+    storage, so the check holds ~70 MB."""
+    n = 2 ** 24 + 1
+    x = np.random.default_rng(21).random((1, n)).astype(np.float32)
+    series = torch.as_tensor(x)
+    small = torch.ones(1, 1, 1)
+    fields = {f: small for f in closed_loop.StepOutputs._fields}
+    fields.update(rms_res=series, rms_turb=series, strehl=series,
+                  strehl_exact=series, cost=series)
+    got = metrics.summarize(closed_loop.StepOutputs(**fields),
+                            settle_fraction=0.0)
+    assert float(got.p95_rms_res) == pytest.approx(
+        float(np.percentile(x, 95)), rel=1e-6)
 
 
 # ------------------------------------------------------------- turbulence
