@@ -11,16 +11,28 @@ package):
    psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu, transc_cos.cu)
    with nvcc for sm_90a, one nvcc each, all started together; print each
    build's seconds and ptxas registers, shared memory and spills.  B1,
-   B2 and B3 (3xTF32 on the tensor cores, csrc/psf_mma.cuh): each one's
-   registers, dynamic shared memory, spills and the HMMA (tensor-core)
-   instructions in its SASS; a spill, or SASS without HMMA, fails.
+   B2 and B3 (3xTF32 on the tensor cores, csrc/psf_mma.cuh), and their
+   bf16 entries (one bf16 pass on the same engine) in the same
+   libraries: each kernel's registers, dynamic shared memory, spills and
+   the HMMA (tensor-core) instructions in its SASS; a spill, a float32
+   kernel without HMMA or with bf16 ones, or a bf16 kernel without
+   HMMA.16816.F32.BF16, fails.
 3. kernel: each kernel against its plain PyTorch version on the card.
    B1-B4 at the shapes phase 4 times: R=128, B=4096 (the main path's; B3
    at N=12,288) and R=512, B=256, on speckled phases (std 0.4 rad) with
    the real defocus diversity; B2 also on a random 5-map stack, B3 on the
    total phases (rtol 2e-4; atol 1e-5 of the batch's PSF peak, because
    both sum R^2 unit-modulus field terms in float32 in different orders
-   -- an error that scales with the peak amplitude).  B5a/B5b at (4096,
+   -- an error that scales with the peak amplitude).  B1-B3's bf16
+   entries at the same shapes against their plain versions' bf16 branch:
+   atol 4e-5 of the peak on the real diversity (B1, B2 on the triple, B3),
+   2e-4 on the 5 random maps (the tensor cores' stage-1 sums round toward
+   zero and flip the bf16 rounding of a stage-1 element now and then),
+   and at most 1/4 of the bf16 plain version's gap from the float32 one
+   on the same inputs (the kernel computes the bf16 function).  The 4e-5
+   must catch a B1 kernel that rounds its +- fields instead of its four
+   products: B2's bf16 plain version on the triple rounds those fields,
+   and at R=128 it must miss B1's by more.  B5a/B5b at (4096,
    4096) and at the ragged (1000, 1000), k = 8 and 32, on the JAX
    script's inputs (all 0.7) and on seeded U(-3, 3) (atol 1e-6: both
    chains contract, so rounding does not grow with k).
@@ -30,17 +42,22 @@ package):
    run is the path that launches B4: every kernel must launch there.
    Each time beside its bound (roofline.measure_bound: the least time at
    float32 accuracy, the DFT stages as 3 TF32 passes on the tensor
-   cores) and beside the FP32 bound (every FLOP on FP32).
+   cores; for B1-B3's bf16 variants one bf16 pass) and, for the float32
+   variants, beside the FP32 bound (every FLOP on FP32).
 5. slice: reference_config(resolution=128) cut as bench.py cuts it
    (n_train=300, n_valid=50, 25 steps, gauss_newton_iters=0): build on
    the card, 4096 shared-window scenarios, run_batch for 25 steps,
    measuring through each route of the estimator's switch -- B1 (the
    build's default), B2 (div_sym3 off), B3 (no diversity cos/sin maps).
-   Each run must launch its kernel >= 25 times, give finite outputs and
-   a settled exact Strehl >= 0.975, within 0.002 of the B1 run's; then
-   the best of 3 timed runs.  The same loop at B=4 with injected noise
-   on the card and on the CPU (plain versions) must agree (residual RMS
-   rtol 0.01, u atol 0.02 max|u|, as tests/test_golden_trajectory.py).
+   Then the same configuration with estimator.dft_dtype="bfloat16" (its
+   own build) through the same three routes: the bf16 entries of B1-B3.
+   Each run must launch its kernel >= 25 times (a bf16 run its bf16
+   entry, and the float32 entry 0 times), give finite outputs and a
+   settled exact Strehl >= 0.975, within 0.002 of the float32 B1 run's;
+   then the best of 3 timed runs, the six runs in turns.  The same loop
+   at B=4 with injected noise on the card and on the CPU (plain
+   versions) must agree on every run (residual RMS rtol 0.01, u atol
+   0.02 max|u|, as tests/test_golden_trajectory.py).
 6. trace: one torch.profiler trace of a 25-step B1 run, right after the
    timed runs: device busy time, the idle share of the traced run, and
    the top device kernels and ops.
@@ -52,12 +69,15 @@ package):
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
-   peaks, B1's DFT stages against TF32 (none may exceed 105%); B1-B4
-   against their bound at the measured ceilings (none may exceed 105%),
-   beside the measured-FP32 bound (every FLOP on FP32).
-9. one JSON line listing the kernels (bound_ms and bound_by from
-   measure_bound at the published peaks, fp32_bound_ms beside them),
-   then the last line {"ok": true, "device": {...}}.
+   peaks, B1's DFT stages against TF32 (none may exceed 105%); B1-B4 and
+   the bf16 variants against their bound at the measured ceilings (none
+   may exceed 105%), the float32 ones beside the measured-FP32 bound
+   (every FLOP on FP32; no bound for bf16 products).
+9. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+   psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16 (bound_ms and bound_by
+   from measure_bound at the published peaks, fp32_bound_ms beside them,
+   null for the bf16 entries)
+   -- then the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -97,6 +117,27 @@ KERNELS = (
      K.psf_crop_diversity_sym3_thin_ref, f"{PALLAS}:178", "sym3_thin",
      None),
 )
+# (name, library, wrapper, plain version, bf16 branch it replaces, variant
+# of the A/B entry point, loop route) of the bf16 entries of B1-B3
+BF16_KERNELS = (
+    ("psf_div3_sym_bf16", "psf_div3_sym", K.psf_crop_diversity_sym3,
+     K.psf_crop_diversity_sym3_ref, f"{PALLAS}:134", "sym3_bf16", "sym3"),
+    ("psf_div_bf16", "psf_div", K.psf_crop_diversity,
+     K.psf_crop_diversity_ref, f"{PALLAS}:85", "general_bf16", "general"),
+    ("psf_crop_bf16", "psf_crop", K.psf_crop_intensity,
+     K.psf_crop_intensity_ref, f"{PALLAS}:34", "unfused_bf16", "unfused"),
+)
+BF16 = "bfloat16"
+BF16_HMMA = "HMMA.16816.F32.BF16"
+# bf16 entry against bf16 plain, of the peak: the tensor cores' stage-1
+# sums (rounded toward zero, not to nearest) flip the bf16 rounding of a
+# stage-1 element now and then.  At R=128, B=4096 that moves a pixel by
+# 1.9e-5 of the peak on the real diversity and 1.16e-4 on the 5 random
+# maps' speckle, as a CPU emulation of that accumulation reproduces
+# (tests/test_torch_ops.py); a B1 kernel that rounded its +- fields would
+# miss by more than 6e-5, which BF16_ATOL catches.
+BF16_ATOL = 4e-5
+BF16_ATOL_RANDOM_MAPS = 2e-4
 # (label, library) of the kernels on the tensor-core engine
 MMA_KERNELS = (("B1", "psf_div3_sym"), ("B2", "psf_div"), ("B3", "psf_crop"))
 P = device_peaks
@@ -130,6 +171,8 @@ def fail(msg: str):
 def reset_launches() -> None:
     for _, wrapper, *_ in KERNELS + CHAINS:
         wrapper.launches = 0
+    for _, _, wrapper, *_ in BF16_KERNELS:
+        wrapper.launches_bf16 = 0
 
 
 def device_phase() -> str:
@@ -163,23 +206,30 @@ def build_phase() -> None:
 
 
 def mma_resources(label: str, lib: str, log: str) -> None:
-    """A tensor-core kernel's registers, stack and spills (ptxas),
-    dynamic shared memory and HMMA count (its SASS); fails on a spill or
-    on no HMMA."""
+    """Registers, stack and spills (ptxas) of a tensor-core library's
+    kernels, and of its float32 and bf16 kernel the dynamic shared memory
+    and HMMA count (their SASS); fails on a spill, on a float32 kernel
+    without HMMA or with bf16 ones, or on a bf16 kernel without bf16
+    HMMA."""
     res = cuda_build.ptxas_resources(log or cuda_build.ptxas_report(lib))
-    hmma = len(re.findall(r"\bHMMA\.", device_peaks.sass(lib)))
-    smem = getattr(cuda_build.load(lib), f"{lib}_smem_bytes")()
+    funcs = device_peaks.sass_functions(device_peaks.sass(lib))
     for fn, r in res.items():
         print(f"build: {label} {fn}: {r['registers']} registers, "
               f"{r['stack']} B stack, {r['spill_stores']} B spill stores, "
               f"{r['spill_loads']} B spill loads")
-    print(f"build: {label} {lib}_kernel: {smem} B dynamic shared memory a "
-          f"block; {hmma} HMMA (tensor-core) instructions in the SASS")
-    if not res or hmma == 0:
-        fail(f"{label}'s build shows {hmma} HMMA instructions, ptxas {res}")
-    for fn, r in res.items():
         if r["spill_stores"] or r["spill_loads"]:
             fail(f"{label} kernel {fn} spills: {r}")
+    for entry in (lib, f"{lib}_bf16"):
+        sass = "".join(t for fn, t in funcs.items() if f"{entry}_kernel" in fn)
+        hmma = len(re.findall(r"\bHMMA\.", sass))
+        bf16 = sass.count(BF16_HMMA)
+        smem = getattr(cuda_build.load(lib), f"{entry}_smem_bytes")()
+        print(f"build: {label} {entry}_kernel: {smem} B dynamic shared "
+              f"memory a block; {hmma} HMMA (tensor-core) instructions in "
+              f"its SASS, {bf16} of them {BF16_HMMA}")
+        if hmma == 0 or (bf16 > 0) != entry.endswith("_bf16"):
+            fail(f"{label}'s {entry}_kernel shows {hmma} HMMA, {bf16} "
+                 f"{BF16_HMMA}; ptxas {res}")
 
 
 def b1_args(R: int, B: int, dev):
@@ -196,7 +246,8 @@ def b1_args(R: int, B: int, dev):
 
 
 def kernel_cases(R: int, B: int, dev):
-    """(label, library, arguments) of every kernel check at (R, B)."""
+    """(label, library, arguments, bf16 atol of the peak) of every
+    kernel check at (R, B)."""
     phase, pupil, cos_a, sin_a, op, scale = b1_args(R, B, dev)
     z4 = zernike.make_basis(6, R, device=dev).stack[4]
     triple = torch.stack([-DIVERSITY_AMP * z4, 0.0 * z4,
@@ -206,22 +257,71 @@ def kernel_cases(R: int, B: int, dev):
         (rng.normal(size=(5, R, R)) * 0.8).astype(np.float32), device=dev)
     total = (phase[:, None] + triple).reshape(-1, R, R)
     return (
-        ("B1", "psf_div3_sym", (phase, pupil, cos_a, sin_a, op, scale)),
+        ("B1", "psf_div3_sym", (phase, pupil, cos_a, sin_a, op, scale),
+         BF16_ATOL),
         ("B2 (3 maps)", "psf_div",
-         (phase, pupil, torch.cos(triple), torch.sin(triple), op, scale)),
+         (phase, pupil, torch.cos(triple), torch.sin(triple), op, scale),
+         BF16_ATOL),
         ("B2 (5 random maps)", "psf_div",
-         (phase, pupil, torch.cos(five), torch.sin(five), op, scale)),
-        ("B3 (total phases)", "psf_crop", (total, pupil, op, scale)),
-        ("B4", "psf_div3_sym_thin", (phase, pupil, cos_a, sin_a, op, scale)),
+         (phase, pupil, torch.cos(five), torch.sin(five), op, scale),
+         BF16_ATOL_RANDOM_MAPS),
+        ("B3 (total phases)", "psf_crop", (total, pupil, op, scale),
+         BF16_ATOL),
+        ("B4", "psf_div3_sym_thin", (phase, pupil, cos_a, sin_a, op, scale),
+         None),
     )
 
 
+def bf16_check(label: str, name: str, wrapper, plain, args, want32,
+               atol: float, R: int, B: int):
+    """Max abs error of a bf16 entry against its plain version's bf16
+    branch, beside that branch's gap from the float32 plain version
+    ``want32``, and the bf16 plain output; fails above ``atol`` of the
+    peak or 1/4 of the gap."""
+    got = wrapper(*args, compute_dtype=BF16)
+    torch.cuda.synchronize()
+    want = plain(*args, compute_dtype=BF16)
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        fail(f"{name} output at R={R} B={B}: shape {tuple(got.shape)}, or "
+             "not finite")
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    gap = float((want - want32).abs().max())
+    print(f"kernel {label} bf16 ({name}) vs bf16 plain, R={R} B={B}: "
+          f"max_abs_err {err:.3e} = {err / peak:.2e} of the peak {peak:.4g};"
+          f" bf16 plain vs float32 plain {gap:.3e} = {gap / peak:.2e}; "
+          f"tolerance {atol:g} of the peak and 1/4 of that gap")
+    if not (err <= atol * peak and err <= gap / 4):
+        fail(f"{name} disagrees with its bf16 plain version at R={R} B={B}")
+    return err, want
+
+
+def misrounded_b1_check(b1: torch.Tensor, fields_rounded: torch.Tensor,
+                        R: int, B: int) -> None:
+    """How far a B1 bf16 kernel that rounded its +- fields, instead of
+    its four products, would miss B1's bf16 plain output ``b1``: that is
+    B2's bf16 plain output on the triple, ``fields_rounded``.  Fails at
+    the main path's R=128 if BF16_ATOL would not catch it."""
+    peak = float(b1.abs().max())
+    miss = float((fields_rounded - b1).abs().max()) / peak
+    print(f"kernel B1 bf16 rounding its +- fields (B2's bf16 plain version "
+          f"on the triple) vs B1's bf16 plain, R={R} B={B}: {miss:.2e} of "
+          f"the peak; B1's limit {BF16_ATOL:g}")
+    if R == 128 and not miss > BF16_ATOL:
+        fail(f"B1's bf16 limit {BF16_ATOL:g} would not catch a kernel "
+             f"rounding its +- fields ({miss:.2e} of the peak)")
+
+
 def kernel_phase(dev) -> dict:
-    """Max abs error of each kernel against its plain version."""
+    """Max abs error of each kernel against its plain version, and of
+    each bf16 entry against its plain version's bf16 branch."""
     funcs = {k[0]: (k[1], k[2]) for k in KERNELS}
     max_err = {k[0]: 0.0 for k in KERNELS}
+    bf16_of = {lib: name for name, lib, *_ in BF16_KERNELS}
+    max_err.update({name: 0.0 for name in bf16_of.values()})
     for R, B in SHAPES:
-        for label, lib, args in kernel_cases(R, B, dev):
+        bf16_plain = {}
+        for label, lib, args, bf16_atol in kernel_cases(R, B, dev):
             wrapper, plain = funcs[lib]
             got = wrapper(*args)
             torch.cuda.synchronize()
@@ -240,6 +340,12 @@ def kernel_phase(dev) -> dict:
                 fail(f"{label} disagrees with its plain version at R={R} "
                      f"B={B}")
             max_err[lib] = max(max_err[lib], float(err.max()))
+            if lib in bf16_of:
+                name = bf16_of[lib]
+                err, bf16_plain[label] = bf16_check(
+                    label, name, wrapper, plain, args, want, bf16_atol, R, B)
+                max_err[name] = max(max_err[name], err)
+        misrounded_b1_check(bf16_plain["B1"], bf16_plain["B2 (3 maps)"], R, B)
     rng = np.random.default_rng(2)
     for shape in CHAIN_SHAPES:
         inputs = (("0.7", torch.full(shape, 0.7, device=dev)),
@@ -269,6 +375,13 @@ def check_shares(label: str, shares: dict) -> None:
             fail(f"{label}: {key} = {pct:.1f}%")
 
 
+def fp32_share(bound: dict, ms: float, label: str = "FP32 bound") -> str:
+    """'; <label> t ms, p%' for a float32 kernel's measure_bound; '' for
+    a bf16 one's, which has no FP32 bound."""
+    b = bound["fp32_bound_ms"]
+    return "" if b is None else f"; {label} {b:.4f} ms, {100 * b / ms:.1f}%"
+
+
 def variants_phase(card: str) -> tuple[dict, dict]:
     """The A/B entry point in turns kernels, plain, kernels; returns the
     main shape's times per variant and the launches of its first run."""
@@ -278,20 +391,22 @@ def variants_phase(card: str) -> tuple[dict, dict]:
         k1 = kernel_variants.run(R, B)
         if (R, B) == (128, BATCH):
             launches = {k[0]: k[1].launches for k in KERNELS}
+            launches.update({name: wrapper.launches_bf16
+                             for name, _, wrapper, *_ in BF16_KERNELS})
         plain = kernel_variants.run(R, B, plain=True, reps=5)
         k2 = kernel_variants.run(R, B)
         for run_ in (k1, plain, k2):
             print("variants: " + json.dumps(run_))
-        for v in kernel_variants.VARIANTS:
+        for v in kernel_variants.VARIANTS + kernel_variants.BF16_VARIANTS:
             k_ms, p_ms = min(k1[v + "_ms"], k2[v + "_ms"]), plain[v + "_ms"]
-            b = roofline.measure_bound(v, R, B)
+            base, dtype = kernel_variants.precision(v)
+            b = roofline.measure_bound(base, R, B, compute_dtype=dtype)
             print(f"variant {v} R={R} B={B}: kernel {k1[v + '_ms']:.4f} / "
                   f"{k2[v + '_ms']:.4f} ms, plain {p_ms:.4f} ms per call, "
                   f"bound {b['bound_ms']:.4f} ms ({b['limit']}: tensor "
                   f"{b['tensor_ms']:.4f}, fp32 {b['fp32_ms']:.4f}, bytes "
                   f"{b['bytes_ms']:.4f}), {100 * b['bound_ms'] / k_ms:.1f}% "
-                  f"of bound; FP32 bound {b['fp32_bound_ms']:.4f} ms, "
-                  f"{100 * b['fp32_bound_ms'] / k_ms:.1f}% [{card}]")
+                  f"of bound{fp32_share(b, k_ms)} [{card}]")
             if (R, B) == (128, BATCH):
                 times[v] = (k_ms, p_ms)
     for lib, n in launches.items():
@@ -360,10 +475,10 @@ def peaks_phase(card: str) -> tuple[dict, dict, dict]:
     return report, launches, line
 
 
-def slice_cfg():
+def slice_cfg(dft_dtype: str = "float32"):
     cfg = roofline.bench_cfg(128)
-    return cfg.replace(estimator=dataclasses.replace(cfg.estimator,
-                                                     gauss_newton_iters=0))
+    return cfg.replace(estimator=dataclasses.replace(
+        cfg.estimator, gauss_newton_iters=0, dft_dtype=dft_dtype))
 
 
 def on_route(loop, route: str):
@@ -371,70 +486,80 @@ def on_route(loop, route: str):
                                                               route))
 
 
-def slice_phase(system, cfg, dev, card: str) -> tuple[dict, dict]:
-    """Launches of each route's kernel in its 25-step loop, and each
-    route's best run seconds."""
+def slice_phase(system, system_bf16, cfg, dev, card) -> tuple[dict, dict]:
+    """Launches of each run's kernel in its 25-step loop -- the float32
+    build through B1, B2 and B3, then the bf16 build (dft_dtype
+    "bfloat16") through their bf16 entries -- and each run's best
+    seconds, keyed by route (bf16 runs: "<route> bf16")."""
     scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
                                      BATCH, device=dev)
     montecarlo.assert_shared_window(scen)
-    routes = [(lib, wrapper, route)
-              for lib, wrapper, *_, route in KERNELS if route]
+    # (label, launch count name, wrapper, route, system, bf16)
+    runs = [(route, lib, wrapper, route, system, False)
+            for lib, wrapper, *_, route in KERNELS if route]
+    runs += [(f"{route} bf16", name, wrapper, route, system_bf16, True)
+             for name, _, wrapper, *_, route in BF16_KERNELS]
 
-    def run(route):
-        out = montecarlo.run_batch(on_route(system.loop, route),
-                                   system.layers, cfg, scen, STEPS,
+    def run(route, sys_):
+        out = montecarlo.run_batch(on_route(sys_.loop, route), sys_.layers,
+                                   cfg, scen, STEPS,
                                    shared_window="verified")
         torch.cuda.synchronize()
         return out
     launches = {}
     strehl_b1 = None
-    for lib, wrapper, route in routes:
+    for label, name, wrapper, route, sys_, bf16 in runs:
         reset_launches()
-        out = run(route)
-        launches[lib] = wrapper.launches
-        if launches[lib] < STEPS:
-            fail(f"the {route} loop launched {lib} {launches[lib]} times "
+        out = run(route, sys_)
+        launches[name] = wrapper.launches_bf16 if bf16 else wrapper.launches
+        if launches[name] < STEPS:
+            fail(f"the {label} loop launched {name} {launches[name]} times "
                  f"in {STEPS} steps")
-        nu = system.loop.influence.shape[1]
+        if bf16 and wrapper.launches:
+            fail(f"the {label} loop launched the float32 kernel "
+                 f"{wrapper.launches} times")
+        nu = sys_.loop.influence.shape[1]
         if out.u.shape != (BATCH, STEPS, nu):
-            fail(f"{route}: u has shape {tuple(out.u.shape)}")
-        for name, field in zip(out._fields, out):
+            fail(f"{label}: u has shape {tuple(out.u.shape)}")
+        for field_name, field in zip(out._fields, out):
             if not bool(torch.isfinite(field).all()):
-                fail(f"{route}: non-finite {name}")
+                fail(f"{label}: non-finite {field_name}")
         settle = STEPS // 2
         strehl = float(out.strehl_exact[:, settle:].mean())
         marechal = float(out.strehl[:, settle:].mean())
         rms = float(out.rms_res[:, settle:].mean())
         if strehl < MIN_STREHL:
-            fail(f"{route}: settled exact Strehl {strehl:.5f} < "
+            fail(f"{label}: settled exact Strehl {strehl:.5f} < "
                  f"{MIN_STREHL}")
         if strehl_b1 is None:
             strehl_b1 = strehl
         elif abs(strehl - strehl_b1) > ROUTE_STREHL_TOL:
-            fail(f"{route}: settled exact Strehl {strehl:.5f} is not within "
-                 f"{ROUTE_STREHL_TOL} of the B1 loop's {strehl_b1:.5f}")
-        print(f"slice ({route}, {lib}): R={cfg.resolution} B={BATCH} "
-              f"steps={STEPS}: {lib} launches {launches[lib]}; settled "
+            fail(f"{label}: settled exact Strehl {strehl:.5f} is not within "
+                 f"{ROUTE_STREHL_TOL} of the float32 B1 loop's "
+                 f"{strehl_b1:.5f}")
+        print(f"slice ({label}, {name}): R={cfg.resolution} B={BATCH} "
+              f"steps={STEPS}: {name} launches {launches[name]}; settled "
               f"exact Strehl {strehl:.5f}, Marechal {marechal:.5f}, "
               f"residual RMS {rms:.5f} rad")
-        reference_phase(on_route(system.loop, route), system.layers, cfg,
-                        dev, route)
-    # run times, the routes in turns: B1 B2 B3 B3 B2 B1 B1 B2 B3
-    times = {route: [] for _, _, route in routes}
-    for _, _, route in routes + routes[::-1] + routes:
+        reference_phase(on_route(sys_.loop, route), sys_.layers, cfg, dev,
+                        label)
+    # run times, the runs in turns: forward, backward, forward
+    times = {label: [] for label, *_ in runs}
+    for label, _, _, route, sys_, _ in runs + runs[::-1] + runs:
         t0 = time.perf_counter()
-        run(route)
-        times[route].append(time.perf_counter() - t0)
-    for route, ts in times.items():
-        print(f"slice ({route}) run: {min(ts):.4f} s (best of {ts}), "
+        run(route, sys_)
+        times[label].append(time.perf_counter() - t0)
+    for label, ts in times.items():
+        print(f"slice ({label}) run: {min(ts):.4f} s (best of {ts}), "
               f"{BATCH * STEPS / min(ts):.1f} solves/s [{card}]")
-    return launches, {route: min(ts) for route, ts in times.items()}
+    return launches, {label: min(ts) for label, ts in times.items()}
 
 
 def roofline_phase(system, cfg, peaks: dict, times: dict, card: str):
     """Roofline rows on the slice's build, against the published and the
-    measured peaks; B1-B4 against their bound at the measured ceilings,
-    beside the measured-FP32 bound (every FLOP on FP32)."""
+    measured peaks; B1-B4 and the bf16 variants against their bound at the
+    measured ceilings, the float32 ones beside the measured-FP32 bound
+    (every FLOP on FP32)."""
     rows = [roofline.measure_row(R, B, peaks) for R, B in SHAPES]
     rows += [roofline.step_row(system, cfg, BATCH, gn, peaks)
              for gn in (0, 1)]
@@ -456,15 +581,16 @@ def roofline_phase(system, cfg, peaks: dict, times: dict, card: str):
                      {k: v for k, v in r.items() if k.startswith("pct_")
                       and k != "pct_of_binding_peak"})
     for v, (k_ms, _) in times.items():
-        pub = roofline.measure_bound(v, 128, BATCH)
-        meas = roofline.measure_bound(v, 128, BATCH, peaks=peaks)
+        base, dtype = kernel_variants.precision(v)
+        pub = roofline.measure_bound(base, 128, BATCH, compute_dtype=dtype)
+        meas = roofline.measure_bound(base, 128, BATCH, peaks=peaks,
+                                      compute_dtype=dtype)
         print(f"variant {v} R=128 B={BATCH}: {k_ms:.4f} ms; "
               f"{100 * pub['bound_ms'] / k_ms:.1f}% of the bound "
               f"{pub['bound_ms']:.4f} ms at the published peaks, "
               f"{100 * meas['bound_ms'] / k_ms:.1f}% of the bound "
               f"{meas['bound_ms']:.4f} ms ({meas['limit']}) at the measured "
-              f"ones; {100 * meas['fp32_bound_ms'] / k_ms:.1f}% of the "
-              f"measured-FP32 bound {meas['fp32_bound_ms']:.4f} ms [{card}]")
+              f"ones{fp32_share(meas, k_ms, 'measured-FP32 bound')} [{card}]")
         check_shares(f"variant {v}", {
             "share of the bound at the published peaks":
                 100 * pub["bound_ms"] / k_ms,
@@ -554,7 +680,15 @@ def main() -> None:
     torch.cuda.synchronize()
     print(f"slice: pipeline.build at R={cfg.resolution} in "
           f"{time.time() - t0:.2f} s")
-    loop_launches, run_s = slice_phase(system, cfg, dev, card)
+    t0 = time.time()
+    system_bf16 = pipeline.build(slice_cfg(BF16), dev)
+    torch.cuda.synchronize()
+    print(f"slice: pipeline.build with dft_dtype={BF16} in "
+          f"{time.time() - t0:.2f} s")
+    if system_bf16.est.dft_dtype != BF16:
+        fail(f"the bf16 build's estimator has dft_dtype "
+             f"{system_bf16.est.dft_dtype}")
+    loop_launches, run_s = slice_phase(system, system_bf16, cfg, dev, card)
     trace_phase(system, cfg, run_s["sym3"], card)
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
@@ -568,6 +702,16 @@ def main() -> None:
             "launches": (loop_launches[lib] if route
                          else variant_launches[lib]),
             "max_abs_err": max_err[lib], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "fp32_bound_ms": b["fp32_bound_ms"], "library_ms": None})
+    for name, lib, _, _, replaces, variant, _ in BF16_KERNELS:
+        ms, plain_ms = times[variant]
+        b = roofline.measure_bound(kernel_variants.precision(variant)[0],
+                                   128, BATCH, compute_dtype=BF16)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
+            "replaces": replaces, "launches": loop_launches[name],
+            "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "fp32_bound_ms": b["fp32_bound_ms"], "library_ms": None})
     for lib, _, _, replaces in CHAINS:

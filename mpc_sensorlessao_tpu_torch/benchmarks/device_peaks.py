@@ -156,6 +156,12 @@ def sass(name: str) -> str:
         capture_output=True, text=True, check=True, timeout=120).stdout
 
 
+def sass_functions(sass_text: str) -> dict:
+    """{mangled function name: its SASS} of a ``sass`` listing."""
+    parts = re.split(r"^\s*Function : (\S+)\s*$", sass_text, flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
 def link_instructions(sass_text: str) -> dict:
     """Instructions per element and link of a chain kernel's SASS.
 

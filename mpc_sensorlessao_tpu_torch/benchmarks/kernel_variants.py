@@ -12,10 +12,13 @@ a = 3, scale 1.7e-3) of B seeded phases (std 0.3 rad) at resolution R
   sym3_thin  B4, ``psf_crop_diversity_sym3_thin``
   unfused    B3, ``psf_crop_intensity`` on the (B*3, R, R) total phases
 
+and each of B1-B3's bf16 branch (``compute_dtype="bfloat16"``),
+``sym3_bf16``, ``general_bf16`` and ``unfused_bf16`` (B4 has none),
 timed with CUDA events (``profiling.cuda_time_ms``: the median of 5
 repeats of ``reps`` calls, after a warm-up), and prints one JSON line:
 ``<variant>_us_per_scen``, ``<variant>_rel_diff_vs_general`` (relative
-difference of the output sums), ``R``, ``B``, ``device`` and ``card``
+difference of the output sums from ``general``, or for a bf16 variant
+from ``general_bf16``), ``R``, ``B``, ``device`` and ``card``
 (the card's name and power limit as nvidia-smi gives them).  Raises
 without a CUDA device.
 """
@@ -32,6 +35,8 @@ from ..ops import dft, psf, psf_kernels, zernike
 from ..utils import profiling
 
 VARIANTS = ("general", "sym3", "sym3_thin", "unfused")
+BF16 = "_bf16"         # suffix of a variant's bf16 branch
+BF16_VARIANTS = ("general_bf16", "sym3_bf16", "unfused_bf16")
 CROP = 31
 AMP = 3.0
 SCALE = 1.7e-3
@@ -57,9 +62,17 @@ def inputs(R: int, B: int, device) -> dict:
                                                 device=device))
 
 
+def precision(variant: str) -> tuple[str, str | None]:
+    """(float32 variant, compute_dtype) of a variant name."""
+    if variant.endswith(BF16):
+        return variant[:-len(BF16)], "bfloat16"
+    return variant, None
+
+
 def variants(inp: dict, plain: bool = False) -> dict:
-    """Each variant as a call returning (B, 3, w, w): the kernels, or with
-    ``plain`` their plain PyTorch versions."""
+    """Each variant (VARIANTS, then BF16_VARIANTS) as a call returning
+    (B, 3, w, w): the kernels, or with ``plain`` their plain PyTorch
+    versions."""
     k = psf_kernels
     if plain:
         general, sym3 = k.psf_crop_diversity_ref, k.psf_crop_diversity_sym3_ref
@@ -70,15 +83,21 @@ def variants(inp: dict, plain: bool = False) -> dict:
         thin, unfused = k.psf_crop_diversity_sym3_thin, k.psf_crop_intensity
     p, pup, op = inp["phase"], inp["pupil"], inp["dft_op"]
     B = p.shape[0]
-    return {
-        "general": lambda: general(p, pup, inp["div_cos"], inp["div_sin"],
-                                   op, SCALE),
-        "sym3": lambda: sym3(p, pup, inp["cos_a"], inp["sin_a"], op, SCALE),
-        "sym3_thin": lambda: thin(p, pup, inp["cos_a"], inp["sin_a"], op,
-                                  SCALE),
-        "unfused": lambda: unfused(inp["total"], pup, op, SCALE).reshape(
-            B, 3, CROP, CROP),
-    }
+    calls = {}
+    for dtype in (None, "bfloat16"):
+        suffix = BF16 if dtype else ""
+        calls.update({
+            "general" + suffix: lambda dtype=dtype: general(
+                p, pup, inp["div_cos"], inp["div_sin"], op, SCALE, dtype),
+            "sym3" + suffix: lambda dtype=dtype: sym3(
+                p, pup, inp["cos_a"], inp["sin_a"], op, SCALE, dtype),
+            "unfused" + suffix: lambda dtype=dtype: unfused(
+                inp["total"], pup, op, SCALE, dtype).reshape(B, 3, CROP,
+                                                             CROP),
+        })
+    calls["sym3_thin"] = lambda: thin(p, pup, inp["cos_a"], inp["sin_a"],
+                                      op, SCALE)
+    return {name: calls[name] for name in VARIANTS + BF16_VARIANTS}
 
 
 def run(R: int, B: int, plain: bool = False, reps: int = 20) -> dict:
@@ -89,16 +108,18 @@ def run(R: int, B: int, plain: bool = False, reps: int = 20) -> dict:
     inp = inputs(R, B, "cuda")
     out = {"R": R, "B": B, "device": torch.cuda.get_device_name(0),
            "plain": plain}
-    ref = None
+    ref = {}
     for name, fn in variants(inp, plain).items():
         ms = profiling.cuda_time_ms(fn, reps)
         out[name + "_ms"] = ms
         out[name + "_us_per_scen"] = ms * 1e3 / B
         total = float(fn().double().sum())
-        if ref is None:
-            ref = total
+        dtype = precision(name)[1]
+        if dtype not in ref:
+            ref[dtype] = total
         else:
-            out[name + "_rel_diff_vs_general"] = abs(total - ref) / abs(ref)
+            out[name + "_rel_diff_vs_general"] = (abs(total - ref[dtype])
+                                                  / abs(ref[dtype]))
     return out
 
 

@@ -8,8 +8,9 @@ each as a share of the card's published peak (``profiling.DEVICE_PEAKS``)
 and, when a peaks report of ``benchmarks/device_peaks.py`` is given, of
 the ceiling measured on the card, with the bound named: tensor,
 operations, bytes or transcendentals.  The measurement kernels' DFT
-stages count against the TF32 tensor-core rate, 3 passes each
-(``measure_bound``), the rest of the FLOPs against FP32.
+stages count against the TF32 tensor-core rate, 3 passes each (their
+bf16 branch: one pass at the bf16 rate, ``measure_bound``), the rest of
+the FLOPs against FP32.
 
 Targets (the JAX script's rows):
   measure_sym3  kernel B1 on fixed inputs, R=128 B=1024, R=128 B=4096
@@ -96,7 +97,8 @@ def dft_flops(R: int, w: int, B: int) -> float:
 
 
 def measure_bound(variant: str, R: int, B: int, w: int = CROP,
-                  peaks: dict | None = None) -> dict:
+                  peaks: dict | None = None,
+                  compute_dtype: str | None = None) -> dict:
     """The least time the card could take for one call of measurement
     kernel ``variant`` (as in ``measure_work``) at float32 accuracy,
     whatever the kernel's implementation: the largest of
@@ -104,6 +106,8 @@ def measure_bound(variant: str, R: int, B: int, w: int = CROP,
       tensor           ``TF32_PASSES`` x the DFT FLOPs (``dft_flops``) over
                        the TF32 tensor-core rate -- 3xTF32 is the cheapest
                        float32-accurate route for the products on this card;
+                       with ``compute_dtype="bfloat16"`` (the kernels' bf16
+                       branch, the same work) one pass over the bf16 rate;
       fp32             the field-forming FLOPs (the rest of measure_work's
                        flops) over the FP32 rate;
       bytes            measure_work's bytes over the HBM rate;
@@ -115,18 +119,24 @@ def measure_bound(variant: str, R: int, B: int, w: int = CROP,
     each part, ``bound_ms`` (the largest), ``limit`` (its part),
     ``bound_by`` ("operations" or "bytes") and ``fp32_bound_ms``, the FP32
     bound for comparison: every FLOP over the FP32 rate, against the
-    bytes.
+    bytes; None for ``"bfloat16"``, whose bf16 products FP32 does not
+    bound.
     """
+    if compute_dtype not in (None, "bfloat16"):
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
     work = measure_work(variant, R, w, B)
     dft = dft_flops(R, w, B)
     if peaks is None:
         pub = profiling.DEVICE_PEAKS[profiling.device_kind()]
-        tf32, fp32 = pub["tf32_flops"], pub["fp32_flops"]
-        hbm, transc = pub["hbm_bytes_per_s"], None
+        rates = {"tf32": pub["tf32_flops"], "bf16": pub["bf16_flops"]}
+        fp32, hbm, transc = pub["fp32_flops"], pub["hbm_bytes_per_s"], None
     else:
-        tf32, fp32 = peaks["tf32_flops"], peaks["f32_flops"]
-        hbm, transc = peaks["hbm_bytes_per_s"], peaks["transc_per_s"]
-    ms = {"tensor": 1e3 * profiling.TF32_PASSES * dft / tf32,
+        rates = {k: peaks.get(f"{k}_flops") for k in ("tf32", "bf16")}
+        fp32, hbm = peaks["f32_flops"], peaks["hbm_bytes_per_s"]
+        transc = peaks["transc_per_s"]
+    tensor = (dft / rates["bf16"] if compute_dtype == "bfloat16"
+              else profiling.TF32_PASSES * dft / rates["tf32"])
+    ms = {"tensor": 1e3 * tensor,
           "fp32": 1e3 * (work["flops"] - dft) / fp32,
           "bytes": 1e3 * work["bytes_accessed"] / hbm}
     if transc is not None:
@@ -135,7 +145,8 @@ def measure_bound(variant: str, R: int, B: int, w: int = CROP,
     return {**{f"{k}_ms": v for k, v in ms.items()},
             "bound_ms": ms[limit], "limit": limit,
             "bound_by": "bytes" if limit == "bytes" else "operations",
-            "fp32_bound_ms": max(1e3 * work["flops"] / fp32, ms["bytes"])}
+            "fp32_bound_ms": (None if compute_dtype == "bfloat16" else
+                              max(1e3 * work["flops"] / fp32, ms["bytes"]))}
 
 
 def load_peaks(path: str) -> dict:

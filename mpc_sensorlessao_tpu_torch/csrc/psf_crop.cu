@@ -21,6 +21,11 @@
 // each total phase).  In the last block, items at or beyond N read as
 // zero fields and store nothing.
 //
+// psf_crop_bf16 is the TPU kernel's compute_dtype="bfloat16" branch on the
+// same engine and policy (Precision::kBf16: one bf16 pass, f32 sums): the
+// fields pupil (cos, sin), the operator and the stage-1 rows are each
+// rounded to bf16 as the stages load them (pallas_kernels.py:34-51).
+//
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
 
@@ -32,6 +37,7 @@ namespace {
 
 using psf_mma::kFields;
 using psf_mma::kTilePixels;
+using psf_mma::Precision;
 
 // Block k: items 3 k, 3 k + 1, 3 k + 2 of the N.
 struct PhaseFields {
@@ -68,14 +74,46 @@ struct PhaseFields {
       }
     }
   }
+  __device__ void recombine(float (&)[kFields][4]) const {}
 };
 
-constexpr size_t kSmemBytes = psf_mma::smem_bytes(PhaseFields::kMaps);
+// Dynamic shared memory a block of the kernel of precision P takes.
+constexpr size_t smem_bytes(Precision p) {
+  return psf_mma::smem_bytes(PhaseFields::kMaps, p);
+}
 
 __global__ void __launch_bounds__(psf_mma::kThreads, 2)
 psf_crop_kernel(PhaseFields fields, const float2* __restrict__ tiles, int R,
                 int w, float scale, int vec16) {
-  psf_mma::crop_block(fields, tiles, R, w, scale, vec16);
+  psf_mma::crop_block<Precision::kTf32x3>(fields, tiles, R, w, scale, vec16);
+}
+
+__global__ void __launch_bounds__(psf_mma::kThreads, 2)
+psf_crop_bf16_kernel(PhaseFields fields, const float2* __restrict__ tiles,
+                     int R, int w, float scale, int vec16) {
+  psf_mma::crop_block<Precision::kBf16>(fields, tiles, R, w, scale, vec16);
+}
+
+// Lays the operator out in `work` and launches `kernel` (of precision P),
+// both on `stream` of CUDA device `device`; cudaGetLastError() after both.
+template <Precision P>
+int launch(void (*kernel)(PhaseFields, const float2*, int, int, float, int),
+           const float* phase, const float* pupil, const float* are,
+           const float* aim, float* work, float* out, int batch, int R,
+           int w, float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = psf_mma::prepare(kernel, smem_bytes(P), are, aim, work, R, w, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using psf_mma::aligned16;
+  const int vec16 = R % 4 == 0 && aligned16(phase) && aligned16(pupil);
+  kernel<<<(batch + kFields - 1) / kFields, psf_mma::kThreads,
+           smem_bytes(P), s>>>(PhaseFields{phase, pupil, out, batch},
+                               reinterpret_cast<float2*>(work), R, w, scale,
+                               vec16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -89,26 +127,33 @@ extern "C" {
 int psf_crop(const float* phase, const float* pupil, const float* are,
              const float* aim, float* work, float* out, int batch, int R,
              int w, float scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = psf_mma::prepare(psf_crop_kernel, PhaseFields::kMaps, are, aim, work,
-                         R, w, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  using psf_mma::aligned16;
-  const int vec16 = R % 4 == 0 && aligned16(phase) && aligned16(pupil);
-  psf_crop_kernel<<<(batch + kFields - 1) / kFields, psf_mma::kThreads,
-                    kSmemBytes, s>>>(PhaseFields{phase, pupil, out, batch},
-                                     reinterpret_cast<float2*>(work), R, w,
-                                     scale, vec16);
-  return static_cast<int>(cudaGetLastError());
+  return launch<Precision::kTf32x3>(psf_crop_kernel, phase, pupil, are, aim,
+                                    work, out, batch, R, w, scale, device,
+                                    stream);
 }
 
-// Dynamic shared memory a block of the kernel takes, in bytes.
-int psf_crop_smem_bytes() { return static_cast<int>(kSmemBytes); }
+// As psf_crop, with the DFT stages' operands in bf16: the
+// compute_dtype="bfloat16" branch of the TPU kernel.
+int psf_crop_bf16(const float* phase, const float* pupil, const float* are,
+                  const float* aim, float* work, float* out, int batch,
+                  int R, int w, float scale, int device, void* stream) {
+  return launch<Precision::kBf16>(psf_crop_bf16_kernel, phase, pupil, are,
+                                  aim, work, out, batch, R, w, scale, device,
+                                  stream);
+}
+
+// Dynamic shared memory a block of either kernel takes, in bytes.
+int psf_crop_smem_bytes() {
+  return static_cast<int>(smem_bytes(Precision::kTf32x3));
+}
+int psf_crop_bf16_smem_bytes() {
+  return static_cast<int>(smem_bytes(Precision::kBf16));
+}
 
 const char* psf_crop_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+const char* psf_crop_bf16_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

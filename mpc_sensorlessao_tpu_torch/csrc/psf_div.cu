@@ -30,6 +30,11 @@
 // warp layout, since the engine's warp roles are cut for three fields,
 // and the loop's route (n_div = 3) has no such group.
 //
+// psf_div_bf16 is the TPU kernel's compute_dtype="bfloat16" branch on the
+// same engine and policy (Precision::kBf16: one bf16 pass, f32 sums): the
+// fields formed in float32, the operator and the stage-1 rows are each
+// rounded to bf16 as the stages load them (pallas_kernels.py:85-107).
+//
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
 
@@ -41,8 +46,10 @@ namespace {
 
 using psf_mma::kFields;
 using psf_mma::kTilePixels;
+using psf_mma::Precision;
 
 // Block (b, k): scenario b, diversities 3 k, 3 k + 1, 3 k + 2 of the n_div.
+template <Precision P>
 struct DiversityFields {
   // phase, then (pcd, psd) of each diversity of the group
   static constexpr int kMaps = 1 + 2 * kFields;
@@ -75,17 +82,63 @@ struct DiversityFields {
     for (int j = 0; j < kFields; ++j) {
       const float pc = m[(1 + 2 * j) * kTilePixels],
                   ps = m[(2 + 2 * j) * kTilePixels];
-      f[j] = make_float2(c * pc - s * ps, s * pc + c * ps);
+      if constexpr (P == Precision::kBf16) {
+        // each product rounded, then their sum, as the TPU kernel forms
+        // the field it rounds to bf16: nvcc's fused multiply-add rounds
+        // once and flips that rounding now and then, which moved a crop
+        // pixel by 1.2e-4 of the peak on random diversity maps
+        f[j] = make_float2(__fmul_rn(c, pc) - __fmul_rn(s, ps),
+                           __fmul_rn(s, pc) + __fmul_rn(c, ps));
+      } else {
+        f[j] = make_float2(c * pc - s * ps, s * pc + c * ps);
+      }
     }
   }
+  __device__ void recombine(float (&)[kFields][4]) const {}
 };
 
-constexpr size_t kSmemBytes = psf_mma::smem_bytes(DiversityFields::kMaps);
+// Dynamic shared memory a block of the kernel of precision P takes.
+constexpr size_t smem_bytes(Precision p) {
+  return psf_mma::smem_bytes(DiversityFields<Precision::kTf32x3>::kMaps, p);
+}
 
 __global__ void __launch_bounds__(psf_mma::kThreads, 2)
-psf_div_kernel(DiversityFields fields, const float2* __restrict__ tiles,
-               int R, int w, float scale, int vec16) {
-  psf_mma::crop_block(fields, tiles, R, w, scale, vec16);
+psf_div_kernel(DiversityFields<Precision::kTf32x3> fields,
+               const float2* __restrict__ tiles, int R, int w, float scale,
+               int vec16) {
+  psf_mma::crop_block<Precision::kTf32x3>(fields, tiles, R, w, scale, vec16);
+}
+
+__global__ void __launch_bounds__(psf_mma::kThreads, 2)
+psf_div_bf16_kernel(DiversityFields<Precision::kBf16> fields,
+                    const float2* __restrict__ tiles, int R, int w,
+                    float scale, int vec16) {
+  psf_mma::crop_block<Precision::kBf16>(fields, tiles, R, w, scale, vec16);
+}
+
+// Lays the operator out in `work` and launches `kernel` (of precision P),
+// both on `stream` of CUDA device `device`; cudaGetLastError() after both.
+template <Precision P>
+int launch(void (*kernel)(DiversityFields<P>, const float2*, int, int,
+                          float, int),
+           const float* phase, const float* pcd, const float* psd,
+           const float* are, const float* aim, float* work, float* out,
+           int batch, int n_div, int R, int w, float scale, int device,
+           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch <= 0 || n_div <= 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = psf_mma::prepare(kernel, smem_bytes(P), are, aim, work, R, w, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  using psf_mma::aligned16;
+  const int vec16 =
+      R % 4 == 0 && aligned16(phase) && aligned16(pcd) && aligned16(psd);
+  const dim3 grid(batch, (n_div + kFields - 1) / kFields);
+  kernel<<<grid, psf_mma::kThreads, smem_bytes(P), s>>>(
+      DiversityFields<P>{phase, pcd, psd, out, n_div},
+      reinterpret_cast<float2*>(work), R, w, scale, vec16);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -100,27 +153,32 @@ int psf_div(const float* phase, const float* pcd, const float* psd,
             const float* are, const float* aim, float* work, float* out,
             int batch, int n_div, int R, int w, float scale, int device,
             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch <= 0 || n_div <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = psf_mma::prepare(psf_div_kernel, DiversityFields::kMaps, are, aim,
-                         work, R, w, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  using psf_mma::aligned16;
-  const int vec16 =
-      R % 4 == 0 && aligned16(phase) && aligned16(pcd) && aligned16(psd);
-  const dim3 grid(batch, (n_div + kFields - 1) / kFields);
-  psf_div_kernel<<<grid, psf_mma::kThreads, kSmemBytes, s>>>(
-      DiversityFields{phase, pcd, psd, out, n_div},
-      reinterpret_cast<float2*>(work), R, w, scale, vec16);
-  return static_cast<int>(cudaGetLastError());
+  return launch(psf_div_kernel, phase, pcd, psd, are, aim, work, out, batch,
+                n_div, R, w, scale, device, stream);
 }
 
-// Dynamic shared memory a block of the kernel takes, in bytes.
-int psf_div_smem_bytes() { return static_cast<int>(kSmemBytes); }
+// As psf_div, with the DFT stages' operands in bf16: the
+// compute_dtype="bfloat16" branch of the TPU kernel.
+int psf_div_bf16(const float* phase, const float* pcd, const float* psd,
+                 const float* are, const float* aim, float* work, float* out,
+                 int batch, int n_div, int R, int w, float scale, int device,
+                 void* stream) {
+  return launch(psf_div_bf16_kernel, phase, pcd, psd, are, aim, work, out,
+                batch, n_div, R, w, scale, device, stream);
+}
+
+// Dynamic shared memory a block of either kernel takes, in bytes.
+int psf_div_smem_bytes() {
+  return static_cast<int>(smem_bytes(Precision::kTf32x3));
+}
+int psf_div_bf16_smem_bytes() {
+  return static_cast<int>(smem_bytes(Precision::kBf16));
+}
 
 const char* psf_div_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+const char* psf_div_bf16_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

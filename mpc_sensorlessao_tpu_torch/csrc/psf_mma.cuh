@@ -62,6 +62,31 @@
 //   B (8 x 8, col):  b0 (t, g), b1 (t + 4, g)
 //   C (16 x 8):      c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
 //
+// Precision::kBf16, the JAX kernels' compute_dtype="bfloat16" branch:
+// every operand of both DFT stages rounded to bf16 (round to nearest
+// even, as torch and XLA round), the sums in float32 -- one pass of
+// mma.sync.m16n8k16 .bf16 with f32 accumulation, no hi/lo split.  Shared
+// memory holds float32 as for 3xTF32, and each value is rounded as its
+// fragment loads: the operator, the field tiles the policy formed and the
+// strip's G (stage 1 is complete by then), each rounded once, so the
+// stages read what the JAX kernel reads.  Fragment layouts (PTX ISA,
+// mma.m16n8k16 .bf16; two bf16 a register, the first in the low half):
+//   A (16 x 16, row): a0 a1 (g, 2t 2t+1), a2 a3 (g + 8, 2t 2t+1),
+//                     a4 a5 (g, 2t+8 2t+9), a6 a7 (g + 8, 2t+8 2t+9)
+//   B (16 x 8, col):  b0 b1 (2t 2t+1, g), b2 b3 (2t+8 2t+9, g)
+//   C (16 x 8):       as for m16n8k8.
+// A product sums over k in any order, so the fragments' k = 2t + e + 8h
+// (e, h in {0, 1}) read the tile's column (A) or row (B) t + 4e + 8h:
+// the k8 fragments' 8-byte, conflict-free loads of two k8 steps, paired.
+// The precision-specific parts -- the K depth kK, the fragment type Frag
+// and the complex parts' mma -- are one trait each, so each DFT stage
+// has one loop body for both precisions.
+// The G a warp holds in stage 1 is one column tile of all three fields,
+// so that a policy can recombine them in registers before G is stored.
+// The result O waits in shared memory between strips (kOSlots floats a
+// thread, read and written by that thread alone): in registers it
+// spilled beside the bf16 loops' operands at 128 registers.
+//
 // A field-forming policy F is a small struct, built by its kernel from
 // the kernel's arguments, with
 //   static constexpr int kMaps;       (R, R) maps a K tile loads
@@ -74,6 +99,10 @@
 //   void form(const float* m, float2 (&f)[kFields]);
 //                                     the three fields at one pixel, where
 //                                     m[a * kTile * kTile] is map a's value
+//   void recombine(float (&g)[kFields][4]);
+//                                     kBf16 only: the float32 stage-1 rows
+//                                     of the formed fields at 4 pixels ->
+//                                     those of the fields measured
 // (all const __device__ members).
 
 #pragma once
@@ -96,15 +125,35 @@ constexpr int kStride = kTile + 4;
 constexpr int kFieldPairs = kFields * kTile * kStride;  // field, then G
 constexpr int kOpPairs = kCrop * kStride;
 
-// Dynamic shared memory of a block whose K tiles load `maps` maps.
-constexpr size_t smem_bytes(int maps) {
+// Operand precision of the DFT stages: float32 accuracy (3xTF32), or the
+// bf16 operands of the JAX kernels' compute_dtype="bfloat16" branch
+enum class Precision { kTf32x3, kBf16 };
+
+// float32 slots a thread holds of the block's result O: re and im of its
+// 4 elements of each field's 16 x 8 tile
+constexpr int kOSlots = 2 * kFields * 4;
+
+// Dynamic shared memory of a block whose K tiles load `maps` maps; kBf16
+// also keeps O there, kOSlots floats a thread.
+constexpr size_t smem_bytes(int maps, Precision p = Precision::kTf32x3) {
   return (kFieldPairs + 2 * kOpPairs) * sizeof(float2) +
-         maps * kTilePixels * sizeof(float);
+         maps * kTilePixels * sizeof(float) +
+         (p == Precision::kBf16 ? kOSlots * kThreads * sizeof(float) : 0);
 }
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
+// one mma.sync.m16n8k8 TF32 product: c += a b
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// one mma.sync.m16n8k16 bf16 product, f32 accumulation: c += a b
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -122,35 +171,118 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
 }
 
-// the (hi, lo) halves of the re and im parts of N complex operands
+// lo and hi rounded to bf16 (to nearest, ties to even), lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// The operands of N fragment registers (4: A, 2: B) at precision P: the
+// re and im Part of complex values v, kValues of them a register, given
+// in register order; neg_im() is -im.
+template <Precision P, int N>
+struct Frag;
+
+// 3xTF32: one value a register, as its TF32 (hi, lo) halves
 template <int N>
-struct Frag {
-  uint32_t re_hi[N], re_lo[N], im_hi[N], im_lo[N];
+struct Frag<Precision::kTf32x3, N> {
+  static constexpr int kValues = 1;
+  struct Part {
+    uint32_t hi[N], lo[N];
+  };
+  Part re, im;
   __device__ __forceinline__ explicit Frag(const float2 (&v)[N]) {
 #pragma unroll
     for (int r = 0; r < N; ++r) {
-      split(v[r].x, re_hi[r], re_lo[r]);
-      split(v[r].y, im_hi[r], im_lo[r]);
+      split(v[r].x, re.hi[r], re.lo[r]);
+      split(v[r].y, im.hi[r], im.lo[r]);
     }
   }
-  __device__ __forceinline__ void negate_im(uint32_t (&hi)[N],
-                                            uint32_t (&lo)[N]) const {
+  __device__ __forceinline__ Part neg_im() const {
+    Part p;
 #pragma unroll
     for (int r = 0; r < N; ++r) {
-      hi[r] = im_hi[r] ^ 0x80000000u;
-      lo[r] = im_lo[r] ^ 0x80000000u;
+      p.hi[r] = im.hi[r] ^ 0x80000000u;
+      p.lo[r] = im.lo[r] ^ 0x80000000u;
     }
+    return p;
+  }
+};
+
+// bf16: values 2r and 2r + 1 packed in register r
+template <int N>
+struct Frag<Precision::kBf16, N> {
+  static constexpr int kValues = 2;
+  struct Part {
+    uint32_t v[N];
+  };
+  Part re, im;
+  __device__ __forceinline__ explicit Frag(const float2 (&v)[2 * N]) {
+#pragma unroll
+    for (int r = 0; r < N; ++r) {
+      re.v[r] = bf16x2(v[2 * r].x, v[2 * r + 1].x);
+      im.v[r] = bf16x2(v[2 * r].y, v[2 * r + 1].y);
+    }
+  }
+  // both halves' sign bits flipped
+  __device__ __forceinline__ Part neg_im() const {
+    Part p;
+#pragma unroll
+    for (int r = 0; r < N; ++r) p.v[r] = im.v[r] ^ 0x80008000u;
+    return p;
   }
 };
 
 // c += a b in float32 accuracy: lo*hi + hi*lo + hi*hi
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&a_hi)[4],
-                                     const uint32_t (&a_lo)[4],
-                                     const uint32_t (&b_hi)[2],
-                                     const uint32_t (&b_lo)[2]) {
-  mma(c, a_lo, b_hi);
-  mma(c, a_hi, b_lo);
-  mma(c, a_hi, b_hi);
+__device__ __forceinline__ void mma(
+    float (&c)[4], const Frag<Precision::kTf32x3, 4>::Part& a,
+    const Frag<Precision::kTf32x3, 2>::Part& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// c += a b, bf16 operands, f32 accumulation
+__device__ __forceinline__ void mma(float (&c)[4],
+                                    const Frag<Precision::kBf16, 4>::Part& a,
+                                    const Frag<Precision::kBf16, 2>::Part& b) {
+  mma_bf16(c, a.v, b.v);
+}
+
+// K depth of one mma at precision P
+template <Precision P>
+constexpr int kK = P == Precision::kBf16 ? 16 : 8;
+
+// The A fragment (16 x kK) of the block whose element (g, t) is at p, row
+// stride kStride: value e of register r at row g + 8 (r % 2), column
+// t + 4 (e + kValues (r / 2)) (see the fragment layouts above)
+template <Precision P>
+__device__ __forceinline__ Frag<P, 4> a_frag(const float2* p) {
+  constexpr int V = Frag<P, 4>::kValues;
+  float2 v[4 * V];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      v[V * r + e] = p[(r % 2) * 8 * kStride + 4 * (e + V * (r / 2))];
+    }
+  }
+  return Frag<P, 4>(v);
+}
+
+// The B fragment (kK x 8) whose element (t, g) is at p, consecutive k
+// `k_stride` apart: value e of register r at k = t + 4 (e + kValues r)
+template <Precision P>
+__device__ __forceinline__ Frag<P, 2> b_frag(const float2* p, int k_stride) {
+  constexpr int V = Frag<P, 2>::kValues;
+  float2 v[2 * V];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[V * r + e] = p[4 * (e + V * r) * k_stride];
+  }
+  return Frag<P, 2>(v);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -190,19 +322,22 @@ __global__ void operator_tiles(const float* __restrict__ are,
 }
 
 // The block's three crops; called by every thread of a kThreads block
-// launched with smem_bytes(F::kMaps) of dynamic shared memory.  `vec16`:
-// R % 4 == 0 and every map 16-byte aligned.
-template <class F>
+// launched with smem_bytes(F::kMaps, P) of dynamic shared memory.
+// `vec16`: R % 4 == 0 and every map 16-byte aligned.
+template <Precision P, class F>
 __device__ __forceinline__ void crop_block(const F& fields,
                                            const float2* __restrict__ tiles,
                                            int R, int w, float scale,
                                            int vec16) {
+  constexpr bool kBf16 = P == Precision::kBf16;
   extern __shared__ float4 smem[];
   // the three field tiles [d][x][y], then the strip's G [d][u][y]
   float2* const fbuf = reinterpret_cast<float2*>(smem);
   float2* const ring = fbuf + kFieldPairs;    // two operator tiles [u][x]
   // the next field tile's maps: [map][row][column]
   float* const raw = reinterpret_cast<float*>(ring + 2 * kOpPairs);
+  // kBf16: O, slot k of thread i at [k][i] (conflict-free)
+  float* const obuf = raw + F::kMaps * kTilePixels;
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
@@ -226,15 +361,30 @@ __device__ __forceinline__ void crop_block(const F& fields,
   }
   auto plane = [&](int a) { return kTable ? table[a] : held[a]; };
 
-  // stage 1 roles: m16 tile m1 of the 32 crop rows, n8 tiles 3 n1 .. 3 n1
-  // + 2 of the 12 (3 fields x 4) of the strip's 96 columns
+  // stage 1 roles: m16 tile m1 of the 32 crop rows, three n8 tiles j of
+  // the 12 (3 fields x 4) of the strip's 96 columns -- 3 n1 .. 3 n1 + 2;
+  // for kBf16 column tile n1 of each field j, which recombine needs
   const int m1 = warp & 1, n1 = warp >> 1;
+  auto field_of = [&](int j) { return kBf16 ? j : (3 * n1 + j) / 4; };
+  auto column_of = [&](int j) {
+    return kBf16 ? 8 * n1 : ((3 * n1 + j) % 4) * 8;
+  };
   // stage 2 roles: m16 tile m2 of the output rows u, n8 tile n2 of v
   const int m2 = warp & 1, n2 = warp >> 1;
 
   // stage 1: the strip's G; stage 2: the strip's part of O
   float g_re[3][4] = {}, g_im[3][4] = {};
   float o_re[kFields][4] = {}, o_im[kFields][4] = {};
+  // the slot of O's element (d, r), re (0) or im (1), in obuf
+  auto slot = [&](int d, int r, int im) {
+    return (2 * (4 * d + r) + im) * kThreads + threadIdx.x;
+  };
+  if constexpr (kBf16) {
+    // O waits in shared memory between strips: the 24 registers it would
+    // hold do not fit beside the bf16 loops' operands at 128 registers
+#pragma unroll
+    for (int k = 0; k < kOSlots; ++k) obuf[k * kThreads + threadIdx.x] = 0.f;
+  }
 
   // operator tile of `step` into its ring slot, two pairs a copy
   auto load_tile = [&](int step) {
@@ -305,9 +455,13 @@ __device__ __forceinline__ void crop_block(const F& fields,
     } else {
       // the strip's G from the stage-1 accumulators: rows u, u + 8,
       // columns yo, yo + 1 as two (re, im) pairs a store
+      if constexpr (kBf16) {
+        fields.recombine(g_re);
+        fields.recombine(g_im);
+      }
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        const int n = 3 * n1 + j, d = n / 4, yo = (n % 4) * 8 + 2 * t;
+        const int d = field_of(j), yo = column_of(j) + 2 * t;
         float4* row = reinterpret_cast<float4*>(
             fbuf + (d * kCrop + 16 * m1 + g) * kStride + yo);
         row[0] = make_float4(g_re[j][0], g_im[j][0], g_re[j][1], g_im[j][1]);
@@ -333,67 +487,63 @@ __device__ __forceinline__ void crop_block(const F& fields,
     const float2* op = ring + (step & 1) * kOpPairs;
 
     if (stage1) {
-#pragma unroll 2  // deeper unrolling spills at 128 registers
-      for (int ks = 0; ks < kTile / 8; ++ks) {
-        // A fragments of the operator rows u = 16 m1 + (g, g + 8), columns
-        // k = 8 ks + (t, t + 4)
-        const float2* ar = op + (16 * m1 + g) * kStride + 8 * ks + t;
-        const float2 av[4] = {ar[0], ar[8 * kStride], ar[4],
-                              ar[8 * kStride + 4]};
-        const Frag<4> a(av);
+      // G += A F: re = Are Fre + Aim (-Fim), im = Aim Fre + Are Fim.
+      // Unrolled as far as 128 registers hold: one k16 step for kBf16
+      // (two spilled with O in registers), two k8 steps for 3xTF32.
+#pragma unroll (P == Precision::kBf16 ? 1 : 2)
+      for (int ks = 0; ks < kTile / kK<P>; ++ks) {
+        // A fragments of the operator rows u = 16 m1 + (g, g + 8)
+        const Frag<P, 4> a =
+            a_frag<P>(op + (16 * m1 + g) * kStride + kK<P> * ks + t);
 #pragma unroll
         for (int j = 0; j < 3; ++j) {
-          const int n = 3 * n1 + j, d = n / 4, yo = (n % 4) * 8;
-          // B fragments of the field rows x = 8 ks + (t, t + 4), column g
-          const float2* br =
-              fbuf + (d * kTile + 8 * ks + t) * kStride + yo + g;
-          const float2 bv[2] = {br[0], br[4 * kStride]};
-          const Frag<2> f(bv);
-          uint32_t nf_hi[2], nf_lo[2];
-          f.negate_im(nf_hi, nf_lo);
-          // G = A F: re = Are Fre + Aim (-Fim), im = Aim Fre + Are Fim
-          mma3(g_re[j], a.re_hi, a.re_lo, f.re_hi, f.re_lo);
-          mma3(g_re[j], a.im_hi, a.im_lo, nf_hi, nf_lo);
-          mma3(g_im[j], a.im_hi, a.im_lo, f.re_hi, f.re_lo);
-          mma3(g_im[j], a.re_hi, a.re_lo, f.im_hi, f.im_lo);
+          // B fragments of the field rows x = kK ks + t.., column g
+          const Frag<P, 2> f = b_frag<P>(
+              fbuf + (field_of(j) * kTile + kK<P> * ks + t) * kStride +
+                  column_of(j) + g,
+              kStride);
+          const auto nf = f.neg_im();
+          mma(g_re[j], a.re, f.re);
+          mma(g_re[j], a.im, nf);
+          mma(g_im[j], a.im, f.re);
+          mma(g_im[j], a.re, f.im);
         }
       }
     } else {
       // the strip's products go to the G registers, zero since G went to
       // shared memory, and are added to O in float32 at the end of the
       // strip: the tensor cores' accumulation is not IEEE round to
-      // nearest, and O would otherwise take every strip's mma chain
-#pragma unroll 2  // as stage 1
-      for (int ks = 0; ks < kTile / 8; ++ks) {
+      // nearest, and O would otherwise take every strip's mma chain.
+      // G A^T: re = Gre Are^T + Gim (-Aim)^T, im = Gre Aim^T + Gim Are^T
+#pragma unroll (P == Precision::kBf16 ? 1 : 2)  // as stage 1
+      for (int ks = 0; ks < kTile / kK<P>; ++ks) {
         // B fragments of A_strip^T: B[y][v] = A[v][y], v = 8 n2 + g,
-        // y = 8 ks + (t, t + 4)
-        const float2* br = op + (8 * n2 + g) * kStride + 8 * ks + t;
-        const float2 bv[2] = {br[0], br[4]};
-        const Frag<2> b(bv);
-        uint32_t nb_hi[2], nb_lo[2];
-        b.negate_im(nb_hi, nb_lo);
+        // y = kK ks + t..
+        const Frag<P, 2> b =
+            b_frag<P>(op + (8 * n2 + g) * kStride + kK<P> * ks + t, 1);
+        const auto nb = b.neg_im();
 #pragma unroll
         for (int d = 0; d < kFields; ++d) {
-          // A fragments of G_d rows u = 16 m2 + (g, g + 8), columns
-          // y = 8 ks + (t, t + 4)
-          const float2* ar =
-              fbuf + (d * kCrop + 16 * m2 + g) * kStride + 8 * ks + t;
-          const float2 av[4] = {ar[0], ar[8 * kStride], ar[4],
-                                ar[8 * kStride + 4]};
-          const Frag<4> gf(av);
-          // G A^T: re = Gre Are^T + Gim (-Aim)^T, im = Gre Aim^T + Gim Are^T
-          mma3(g_re[d], gf.re_hi, gf.re_lo, b.re_hi, b.re_lo);
-          mma3(g_re[d], gf.im_hi, gf.im_lo, nb_hi, nb_lo);
-          mma3(g_im[d], gf.re_hi, gf.re_lo, b.im_hi, b.im_lo);
-          mma3(g_im[d], gf.im_hi, gf.im_lo, b.re_hi, b.re_lo);
+          // A fragments of G_d rows u = 16 m2 + (g, g + 8)
+          const Frag<P, 4> gf = a_frag<P>(
+              fbuf + (d * kCrop + 16 * m2 + g) * kStride + kK<P> * ks + t);
+          mma(g_re[d], gf.re, b.re);
+          mma(g_re[d], gf.im, nb);
+          mma(g_im[d], gf.re, b.im);
+          mma(g_im[d], gf.im, b.re);
         }
       }
 #pragma unroll
       for (int d = 0; d < kFields; ++d) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          o_re[d][r] += g_re[d][r];
-          o_im[d][r] += g_im[d][r];
+          if constexpr (kBf16) {
+            obuf[slot(d, r, 0)] += g_re[d][r];
+            obuf[slot(d, r, 1)] += g_im[d][r];
+          } else {
+            o_re[d][r] += g_re[d][r];
+            o_im[d][r] += g_im[d][r];
+          }
           g_re[d][r] = g_im[d][r] = 0.f;
         }
       }
@@ -403,6 +553,16 @@ __device__ __forceinline__ void crop_block(const F& fields,
     __syncthreads();
   }
 
+  if constexpr (kBf16) {
+#pragma unroll
+    for (int d = 0; d < kFields; ++d) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        o_re[d][r] = obuf[slot(d, r, 0)];
+        o_im[d][r] = obuf[slot(d, r, 1)];
+      }
+    }
+  }
   float* o = fields.out(w);
   const int live = fields.fields();
 #pragma unroll
@@ -425,17 +585,17 @@ inline bool aligned16(const void* p) {
 }
 
 // The host side of a launch, on `stream` of the current device: checks R
-// and w, lets `kernel` take smem_bytes(maps) of dynamic shared memory, and
+// and w, lets `kernel` take `smem` bytes of dynamic shared memory, and
 // lays the operator out in `work` -- ceil(R / 32) * 32 * 32 * 2 floats,
 // 16-byte aligned, allocated by the caller.  Returns the first error.
 template <class Kernel>
-cudaError_t prepare(Kernel kernel, int maps, const float* are,
+cudaError_t prepare(Kernel kernel, size_t smem, const float* are,
                     const float* aim, float* work, int R, int w,
                     cudaStream_t stream) {
   if (R <= 0 || w <= 0 || w > kCrop) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(maps)));
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int nk = (R + kTile - 1) / kTile;
   const int pairs = nk * kCrop * kTile;

@@ -37,6 +37,8 @@ class EstimatorModel:
               inputs; None measures the total phases unfused (kernel B3).
     div_sym3: the diversity stack is the symmetric triple (-a, 0, +a):
               measure with kernel B1, else with B2.
+    dft_dtype: "float32" or "bfloat16" DFT operands of the measurement
+              kernels (EstimatorConfig.dft_dtype).
     """
 
     A_s: torch.Tensor
@@ -51,6 +53,12 @@ class EstimatorModel:
     div_cos: torch.Tensor | None = None
     div_sin: torch.Tensor | None = None
     div_sym3: bool = False
+    dft_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.dft_dtype not in DFT_DTYPES:
+            raise ValueError(f"unknown dft_dtype '{self.dft_dtype}'; one of "
+                             f"{DFT_DTYPES}")
 
     @property
     def n_pixels(self) -> int:
@@ -58,6 +66,7 @@ class EstimatorModel:
 
 
 ROUTES = ("sym3", "general", "unfused")
+DFT_DTYPES = ("float32", "bfloat16")
 
 
 def with_route(model: EstimatorModel, route: str) -> EstimatorModel:
@@ -86,7 +95,9 @@ def measure(model: EstimatorModel, phase_res: torch.Tensor,
     y = psf.diversity_measurements(
         phase_res, model.diversity_phases, model.pupil, model.scale,
         model.crop_half, dft_op=model.dft_op, div_cos=model.div_cos,
-        div_sin=model.div_sin, div_sym3=model.div_sym3)
+        div_sin=model.div_sin, div_sym3=model.div_sym3,
+        compute_dtype=("bfloat16" if model.dft_dtype == "bfloat16"
+                       else None))
     if noise is not None:
         y = y + noise
     return y
@@ -168,10 +179,6 @@ def build(cfg: EstimatorConfig, basis: zernike.ZernikeBasis,
             "estimator.method='mmse' is not ported yet (ROADMAP.md A.7)")
     if cfg.method != "ls":
         raise ValueError(f"unknown estimator method '{cfg.method}'")
-    if cfg.dft_dtype == "bfloat16":
-        raise NotImplementedError(
-            "estimator.dft_dtype='bfloat16' (bf16 operands of kernel B1) "
-            "is not ported yet (ROADMAP.md B)")
     check_crop_width(cfg.crop_half, device)
     R = cfg.resolution
     if basis.resolution != R:
@@ -219,4 +226,5 @@ def build(cfg: EstimatorConfig, basis: zernike.ZernikeBasis,
         div_cos=torch.cos(diversity_phases.double()).float(),
         div_sin=torch.sin(diversity_phases.double()).float(),
         div_sym3=True,  # the zd stack above is always (-a, 0, +a)
+        dft_dtype=cfg.dft_dtype,
     )

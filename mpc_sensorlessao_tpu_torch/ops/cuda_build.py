@@ -127,12 +127,15 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, argtypes: list):
-    """The C entry point ``name`` of csrc/<name>.cu, which returns a
-    cudaError_t as int, as a call that raises RuntimeError on a non-zero
-    code, named by the library's ``<name>_error_string``."""
+def function(name: str, argtypes: list, entry: str | None = None):
+    """The C entry point ``entry`` (default ``name``) of csrc/<name>.cu,
+    which returns a cudaError_t as int, as a call that raises
+    RuntimeError on a non-zero code, named by the library's
+    ``<entry>_error_string``."""
     lib = load(name)
-    fn, err_string = getattr(lib, name), getattr(lib, f"{name}_error_string")
+    entry = entry or name
+    fn, err_string = (getattr(lib, entry),
+                      getattr(lib, f"{entry}_error_string"))
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -142,6 +145,6 @@ def function(name: str, argtypes: list):
     def call(*args) -> None:
         err = fn(*args)
         if err != 0:
-            raise RuntimeError(f"{name} launch failed: "
+            raise RuntimeError(f"{entry} launch failed: "
                                f"{err_string(err).decode()} ({err})")
     return call

@@ -71,6 +71,7 @@ def diversity_measurements(
     div_cos: torch.Tensor | None = None,
     div_sin: torch.Tensor | None = None,
     div_sym3: bool = False,
+    compute_dtype: str | None = None,
 ) -> torch.Tensor:
     """Full measurement path: residual phase(s) (..., R, R) -> stacked PSF
     vector(s) (..., p); diversity_phases (n_div, R, R) are the precomputed
@@ -85,6 +86,9 @@ def diversity_measurements(
       * ``dft_op`` with ``div_cos``/``div_sin`` otherwise: B2;
       * ``dft_op`` alone: the total phases (..., n_div, R, R) through B3;
       * no ``dft_op``: full FFT and crop in torch.fft.
+    ``compute_dtype="bfloat16"`` takes each kernel's bf16 branch (bf16
+    DFT operands, float32 sums); the FFT route ignores it, as the JAX
+    dispatch does.
     """
     R = phase_res.shape[-1]
     if dft_op is not None and div_cos is not None:
@@ -92,15 +96,16 @@ def diversity_measurements(
         flat = phase_res.reshape(-1, R, R)
         if div_sym3 and div_cos.shape[0] == 3:
             crops = psf_kernels.psf_crop_diversity_sym3(
-                flat, pupil, div_cos[2], div_sin[2], dft_op, scale)
+                flat, pupil, div_cos[2], div_sin[2], dft_op, scale,
+                compute_dtype)
         else:
             crops = psf_kernels.psf_crop_diversity(
-                flat, pupil, div_cos, div_sin, dft_op, scale)
+                flat, pupil, div_cos, div_sin, dft_op, scale, compute_dtype)
         return measurement_vector(crops.reshape(*lead, *crops.shape[1:]))
     total = phase_res[..., None, :, :] + diversity_phases
     if dft_op is not None:
         crops = psf_kernels.psf_crop_intensity(
-            total.reshape(-1, R, R), pupil, dft_op, scale)
+            total.reshape(-1, R, R), pupil, dft_op, scale, compute_dtype)
         crops = crops.reshape(*total.shape[:-2], *crops.shape[1:])
     else:
         crops = crop_center(psf_intensity(total, pupil, scale), crop_half)

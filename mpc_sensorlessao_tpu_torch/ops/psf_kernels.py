@@ -16,6 +16,13 @@ or raises; on a CPU tensor it runs its plain PyTorch version
 ``<wrapper>_ref``.  There is no other fallback.  B1-B3 run both DFT
 stages on the tensor cores in 3xTF32 (float32 accuracy) on one engine,
 ``csrc/psf_mma.cuh``; B4 on the FP32 units.
+
+B1-B3 also take ``compute_dtype="bfloat16"``, the Pallas kernels' branch
+that rounds the DFT stages' operands to bf16 and sums in float32: on a
+CUDA tensor the library's ``<name>_bf16`` entry point (one bf16 pass on
+the same engine, counted in ``<wrapper>.launches_bf16``), on a CPU tensor
+the plain version rounding at the same points.  B4 has no bf16 branch
+yet and raises for it.
 """
 
 from __future__ import annotations
@@ -31,25 +38,82 @@ MMA_TILE = 32          # K tile of B1-B3: their operator scratch holds whole
                        # tiles
 
 
+COMPUTE_DTYPES = (None, "bfloat16")
+
+
 def _intensity(fields: torch.Tensor, dft_op: torch.Tensor,
                scale: float) -> torch.Tensor:
     spec = dft.partial_centered_fft2(fields, dft_op)
     return (spec.real ** 2 + spec.imag ** 2) * scale
 
 
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bfloat16 (ties to even), as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _intensity_bf16(fre: torch.Tensor, fim: torch.Tensor,
+                    dft_op: torch.Tensor, scale: float,
+                    recombine=None) -> torch.Tensor:
+    """|A F A^T|^2 * scale with the operands of both DFT stages rounded
+    to bfloat16 and every sum in float32, as the Pallas kernels'
+    ``compute_dtype="bfloat16"`` branch: the fields (``fre``, ``fim``,
+    (..., R, R), formed in float32 by the caller) and A are rounded, the
+    stage-1 rows G = A F are formed in float32 -- then ``recombine``d,
+    where given -- and rounded before stage 2.  The products are float32
+    matrix products of bf16 values (exact products, float32 sums: the
+    caller keeps TF32 off on a GPU)."""
+    are, aim = _bf16(dft_op.real), _bf16(dft_op.imag)
+    fre, fim = _bf16(fre), _bf16(fim)
+    gre = are @ fre - aim @ fim                                 # (...,w,R)
+    gim = are @ fim + aim @ fre
+    if recombine is not None:
+        gre, gim = recombine(gre), recombine(gim)
+    gre, gim = _bf16(gre), _bf16(gim)
+    ore = gre @ are.T - gim @ aim.T                             # (...,w,w)
+    oim = gre @ aim.T + gim @ are.T
+    return (ore ** 2 + oim ** 2) * scale
+
+
+def _sym3_recombine(g: torch.Tensor) -> torch.Tensor:
+    """Stage-1 rows of (P, F0, Q) -> of the fields (-a, 0, +a):
+    (G_P + G_Q, G_0, G_P - G_Q), on dim 1."""
+    return torch.stack([g[:, 0] + g[:, 2], g[:, 1], g[:, 0] - g[:, 2]],
+                       dim=1)
+
+
 def psf_crop_diversity_sym3_ref(phase: torch.Tensor, pupil: torch.Tensor,
                                 cos_a: torch.Tensor, sin_a: torch.Tensor,
-                                dft_op: torch.Tensor,
-                                scale: float) -> torch.Tensor:
+                                dft_op: torch.Tensor, scale: float,
+                                compute_dtype: str | None = None
+                                ) -> torch.Tensor:
     """Plain PyTorch version of kernel B1.
 
     ``cos_a``/``sin_a`` are cos/sin of the POSITIVE diversity map
     (a * Z_defocus); ``dft_op`` is the complex (w, R) partial DFT.  The
     three fields pupil e^{i(phase +- a Z)} follow by angle addition and go
     through A F A^T as complex64.
+
+    ``compute_dtype="bfloat16"`` rounds where ``_psf_div3_sym_kernel``
+    rounds: the four products and the zero-diversity field, as the
+    pseudo-fields P = c pcd + i s pcd, Q = s psd - i c psd and F0; their
+    stage-1 rows are combined in float32 into those of the fields, G(-a)
+    = G_P + G_Q and G(+a) = G_P - G_Q, and only then rounded
+    (``_intensity_bf16``).
     """
+    _check_compute_dtype(compute_dtype)
     c, s = torch.cos(phase), torch.sin(phase)
     pcd, psd = pupil * cos_a, pupil * sin_a
+    if compute_dtype == "bfloat16":
+        fre = torch.stack([c * pcd, pupil * c, s * psd], dim=1)
+        fim = torch.stack([s * pcd, pupil * s, -(c * psd)], dim=1)
+        return _intensity_bf16(fre, fim, dft_op, scale, _sym3_recombine)
     fields = torch.stack([
         torch.complex(c * pcd + s * psd, s * pcd - c * psd),    # -a
         torch.complex(pupil * c, pupil * s),                    #  0
@@ -62,11 +126,13 @@ def psf_crop_diversity_sym3_thin_ref(phase: torch.Tensor,
                                      pupil: torch.Tensor,
                                      cos_a: torch.Tensor,
                                      sin_a: torch.Tensor,
-                                     dft_op: torch.Tensor,
-                                     scale: float) -> torch.Tensor:
+                                     dft_op: torch.Tensor, scale: float,
+                                     compute_dtype: str | None = None
+                                     ) -> torch.Tensor:
     """Plain PyTorch version of kernel B4: B1's function, with the six
     real products through the first DFT stage and the +- recombination
-    on the (w, R) rows."""
+    on the (w, R) rows; float32 only (``"bfloat16"`` raises)."""
+    _refuse_bf16_thin(compute_dtype)
     c, s = torch.cos(phase), torch.sin(phase)
     pcd, psd = pupil * cos_a, pupil * sin_a
     t = torch.stack([c * pcd, s * psd, s * pcd, c * psd, pupil * c,
@@ -82,25 +148,34 @@ def psf_crop_diversity_sym3_thin_ref(phase: torch.Tensor,
 
 def psf_crop_diversity_ref(phase: torch.Tensor, pupil: torch.Tensor,
                            div_cos: torch.Tensor, div_sin: torch.Tensor,
-                           dft_op: torch.Tensor,
-                           scale: float) -> torch.Tensor:
+                           dft_op: torch.Tensor, scale: float,
+                           compute_dtype: str | None = None) -> torch.Tensor:
     """Plain PyTorch version of kernel B2: the fields
     pupil e^{i(phase + div_d)} of each diversity map d from its cos/sin
-    (n_div, R, R) by angle addition, through A F A^T."""
+    (n_div, R, R) by angle addition, through A F A^T.
+    ``compute_dtype="bfloat16"`` rounds where ``_psf_div_kernel`` rounds:
+    each field's parts as formed in float32, A, and the stage-1 rows."""
+    _check_compute_dtype(compute_dtype)
     c, s = torch.cos(phase)[:, None], torch.sin(phase)[:, None]
-    fields = torch.complex(pupil * (c * div_cos - s * div_sin),
-                           pupil * (s * div_cos + c * div_sin))
-    return _intensity(fields, dft_op, scale)
+    fre = pupil * (c * div_cos - s * div_sin)
+    fim = pupil * (s * div_cos + c * div_sin)
+    if compute_dtype == "bfloat16":
+        return _intensity_bf16(fre, fim, dft_op, scale)
+    return _intensity(torch.complex(fre, fim), dft_op, scale)
 
 
 def psf_crop_intensity_ref(phase: torch.Tensor, pupil: torch.Tensor,
-                           dft_op: torch.Tensor,
-                           scale: float) -> torch.Tensor:
+                           dft_op: torch.Tensor, scale: float,
+                           compute_dtype: str | None = None) -> torch.Tensor:
     """Plain PyTorch version of kernel B3: |A (pupil e^{i phase}) A^T|^2
-    * scale for phases (..., R, R)."""
-    return _intensity(torch.complex(pupil * torch.cos(phase),
-                                    pupil * torch.sin(phase)),
-                      dft_op, scale)
+    * scale for phases (..., R, R).  ``compute_dtype="bfloat16"`` rounds
+    where ``_psf_kernel`` rounds: pupil cos, pupil sin, A and the stage-1
+    rows."""
+    _check_compute_dtype(compute_dtype)
+    fre, fim = pupil * torch.cos(phase), pupil * torch.sin(phase)
+    if compute_dtype == "bfloat16":
+        return _intensity_bf16(fre, fim, dft_op, scale)
+    return _intensity(torch.complex(fre, fim), dft_op, scale)
 
 
 def _check(name: str, t: torch.Tensor, shape, device) -> None:
@@ -117,20 +192,23 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
             per_item: tuple, scale: float, counts: tuple = (),
-            workspace: int = 0) -> torch.Tensor:
+            workspace: int = 0, compute_dtype: str | None = None
+            ) -> torch.Tensor:
     """Check the inputs of kernel library ``name`` and launch it on
     PyTorch's current stream.
 
     phase (B, R, R); ``maps`` the (label, tensor, shape) of its other
     float32 inputs; ``dft_op`` the complex64 (w, R) operator, passed as
     its real and imaginary parts; the output is (B, *per_item, w, w)
-    float32.  The C entry point ``name`` takes the pointers (phase, maps,
-    real and imaginary operator, with ``workspace`` > 0 a scratch of that
-    many float32, output), the ints (B, *counts, R, w), then scale, device
-    and stream; ``<name>_error_string`` names its error codes.
+    float32.  The C entry point -- ``name``, or ``<name>_bf16`` for
+    ``compute_dtype="bfloat16"`` -- takes the pointers (phase, maps, real
+    and imaginary operator, with ``workspace`` > 0 a scratch of that many
+    float32, output), the ints (B, *counts, R, w), then scale, device and
+    stream; ``<entry>_error_string`` names its error codes.
     """
+    entry = name if compute_dtype is None else f"{name}_bf16"
     if phase.device.type != "cuda":
-        raise ValueError(f"kernel {name} runs on CUDA tensors, got "
+        raise ValueError(f"kernel {entry} runs on CUDA tensors, got "
                          f"{phase.device}")
     if phase.dim() != 3:
         raise ValueError(f"phase must be (B, R, R), got {tuple(phase.shape)}")
@@ -151,35 +229,57 @@ def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
     ints = (B, *counts, R, w)
     launch = cuda_build.function(
         name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p], entry)
     launch(*(t.data_ptr() for t in ptrs), *ints, float(scale), dev.index,
            torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
+def _count(wrapper, compute_dtype) -> None:
+    """One launch of ``wrapper``'s kernel: float32 launches count in
+    ``wrapper.launches``, bf16 ones in ``wrapper.launches_bf16``."""
+    if compute_dtype is None:
+        wrapper.launches += 1
+    else:
+        wrapper.launches_bf16 += 1
+
+
 def psf_crop_diversity_sym3(phase: torch.Tensor, pupil: torch.Tensor,
                             cos_a: torch.Tensor, sin_a: torch.Tensor,
-                            dft_op: torch.Tensor,
-                            scale: float) -> torch.Tensor:
+                            dft_op: torch.Tensor, scale: float,
+                            compute_dtype: str | None = None
+                            ) -> torch.Tensor:
     """Kernel B1: fused diversity-PSF crops for the symmetric triple
     (-a, 0, +a), (B, R, R) -> (B, 3, w, w).  Same arguments as
     ``psf_crop_diversity_sym3_ref``."""
+    _check_compute_dtype(compute_dtype)
     if phase.device.type == "cpu":
         return psf_crop_diversity_sym3_ref(phase, pupil, cos_a, sin_a,
-                                           dft_op, scale)
+                                           dft_op, scale, compute_dtype)
     out = _launch("psf_div3_sym", phase,
                   _sym3_maps(phase, pupil, cos_a, sin_a), dft_op, (3,), scale,
-                  workspace=_operator_scratch(phase))
-    psf_crop_diversity_sym3.launches += 1
+                  workspace=_operator_scratch(phase),
+                  compute_dtype=compute_dtype)
+    _count(psf_crop_diversity_sym3, compute_dtype)
     return out
+
+
+def _refuse_bf16_thin(compute_dtype) -> None:
+    _check_compute_dtype(compute_dtype)
+    if compute_dtype is not None:
+        raise NotImplementedError(
+            "kernel B4 (psf_crop_diversity_sym3_thin) has no "
+            f"compute_dtype={compute_dtype!r} branch yet (ROADMAP.md B)")
 
 
 def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
                                  cos_a: torch.Tensor, sin_a: torch.Tensor,
-                                 dft_op: torch.Tensor,
-                                 scale: float) -> torch.Tensor:
+                                 dft_op: torch.Tensor, scale: float,
+                                 compute_dtype: str | None = None
+                                 ) -> torch.Tensor:
     """Kernel B4: B1's function and arguments, with the +- recombination
-    on the thin row intermediate."""
+    on the thin row intermediate; float32 only (``"bfloat16"`` raises)."""
+    _refuse_bf16_thin(compute_dtype)
     if phase.device.type == "cpu":
         return psf_crop_diversity_sym3_thin_ref(phase, pupil, cos_a, sin_a,
                                                 dft_op, scale)
@@ -206,14 +306,16 @@ def _sym3_maps(phase, pupil, cos_a, sin_a):
 
 def psf_crop_diversity(phase: torch.Tensor, pupil: torch.Tensor,
                        div_cos: torch.Tensor, div_sin: torch.Tensor,
-                       dft_op: torch.Tensor, scale: float) -> torch.Tensor:
+                       dft_op: torch.Tensor, scale: float,
+                       compute_dtype: str | None = None) -> torch.Tensor:
     """Kernel B2: fused diversity-PSF crops for a general stack,
     (B, R, R) -> (B, n_div, w, w).  Same arguments as
     ``psf_crop_diversity_ref``.  The kernel's maps are pupil * div_cos
     and pupil * div_sin, formed here once per call (as B1's pcd, psd)."""
+    _check_compute_dtype(compute_dtype)
     if phase.device.type == "cpu":
         return psf_crop_diversity_ref(phase, pupil, div_cos, div_sin,
-                                      dft_op, scale)
+                                      dft_op, scale, compute_dtype)
     n_div, R = div_cos.shape[0], phase.shape[-1]
     out = _launch("psf_div", phase,
                   [("pupil * div_cos", (pupil * div_cos).contiguous(),
@@ -221,25 +323,31 @@ def psf_crop_diversity(phase: torch.Tensor, pupil: torch.Tensor,
                    ("pupil * div_sin", (pupil * div_sin).contiguous(),
                     (n_div, R, R))],
                   dft_op, (n_div,), scale, counts=(n_div,),
-                  workspace=_operator_scratch(phase))
-    psf_crop_diversity.launches += 1
+                  workspace=_operator_scratch(phase),
+                  compute_dtype=compute_dtype)
+    _count(psf_crop_diversity, compute_dtype)
     return out
 
 
 def psf_crop_intensity(phase: torch.Tensor, pupil: torch.Tensor,
-                       dft_op: torch.Tensor, scale: float) -> torch.Tensor:
+                       dft_op: torch.Tensor, scale: float,
+                       compute_dtype: str | None = None) -> torch.Tensor:
     """Kernel B3: one PSF crop per total phase, (N, R, R) -> (N, w, w).
     Same arguments as ``psf_crop_intensity_ref``."""
+    _check_compute_dtype(compute_dtype)
     if phase.device.type == "cpu":
-        return psf_crop_intensity_ref(phase, pupil, dft_op, scale)
+        return psf_crop_intensity_ref(phase, pupil, dft_op, scale,
+                                      compute_dtype)
     R = phase.shape[-1]
     out = _launch("psf_crop", phase, [("pupil", pupil, (R, R))], dft_op,
-                  (), scale, workspace=_operator_scratch(phase))
-    psf_crop_intensity.launches += 1
+                  (), scale, workspace=_operator_scratch(phase),
+                  compute_dtype=compute_dtype)
+    _count(psf_crop_intensity, compute_dtype)
     return out
 
 
-psf_crop_diversity_sym3.launches = 0
-psf_crop_diversity.launches = 0
-psf_crop_intensity.launches = 0
+# launches of each kernel: float32 and, for B1-B3, bf16 (``_count``)
+for _wrapper in (psf_crop_diversity_sym3, psf_crop_diversity,
+                 psf_crop_intensity):
+    _wrapper.launches = _wrapper.launches_bf16 = 0
 psf_crop_diversity_sym3_thin.launches = 0

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels B1-B5 on the card, against their plain versions.
+"""The port's CUDA kernels B1-B5 on the card, against their plain versions
+(B1-B3 also in their bf16 branch).
 
 These tests need an NVIDIA GPU with nvcc (marker ``gpu``) and skip
 without one.  They import neither jax nor the JAX package, so on the GPU
@@ -64,9 +65,9 @@ def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
 @pytest.mark.parametrize("lib", ["psf_div3_sym", "psf_div", "psf_crop"])
 def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
     """The built SASS of B1, and of B2 and B3 on its engine, holds HMMA
-    (tensor-core) instructions, and ptxas reports no spill for either of
-    a library's kernels, within the 128 registers a thread that two
-    resident blocks per SM allow."""
+    (tensor-core) instructions, and ptxas reports no spill for any of
+    a library's kernels (its float32 and bf16 entries'), within the 128
+    registers a thread that two resident blocks per SM allow."""
     res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))
     assert any(f"{lib}_kernel" in fn for fn in res)
     for fn, r in res.items():
@@ -155,6 +156,86 @@ def test_b2_b3_ragged_groups_match_plain(cuda_device, kernel, count, R):
     assert got.shape == want.shape == shape
     peak = float(want.abs().max())
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
+
+
+BF16_HMMA = "HMMA.16816.F32.BF16"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lib", ["psf_div3_sym", "psf_div", "psf_crop"])
+def test_bf16_entries_build_without_spills_on_bf16_mma(cuda_device, lib):
+    """Each library's bf16 kernel builds within 128 registers without a
+    spill, and its SASS holds bf16 tensor-core products (HMMA.16816.F32.
+    BF16) and no TF32 ones; the float32 kernel beside it holds no bf16
+    product."""
+    res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))
+    bf16 = [fn for fn in res if f"{lib}_bf16_kernel" in fn]
+    assert len(bf16) == 1, res
+    r = res[bf16[0]]
+    assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
+    assert r["registers"] <= 128, r
+    funcs = device_peaks.sass_functions(device_peaks.sass(lib))
+    for fn, text in funcs.items():
+        if f"{lib}_bf16_kernel" in fn:
+            assert BF16_HMMA in text and "TF32" not in text
+        elif f"{lib}_kernel" in fn:
+            assert BF16_HMMA not in text and "HMMA" in text
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [98, 128])
+@pytest.mark.parametrize("kernel,count", [("b1", 3), ("b2", 1), ("b2", 2),
+                                          ("b2", 3), ("b2", 4), ("b3", 1),
+                                          ("b3", 7)])
+def test_bf16_cuda_kernels_match_bf16_plain(cuda_device, kernel, count, R):
+    """Each kernel's bf16 entry (compute_dtype="bfloat16") vs its plain
+    version's bf16 branch on the card, with the ragged groups of the
+    float32 tests: B2 on n_div = 1, 2, 4 random maps and on the symmetric
+    triple (3), B3 on N = 1, 7 total phases; R=98 is a ragged edge of the
+    tile and not a multiple of 4.  The launch counts as a bf16 one, not
+    a float32 one.  Max abs error at most 4e-5 of the peak on the real
+    diversity (B1, B2 on the triple: chip_smoke.py's BF16_ATOL, below the
+    6e-5 by which a B1 kernel rounding its +- fields would miss at R=128)
+    and 1e-4 on random maps and phases -- the tensor cores' stage-1 sums
+    round toward zero and flip the bf16 rounding of a stage-1 element now
+    and then, by more on speckle -- and at most 1/4 of the bf16 plain
+    version's gap from the float32 one: the kernel computes the bf16
+    function."""
+    phase, pupil, cos_a, sin_a, op, scale = _b1_args(R, 3, 15, cuda_device)
+    k = psf_kernels
+    if kernel == "b1":
+        wrapper = k.psf_crop_diversity_sym3
+        plain = k.psf_crop_diversity_sym3_ref
+        args = (phase, pupil, cos_a, sin_a, op, scale)
+    else:
+        if count == 3:
+            z4 = zernike.make_basis(6, R, device=cuda_device).stack[4]
+            maps = torch.stack([-3.0 * z4, 0.0 * z4, 3.0 * z4])
+        else:
+            rng = np.random.default_rng(8)
+            maps = torch.as_tensor((rng.normal(size=(count, R, R)) * 0.8
+                                    ).astype(np.float32), device=cuda_device)
+        if kernel == "b2":
+            wrapper, plain = k.psf_crop_diversity, k.psf_crop_diversity_ref
+            args = (phase, pupil, torch.cos(maps), torch.sin(maps), op,
+                    scale)
+        else:
+            wrapper, plain = k.psf_crop_intensity, k.psf_crop_intensity_ref
+            args = (maps, pupil, op, scale)
+    before = (wrapper.launches, wrapper.launches_bf16)
+    got = wrapper(*args, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_bf16) == (before[0],
+                                                         before[1] + 1)
+    want = plain(*args, compute_dtype="bfloat16")
+    assert got.shape == want.shape
+    assert got.shape[-2:] == (31, 31)
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    gap = float((want - plain(*args)).abs().max())
+    real_diversity = kernel == "b1" or (kernel == "b2" and count == 3)
+    assert err <= (4e-5 if real_diversity else 1e-4) * peak, (err, peak)
+    assert err <= gap / 4, (err, gap)
 
 
 @pytest.mark.gpu

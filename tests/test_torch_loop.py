@@ -130,9 +130,69 @@ def test_simulate_matches_jax_through_each_route(jax_system, carried,
     _check_carried_loop(jax_system, carried, solver, noisy, route)
 
 
-def _check_carried_loop(jax_system, carried, solver, noisy, route):
+def test_interop_carries_dft_dtype(jax_system):
+    """estimator_from_numpy carries the JAX estimator's dft_dtype across:
+    "bfloat16" as set by replace on the built JAX estimator, and the
+    build's "float32"."""
+    _, jsys = jax_system
+    for dft_dtype in ("bfloat16", "float32"):
+        jest = jsys.loop.est.replace(dft_dtype=dft_dtype)
+        est = interop.estimator_from_numpy(jax.tree.map(np.asarray, jest),
+                                           "cpu")
+        assert est.dft_dtype == dft_dtype
+
+
+@pytest.mark.parametrize("route", ["sym3", "general", "unfused"])
+def test_simulate_bf16_matches_jax_through_each_route(jax_system, carried,
+                                                      route):
+    """The loop with dft_dtype="bfloat16" (the JAX estimator replaced,
+    carried across by interop) on each route vs the JAX loop with the
+    same estimator and injected noise (fastmpc), the JAX loop measuring
+    through its non-kernel path, whose rounding points are B3's: the
+    trajectory at _assert_trajectory's tolerances (u within 6.1e-3 of
+    max|u| here, residual RMS within 4.4e-3 relative), the exact Strehl at
+    atol 5e-4 on every route (|difference| at most 2.9e-4 sym3, 3.3e-4
+    general, 2.1e-4 unfused here).  On equal phases the unfused measure
+    is the JAX one to 1e-8 of the peak, but the two loops' phases differ
+    in float32 (the float32 loops' u by 2.5e-6 of max|u|), and bf16
+    rounding turns that into a one-ulp flip of a field or stage-1 element
+    now and then; a stage-1 flip moves a crop pixel by up to ~1e-4 of the
+    peak, and the estimator carries it into the following steps (with
+    noise seed 8: exact Strehl within 4.9e-4 sym3, 3.3e-4 general and
+    unfused).
+
+    The port's loop measures in bf16, not float32: the same loop with
+    the estimator's dft_dtype="float32" is at least twice as far from
+    the JAX bf16 loop in exact Strehl (1.1e-3 here, 3.3-5.3x the bf16
+    loop's distance) and in u at the first step, whose measure takes
+    equal commands (2.6e-3 of max|u|, against 1.7e-4 general and
+    unfused and 1.1e-3 sym3, whose rounding points are not those of the
+    JAX loop's measure)."""
+    ref, out, loop, noise = _check_carried_loop(
+        jax_system, carried, "fastmpc", True, route, dft_dtype="bfloat16",
+        strehl_atol=5e-4)
+    f32 = _port_loop(dataclasses.replace(loop, est=dataclasses.replace(
+        loop.est, dft_dtype="float32")), carried[1], "fastmpc", noise)
+    u_ref, strehl_ref = np.asarray(ref.u), np.asarray(ref.strehl_exact)
+    scale = np.abs(u_ref).max()
+
+    def far(o):
+        return (np.abs(o.strehl_exact.numpy() - strehl_ref).max(),
+                np.abs(o.u.numpy()[0] - u_ref[0]).max() / scale)
+    (strehl_bf16, u0_bf16), (strehl_f32, u0_f32) = far(out), far(f32)
+    assert strehl_bf16 < strehl_f32 / 2, (strehl_bf16, strehl_f32)
+    assert u0_bf16 < u0_f32 / 2, (u0_bf16, u0_f32)
+
+
+def _check_carried_loop(jax_system, carried, solver, noisy, route,
+                        dft_dtype="float32", strehl_atol=1e-4):
     cfg, jsys = jax_system
     loop, layers = carried
+    jloop = jsys.loop
+    if dft_dtype != "float32":
+        jloop = jloop._replace(est=jloop.est.replace(dft_dtype=dft_dtype))
+        loop = dataclasses.replace(loop, est=interop.estimator_from_numpy(
+            jax.tree.map(np.asarray, jloop.est), "cpu"))
     loop = dataclasses.replace(loop, est=estimator.with_route(loop.est,
                                                               route))
     n_steps, p = 10, loop.est.n_pixels
@@ -141,20 +201,28 @@ def _check_carried_loop(jax_system, carried, solver, noisy, route):
         rng = np.random.default_rng(7)
         noise = (float(loop.est.noise_std)
                  * rng.standard_normal((n_steps, p))).astype(np.float32)
-    ref = jcl.simulate(jsys.loop, jsys.layers, cfg, jax.random.PRNGKey(9),
+    ref = jcl.simulate(jloop, jsys.layers, cfg, jax.random.PRNGKey(9),
                        n_steps=n_steps, start_step=START, solver=solver,
                        noise_scale=1.0, noise_seq=jnp.asarray(noise))
-    out = closed_loop.simulate(loop, layers, _cfg(reference_config), None,
-                               n_steps=n_steps, start_step=START,
-                               solver=solver, noise_seq=torch.as_tensor(noise))
+    out = _port_loop(loop, layers, solver, noise)
     assert out.u.shape == (n_steps, loop.influence.shape[1])
     for field in out:
         assert torch.isfinite(field).all()
     _assert_trajectory(out.u.numpy(), out.rms_res.numpy(),
                        np.asarray(ref.u), np.asarray(ref.rms_res))
-    # exact Strehl from the same crops: float32 roundoff only
+    # exact Strehl from the same crops: float32 roundoff only (bf16: see
+    # test_simulate_bf16_matches_jax_through_each_route)
     np.testing.assert_allclose(out.strehl_exact.numpy(),
-                               np.asarray(ref.strehl_exact), atol=1e-4)
+                               np.asarray(ref.strehl_exact), atol=strehl_atol)
+    return ref, out, loop, noise
+
+
+def _port_loop(loop, layers, solver, noise):
+    """The port's loop from START with injected noise (steps, pixels)."""
+    return closed_loop.simulate(loop, layers, _cfg(reference_config), None,
+                                n_steps=len(noise), start_step=START,
+                                solver=solver,
+                                noise_seq=torch.as_tensor(noise))
 
 
 def test_run_batch_shared_window_matches_jax_per_scenario(jax_system,

@@ -9,6 +9,8 @@ tests/test_pallas.py does; the port side runs the kernel's plain version
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -203,6 +205,46 @@ def _crops_tf32(fre, fim, dft_op, scale, passes=3):
     return (ore ** 2 + oim ** 2) * scale
 
 
+def _rtz_f32(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` to float32, rounded toward zero."""
+    y = x.float()
+    return torch.where(y.double().abs() > x.abs(),
+                       torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _mm_bf16_rtz(pairs, rtz=True) -> torch.Tensor:
+    """sum of a @ b over (a, b) in ``pairs`` (bf16 values in float32, the
+    same K) as the engine's bf16 stage 1 takes it: one
+    mma.sync.m16n8k16 a pair and k16 slice, in the engine's order (each
+    slice, then each pair), each adding its 16 exact products to the
+    float32 accumulator and rounding the sum toward zero -- the tensor
+    cores' accumulation, modelled; ``rtz=False`` rounds to nearest."""
+    c = None
+    for k0 in range(0, pairs[0][0].shape[-1], 16):
+        for a, b in pairs:
+            part = a[..., k0:k0 + 16].double() @ b[..., k0:k0 + 16, :].double()
+            part = part if c is None else c.double() + part
+            c = _rtz_f32(part) if rtz else part.float()
+    return c
+
+
+def _crops_bf16_rtz(fre, fim, dft_op, scale, rtz=True):
+    """The engine's bf16 arithmetic (csrc/psf_mma.cuh, Precision::kBf16)
+    on the CPU for fields without recombination (B2, B3): the plain
+    version's rounding points (psf_kernels._intensity_bf16), stage 1
+    through ``_mm_bf16_rtz``.  Stage 2 stays float32: no bf16 rounding
+    follows its sums, so how they round moves a pixel by float32 error
+    alone."""
+    bf = psf_kernels._bf16
+    are, aim = bf(dft_op.real), bf(dft_op.imag)
+    fre, fim = bf(fre), bf(fim)
+    gre = bf(_mm_bf16_rtz([(are, fre), (aim, -fim)], rtz))
+    gim = bf(_mm_bf16_rtz([(aim, fre), (are, fim)], rtz))
+    ore = gre @ are.T - gim @ aim.T
+    oim = gre @ aim.T + gim @ are.T
+    return (ore ** 2 + oim ** 2) * scale
+
+
 def _engine_case(kernel):
     """(kernel's arithmetic emulated, JAX kernel in interpret mode, plain
     version) at R=64, c=9: B1 on B=4 (a=3, scale 2); B2 on B=4 with the
@@ -386,12 +428,17 @@ def test_b4_plain_matches_jax_kernel_interpret():
 
 
 def _wrapper_case(kernel):
-    """(wrapper, plain version, CPU arguments) of kernel B2, B3 or B4."""
+    """(wrapper, plain version, CPU arguments) of kernel B1, B2, B3 or
+    B4."""
     phase, zmap, a, c = _b1_inputs(B=2)
     R = phase.shape[-1]
     pupil = psf.pupil_mask(R, device="cpu")
     op = dft.centered_partial_dft(R, c, device="cpu")
     k = psf_kernels
+    if kernel == "b1":
+        return (k.psf_crop_diversity_sym3, k.psf_crop_diversity_sym3_ref,
+                (t32(phase), pupil, t32(np.cos(a * zmap)),
+                 t32(np.sin(a * zmap)), op, 2.0))
     if kernel == "b2":
         div = t32(np.stack([-a * zmap, 0.0 * zmap, a * zmap, 0.5 * zmap]))
         return (k.psf_crop_diversity, k.psf_crop_diversity_ref,
@@ -419,17 +466,225 @@ def test_wrapper_takes_plain_version_on_cpu(kernel):
     assert wrapper.launches == before
 
 
+# ------------------------------------------------- bf16 branch of B1-B3
+
+def _bf16_case(kernel):
+    """(the Pallas kernel's compute_dtype="bfloat16" branch in interpret
+    mode, the plain version with compute_dtype="bfloat16", the float32
+    plain version) at R=64, c=9, unit-peak scale: B1 on B=4 (a=3); B2 on
+    B=4 with the symmetric triple ("b2_3") or 1 or 5 random maps; B3 on
+    N=5 total phases."""
+    phase, zmap, a, c = _b1_inputs()
+    R = phase.shape[-1]
+    pupil = psf.pupil_mask(R, device="cpu")
+    op = dft.centered_partial_dft(R, c, device="cpu")
+    jop, jpupil = jdft.centered_partial_dft(R, c), jpsf.pupil_mask(R)
+    scale = _unit_scale(R)
+    bf16 = dict(interpret=True, compute_dtype="bfloat16")
+    k = psf_kernels
+    if kernel == "b1":
+        cos_a = np.cos(a * zmap).astype(np.float32)
+        sin_a = np.sin(a * zmap).astype(np.float32)
+        want = jpk.psf_crop_diversity_sym3(
+            jnp.asarray(phase), jpupil, jnp.asarray(cos_a),
+            jnp.asarray(sin_a), jop, scale, **bf16)
+        plain = k.psf_crop_diversity_sym3_ref
+        args = (t32(phase), pupil, t32(cos_a), t32(sin_a), op, scale)
+    elif kernel == "b3":
+        total = (np.random.default_rng(12).normal(size=(5, R, R))
+                 * 0.4).astype(np.float32)
+        want = jpk.psf_crop_intensity(jnp.asarray(total), jpupil, jop,
+                                      scale, **bf16)
+        plain, args = k.psf_crop_intensity_ref, (t32(total), pupil, op,
+                                                 scale)
+    else:
+        n_div = int(kernel[-1])
+        if n_div == 3:
+            div = np.stack([-a * zmap, 0.0 * zmap, a * zmap])
+        else:
+            div = np.random.default_rng(13).normal(size=(n_div, R, R)) * 0.8
+        div_cos = np.cos(div).astype(np.float32)
+        div_sin = np.sin(div).astype(np.float32)
+        want = jpk.psf_crop_diversity(
+            jnp.asarray(phase), jpupil, jnp.asarray(div_cos),
+            jnp.asarray(div_sin), jop, scale, **bf16)
+        plain = k.psf_crop_diversity_ref
+        args = (t32(phase), pupil, t32(div_cos), t32(div_sin), op, scale)
+    return (np.asarray(want), plain(*args, compute_dtype="bfloat16"),
+            plain(*args))
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2_3", "b2_1", "b2_5", "b3"])
+def test_bf16_plain_matches_jax_kernel_branch(kernel):
+    """Each plain version with compute_dtype="bfloat16" rounds where its
+    Pallas kernel's bf16 branch rounds: == that branch (interpret mode)
+    at rtol 2e-4, atol 1e-5 of the peak -- float32 sums in another order
+    (6.5e-8 of the peak here); rounding B1's +- fields instead of its four
+    products misses by 8.1e-5.  And the branch really rounds: it differs
+    from the float32 plain version by more than 10x that atol (3.2e-4 to
+    9.5e-4 of the peak here)."""
+    want, got, f32 = _bf16_case(kernel)
+    assert got.shape == want.shape == f32.shape
+    assert got.shape[-2:] == (19, 19)
+    peak = float(np.abs(want).max())
+    np.testing.assert_allclose(npy(got), want, rtol=2e-4, atol=1e-5 * peak)
+    assert float((got - f32).abs().max()) > 10 * 1e-5 * peak
+
+
+def _chip_smoke():
+    """chip_smoke.py, imported as a module (its main does not run)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _smoke_scenario(j: int, R: int) -> torch.Tensor:
+    """Scenario j's phase (1, R, R) of chip_smoke.b1_args(R, B > j): its
+    generator's draws in 512-scenario chunks up to j, then j's."""
+    rng = np.random.default_rng(0)
+    for lo in range(0, j, 512):
+        rng.normal(size=(min(512, j - lo), R, R))
+    return t32(rng.normal(size=(1, R, R)) * 0.4)
+
+
+def test_bf16_card_limit_catches_misrounded_b1():
+    """chip_smoke.py's bf16 limit for B1 (BF16_ATOL, of the peak) catches
+    a B1 kernel that rounds its +- fields instead of its four products,
+    on the smoke's inputs at R=128 (real diversity; its first 16
+    scenarios): such a kernel computes B2's bf16 function on the triple
+    (B2's bf16 plain version rounds each field), which misses B1's bf16
+    plain output by 6.5e-5 of the peak here, above the 4e-5 limit; the
+    card's B1 reads 1.03e-5 at B=4096 (PERF.md)."""
+    smoke = _chip_smoke()
+    cases = {label: args for label, _, args, _ in
+             smoke.kernel_cases(128, 16, "cpu")}
+    b1 = psf_kernels.psf_crop_diversity_sym3_ref(*cases["B1"],
+                                                 compute_dtype="bfloat16")
+    fields = psf_kernels.psf_crop_diversity_ref(*cases["B2 (3 maps)"],
+                                                compute_dtype="bfloat16")
+    peak = float(b1.abs().max())
+    assert smoke.BF16_ATOL == 4e-5
+    assert float((fields - b1).abs().max()) > 1.5 * smoke.BF16_ATOL * peak
+
+
+@pytest.mark.parametrize("label,scenario,card_err", [
+    ("B2 (3 maps)", 1461, 1.157e-3), ("B2 (5 random maps)", 4073, 3.820e-3)])
+def test_bf16_rtz_emulation_reproduces_card_reading(label, scenario,
+                                                    card_err):
+    """The engine's bf16 stage-1 sums rounded toward zero
+    (``_crops_bf16_rtz``) reproduce B2's bf16 reading on the card in
+    chip_smoke.py's kernel phase at R=128, B=4096 -- max abs error
+    1.157e-3 on the triple, 3.820e-3 on the 5 random maps (NVIDIA H100
+    80GB HBM3, 700 W) -- in the one scenario where the emulation errs
+    most over that batch: one bf16 rounding of a stage-1 element flips.
+    That is 1.9e-5 of the peak on the triple, within the smoke's
+    BF16_ATOL, and 1.18e-4 on the random maps' speckle, above 1e-4 and
+    within BF16_ATOL_RANDOM_MAPS.  The same sums rounded to nearest give
+    the plain version to 2e-8 of the peak: the rounding mode is the
+    cause, not the order."""
+    smoke = _chip_smoke()
+    _, pupil, div_cos, div_sin, op, scale = {
+        lbl: args for lbl, _, args, _ in smoke.kernel_cases(128, 1, "cpu")
+    }[label]
+    phase = _smoke_scenario(scenario, 128)
+    c, s = torch.cos(phase)[:, None], torch.sin(phase)[:, None]
+    fre = pupil * (c * div_cos - s * div_sin)
+    fim = pupil * (s * div_cos + c * div_sin)
+    want = psf_kernels.psf_crop_diversity_ref(
+        phase, pupil, div_cos, div_sin, op, scale, compute_dtype="bfloat16")
+    peak = float(want.abs().max())
+    err = float((_crops_bf16_rtz(fre, fim, op, scale) - want).abs().max())
+    assert err == pytest.approx(card_err, rel=0.01)
+    if label == "B2 (3 maps)":
+        assert err <= smoke.BF16_ATOL * peak
+    else:
+        assert 1e-4 * peak < err <= smoke.BF16_ATOL_RANDOM_MAPS * peak
+    nearest = _crops_bf16_rtz(fre, fim, op, scale, rtz=False)
+    assert float((nearest - want).abs().max()) <= 1e-7 * peak
+
+
+@pytest.mark.parametrize("kernel", ["b1", "b2", "b3"])
+def test_wrapper_takes_bf16_plain_version_on_cpu(kernel):
+    """compute_dtype="bfloat16" on a CPU tensor runs the plain version's
+    bf16 branch and counts no launch of either kernel; on a tensor on
+    neither the CPU nor a CUDA device it is refused, not rerouted; an
+    unknown compute_dtype raises."""
+    wrapper, plain, args = _wrapper_case(kernel)
+    before = (wrapper.launches, wrapper.launches_bf16)
+    got = wrapper(*args, compute_dtype="bfloat16")
+    torch.testing.assert_close(got, plain(*args, compute_dtype="bfloat16"),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        wrapper(args[0].to("meta"), *args[1:], compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        wrapper(*args, compute_dtype="float16")
+    assert (wrapper.launches, wrapper.launches_bf16) == before
+
+
+def test_b4_refuses_bfloat16():
+    """Kernel B4 has no bf16 branch yet: its wrapper and its plain
+    version raise NotImplementedError naming ROADMAP.md B for
+    compute_dtype="bfloat16", on the CPU and before any launch."""
+    wrapper, plain, args = _wrapper_case("b4")
+    before = wrapper.launches
+    for fn in (wrapper, plain):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md B"):
+            fn(*args, compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B"):
+        wrapper(args[0].to("meta"), *args[1:], compute_dtype="bfloat16")
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("route", ["sym3", "general", "unfused"])
+def test_estimator_carries_dft_dtype(route):
+    """estimator.build carries EstimatorConfig.dft_dtype="bfloat16",
+    with_route keeps it, and measure takes the route's bf16 branch:
+    exactly diversity_measurements with compute_dtype="bfloat16", not the
+    float32 measure.  An unknown dft_dtype raises ValueError at build
+    and in the model."""
+    cfg = reference_config(resolution=32)
+    basis = zernike.make_basis(6, 32, device="cpu")
+    model = estimator.with_route(estimator.build(
+        dataclasses.replace(cfg.estimator, dft_dtype="bfloat16"), basis,
+        device="cpu"), route)
+    assert model.dft_dtype == "bfloat16"
+    phase = t32(np.random.default_rng(14).normal(size=(2, 32, 32)) * 0.3)
+    want = psf.diversity_measurements(
+        phase, model.diversity_phases, model.pupil, model.scale,
+        model.crop_half, dft_op=model.dft_op, div_cos=model.div_cos,
+        div_sin=model.div_sin, div_sym3=model.div_sym3,
+        compute_dtype="bfloat16")
+    got = estimator.measure(model, phase)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    f32 = estimator.measure(dataclasses.replace(model, dft_dtype="float32"),
+                            phase)
+    assert not torch.equal(got, f32)
+    with pytest.raises(ValueError, match="dft_dtype"):
+        estimator.build(dataclasses.replace(cfg.estimator,
+                                            dft_dtype="float16"),
+                        basis, device="cpu")
+    with pytest.raises(ValueError, match="dft_dtype"):
+        dataclasses.replace(model, dft_dtype="float16")
+
+
 def test_kernel_variants_agree_on_cpu():
-    """The kernel A/B's four variants (benchmarks/kernel_variants.py) on
-    CPU tensors -- their wrappers take the plain versions -- measure the
-    same crops of the JAX script's inputs, at R=64, B=2: rtol 2e-4, atol
-    2e-4 of the peak."""
+    """The kernel A/B's variants (benchmarks/kernel_variants.py) on CPU
+    tensors -- their wrappers take the plain versions -- measure the
+    same crops of the JAX script's inputs, at R=64, B=2: the four float32
+    variants, and B1-B3's three bf16 branches among themselves, each
+    against its precision's ``general``: rtol 2e-4, atol 2e-4 of the
+    peak."""
     inp = kernel_variants.inputs(64, 2, "cpu")
     out = {name: fn() for name, fn in kernel_variants.variants(inp).items()}
-    assert set(out) == set(kernel_variants.VARIANTS)
-    want = out["general"]
-    assert want.shape == (2, 3, kernel_variants.CROP, kernel_variants.CROP)
+    assert set(out) == set(kernel_variants.VARIANTS
+                           + kernel_variants.BF16_VARIANTS)
     for name, got in out.items():
+        base, dtype = kernel_variants.precision(name)
+        want = out["general" + ("_bf16" if dtype else "")]
+        assert want.shape == (2, 3, kernel_variants.CROP,
+                              kernel_variants.CROP)
         torch.testing.assert_close(got, want, rtol=2e-4,
                                    atol=2e-4 * float(want.max()), msg=name)
 
@@ -771,7 +1026,7 @@ def test_line_search_picks_first_accepted_candidate():
 # ------------------------------------------------- branches not ported yet
 
 @pytest.mark.parametrize("branch", [
-    "mmse", "bfloat16", "conditional", "track", "est_gain", "gate",
+    "mmse", "conditional", "track", "est_gain", "gate",
     "warm_start", "newton_steps", "fastmpc_ramp", "admm"])
 def test_unported_branches_raise(branch):
     """Each configuration branch the port does not have yet raises
@@ -783,8 +1038,6 @@ def test_unported_branches_raise(branch):
     solver = None
     if branch == "mmse":
         cfg = cfg.replace(estimator=rep(est, method="mmse"))
-    elif branch == "bfloat16":
-        cfg = cfg.replace(estimator=rep(est, dft_dtype="bfloat16"))
     elif branch == "conditional":
         cfg = cfg.replace(atmosphere=rep(cfg.atmosphere, flow="conditional"))
     elif branch == "track":
@@ -799,7 +1052,7 @@ def test_unported_branches_raise(branch):
         cfg = cfg.replace(mpc=rep(mpc_cfg, newton_steps=2))
     else:
         solver = branch
-    if branch in ("mmse", "bfloat16"):
+    if branch == "mmse":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             estimator.build(cfg.estimator,
                             zernike.make_basis(6, 32, device="cpu"),
