@@ -11,39 +11,43 @@ package):
    psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu, transc_cos.cu)
    with nvcc for sm_90a, one nvcc each, all started together; print each
    build's seconds and ptxas registers, shared memory and spills.  B1,
-   B2 and B3 (3xTF32 on the tensor cores, csrc/psf_mma.cuh), and their
-   bf16 entries (one bf16 pass on the same engine) in the same
+   B2, B3 and B4 (3xTF32 on the tensor cores, csrc/psf_mma.cuh), and
+   their bf16 entries (one bf16 pass on the same engine) in the same
    libraries: each kernel's registers, dynamic shared memory, spills and
    the HMMA (tensor-core) instructions in its SASS; a spill, a float32
    kernel without HMMA or with bf16 ones, or a bf16 kernel without
    HMMA.16816.F32.BF16, fails.
 3. kernel: each kernel against its plain PyTorch version on the card.
-   B1-B4 at the shapes phase 4 times: R=128, B=4096 (the main path's; B3
-   at N=12,288) and R=512, B=256, on speckled phases (std 0.4 rad) with
+   B1-B4 at R=128, B=4096 (the main path's shapes; B3 at N=12,288) with
+   31-px crops and with 41- and 63-px ones (two crop bands of the
+   engine), and at R=512, B=256, on speckled phases (std 0.4 rad) with
    the real defocus diversity; B2 also on a random 5-map stack, B3 on the
    total phases (rtol 2e-4; atol 1e-5 of the batch's PSF peak, because
    both sum R^2 unit-modulus field terms in float32 in different orders
-   -- an error that scales with the peak amplitude).  B1-B3's bf16
+   -- an error that scales with the peak amplitude).  B1-B4's bf16
    entries at the same shapes against their plain versions' bf16 branch:
-   atol 4e-5 of the peak on the real diversity (B1, B2 on the triple, B3),
-   2e-4 on the 5 random maps (the tensor cores' stage-1 sums round toward
-   zero and flip the bf16 rounding of a stage-1 element now and then),
-   and at most 1/4 of the bf16 plain version's gap from the float32 one
-   on the same inputs (the kernel computes the bf16 function).  The 4e-5
-   must catch a B1 kernel that rounds its +- fields instead of its four
-   products: B2's bf16 plain version on the triple rounds those fields,
-   and at R=128 it must miss B1's by more.  B5a/B5b at (4096,
-   4096) and at the ragged (1000, 1000), k = 8 and 32, on the JAX
-   script's inputs (all 0.7) and on seeded U(-3, 3) (atol 1e-6: both
-   chains contract, so rounding does not grow with k).
+   atol 4e-5 of the peak on the real diversity (B1, B4, B2 on the triple,
+   B3), 2e-4 on the 5 random maps (the tensor cores' stage-1 sums round
+   toward zero and flip the bf16 rounding of a stage-1 element now and
+   then), and at most 1/4 of the bf16 plain version's gap from the
+   float32 one on the same inputs (the kernel computes the bf16
+   function).  The 4e-5 must catch a B1 kernel that rounds its +- fields
+   instead of its four products: B2's bf16 plain version on the triple
+   rounds those fields, and at R=128 (31 px) it must miss B1's by more.
+   B5a/B5b at (4096, 4096) and at the ragged (1000, 1000), k = 8 and 32,
+   on the JAX script's inputs (all 0.7) and on seeded U(-3, 3) (atol
+   1e-6: both chains contract, so rounding does not grow with k).
 4. variants: the kernel A/B entry point (benchmarks/kernel_variants.py)
    at R=128, B=4096 -- the main path's shapes, B3 at N=12,288 -- and at
    R=512, B=256, in turns kernels, plain versions, kernels.  Its first
-   run is the path that launches B4: every kernel must launch there.
-   Each time beside its bound (roofline.measure_bound: the least time at
-   float32 accuracy, the DFT stages as 3 TF32 passes on the tensor
-   cores; for B1-B3's bf16 variants one bf16 pass) and, for the float32
-   variants, beside the FP32 bound (every FLOP on FP32).
+   run is the path that launches B4 and B4 bf16: every kernel must
+   launch there.  Each time beside its bound (roofline.measure_bound:
+   the least time at float32 accuracy, the DFT stages as 3 TF32 passes
+   on the tensor cores; for the bf16 variants one bf16 pass) and, for
+   the float32 variants, beside the FP32 bound (every FLOP on FP32).
+   Then the kernels alone at R=128, B=4096 with 41- and 63-px crops,
+   where every kernel must launch, each beside its bound at that width
+   (none may exceed 105%).
 5. slice: reference_config(resolution=128) cut as bench.py cuts it
    (n_train=300, n_valid=50, 25 steps, gauss_newton_iters=0): build on
    the card, 4096 shared-window scenarios, run_batch for 25 steps,
@@ -61,11 +65,20 @@ package):
 6. trace: one torch.profiler trace of a 25-step B1 run, right after the
    timed runs: device busy time, the idle share of the traced run, and
    the top device kernels and ops.
-7. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+7. wide: the same configuration with estimator.crop_half=20 (41-px
+   crops; its own build) through B1: 25 steps at B=4096 must launch B1
+   25 times and settle at exact Strehl >= 0.975, the B=4 card-vs-CPU
+   check must pass, and its run time stands beside the 31-px run's
+   (best of 3, in turns).
+8. loop R=512: the bench configuration at R=512, B=256 (its own build),
+   25 steps through B1 and through B2: both keep lock and settle within
+   0.002 of each other in exact Strehl; the B=4 card-vs-CPU check of
+   the slice phase, through B1.
+9. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
    power limit; each kernel must launch >= k1 + k2 times, and no rate may
    exceed 105% of its published peak.
-8. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+10. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
@@ -73,10 +86,10 @@ package):
    the bf16 variants against their bound at the measured ceilings (none
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
-9. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
-   psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16 (bound_ms and bound_by
-   from measure_bound at the published peaks, fp32_bound_ms beside them,
-   null for the bf16 entries)
+11. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+   psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
+   (bound_ms and bound_by from measure_bound at the published peaks,
+   fp32_bound_ms beside them, null for the bf16 entries)
    -- then the last line {"ok": true, "device": {...}}.
 """
 
@@ -118,7 +131,7 @@ KERNELS = (
      None),
 )
 # (name, library, wrapper, plain version, bf16 branch it replaces, variant
-# of the A/B entry point, loop route) of the bf16 entries of B1-B3
+# of the A/B entry point, loop route) of the bf16 entries of B1-B4
 BF16_KERNELS = (
     ("psf_div3_sym_bf16", "psf_div3_sym", K.psf_crop_diversity_sym3,
      K.psf_crop_diversity_sym3_ref, f"{PALLAS}:134", "sym3_bf16", "sym3"),
@@ -126,6 +139,9 @@ BF16_KERNELS = (
      K.psf_crop_diversity_ref, f"{PALLAS}:85", "general_bf16", "general"),
     ("psf_crop_bf16", "psf_crop", K.psf_crop_intensity,
      K.psf_crop_intensity_ref, f"{PALLAS}:34", "unfused_bf16", "unfused"),
+    ("psf_div3_sym_thin_bf16", "psf_div3_sym_thin",
+     K.psf_crop_diversity_sym3_thin, K.psf_crop_diversity_sym3_thin_ref,
+     f"{PALLAS}:193", "sym3_thin_bf16", None),
 )
 BF16 = "bfloat16"
 BF16_HMMA = "HMMA.16816.F32.BF16"
@@ -139,7 +155,8 @@ BF16_HMMA = "HMMA.16816.F32.BF16"
 BF16_ATOL = 4e-5
 BF16_ATOL_RANDOM_MAPS = 2e-4
 # (label, library) of the kernels on the tensor-core engine
-MMA_KERNELS = (("B1", "psf_div3_sym"), ("B2", "psf_div"), ("B3", "psf_crop"))
+MMA_KERNELS = (("B1", "psf_div3_sym"), ("B2", "psf_div"), ("B3", "psf_crop"),
+               ("B4", "psf_div3_sym_thin"))
 P = device_peaks
 PEAKS_SRC = "benchmarks/device_peaks.py"
 # (library, wrapper, plain version, kernel body it replaces) of the chain
@@ -155,12 +172,26 @@ CHAIN_ATOL = 1e-6
 MAX_SHARE = 1.05
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "trace"
 CROP_HALF = 15
+# estimator.crop_half of the wide-crop loop: 41-px crops, two crop bands
+WIDE_CROP_HALF = 20
 DIVERSITY_AMP = 3.0
 STEPS = 25
 BATCH = 4096
 # (R, B) of the kernel checks and timings: the main path's, and R=512
 SHAPES = ((128, BATCH), (512, 256))
+# crop widths beside the main path's 31 px at R=128: 41 (crop_half 20) and
+# 63 (31), two crop bands, in the kernel checks and the A/B
+WIDE_CROPS = (41, 63)
+# (R, B, crop_half) of the kernel checks
+KERNEL_SHAPES = ((128, BATCH, CROP_HALF),
+                 *((128, BATCH, (w - 1) // 2) for w in WIDE_CROPS),
+                 (512, 256, CROP_HALF))
+# (R, B) of the R=512 loop through B1 and B2 (ROADMAP C.3)
+LOOP_512 = (512, 256)
 MIN_STREHL = 0.975
+# settled exact Strehl of a loop that keeps lock (one that lost it falls
+# to <= 0.9): the R=512 loop's floor
+LOCK_STREHL = 0.9
 ROUTE_STREHL_TOL = 0.002
 
 
@@ -232,9 +263,10 @@ def mma_resources(label: str, lib: str, log: str) -> None:
                  f"{BF16_HMMA}; ptxas {res}")
 
 
-def b1_args(R: int, B: int, dev):
+def b1_args(R: int, B: int, dev, crop_half: int = CROP_HALF):
     """Seeded speckled phases (std 0.4 rad per pixel) with the real
-    defocus diversity, pupil, crop and PSF scale of the estimator."""
+    defocus diversity, pupil, the operator of a (2 crop_half + 1)-px crop
+    and PSF scale of the estimator."""
     rng = np.random.default_rng(0)
     phase = torch.as_tensor(
         (rng.normal(size=(B, R, R)) * 0.4).astype(np.float32), device=dev)
@@ -242,13 +274,13 @@ def b1_args(R: int, B: int, dev):
     scale = float((6.5e-6 * 512.0 / R) ** 4 * 1e12)
     return (phase, psf.pupil_mask(R, device=dev),
             torch.cos(DIVERSITY_AMP * z4), torch.sin(DIVERSITY_AMP * z4),
-            dft.centered_partial_dft(R, CROP_HALF, device=dev), scale)
+            dft.centered_partial_dft(R, crop_half, device=dev), scale)
 
 
-def kernel_cases(R: int, B: int, dev):
+def kernel_cases(R: int, B: int, dev, crop_half: int = CROP_HALF):
     """(label, library, arguments, bf16 atol of the peak) of every
-    kernel check at (R, B)."""
-    phase, pupil, cos_a, sin_a, op, scale = b1_args(R, B, dev)
+    kernel check at (R, B) and crop_half."""
+    phase, pupil, cos_a, sin_a, op, scale = b1_args(R, B, dev, crop_half)
     z4 = zernike.make_basis(6, R, device=dev).stack[4]
     triple = torch.stack([-DIVERSITY_AMP * z4, 0.0 * z4,
                           DIVERSITY_AMP * z4])
@@ -268,7 +300,7 @@ def kernel_cases(R: int, B: int, dev):
         ("B3 (total phases)", "psf_crop", (total, pupil, op, scale),
          BF16_ATOL),
         ("B4", "psf_div3_sym_thin", (phase, pupil, cos_a, sin_a, op, scale),
-         None),
+         BF16_ATOL),
     )
 
 
@@ -281,18 +313,20 @@ def bf16_check(label: str, name: str, wrapper, plain, args, want32,
     got = wrapper(*args, compute_dtype=BF16)
     torch.cuda.synchronize()
     want = plain(*args, compute_dtype=BF16)
+    w = want.shape[-1]
     if got.shape != want.shape or not torch.isfinite(got).all():
-        fail(f"{name} output at R={R} B={B}: shape {tuple(got.shape)}, or "
-             "not finite")
+        fail(f"{name} output at R={R} B={B} w={w}: shape "
+             f"{tuple(got.shape)}, or not finite")
     peak = float(want.abs().max())
     err = float((got - want).abs().max())
     gap = float((want - want32).abs().max())
-    print(f"kernel {label} bf16 ({name}) vs bf16 plain, R={R} B={B}: "
+    print(f"kernel {label} bf16 ({name}) vs bf16 plain, R={R} B={B} w={w}: "
           f"max_abs_err {err:.3e} = {err / peak:.2e} of the peak {peak:.4g};"
           f" bf16 plain vs float32 plain {gap:.3e} = {gap / peak:.2e}; "
           f"tolerance {atol:g} of the peak and 1/4 of that gap")
     if not (err <= atol * peak and err <= gap / 4):
-        fail(f"{name} disagrees with its bf16 plain version at R={R} B={B}")
+        fail(f"{name} disagrees with its bf16 plain version at R={R} B={B} "
+             f"w={w}")
     return err, want
 
 
@@ -314,38 +348,41 @@ def misrounded_b1_check(b1: torch.Tensor, fields_rounded: torch.Tensor,
 
 def kernel_phase(dev) -> dict:
     """Max abs error of each kernel against its plain version, and of
-    each bf16 entry against its plain version's bf16 branch."""
+    each bf16 entry against its plain version's bf16 branch, at every
+    (R, B, crop width) of KERNEL_SHAPES."""
     funcs = {k[0]: (k[1], k[2]) for k in KERNELS}
     max_err = {k[0]: 0.0 for k in KERNELS}
     bf16_of = {lib: name for name, lib, *_ in BF16_KERNELS}
     max_err.update({name: 0.0 for name in bf16_of.values()})
-    for R, B in SHAPES:
+    for R, B, crop_half in KERNEL_SHAPES:
+        w = 2 * crop_half + 1
         bf16_plain = {}
-        for label, lib, args, bf16_atol in kernel_cases(R, B, dev):
+        for label, lib, args, bf16_atol in kernel_cases(R, B, dev, crop_half):
             wrapper, plain = funcs[lib]
             got = wrapper(*args)
             torch.cuda.synchronize()
             want = plain(*args)
             if got.shape != want.shape or not torch.isfinite(got).all():
-                fail(f"{label} output at R={R} B={B}: shape "
+                fail(f"{label} output at R={R} B={B} w={w}: shape "
                      f"{tuple(got.shape)}, or not finite")
             err = (got - want).abs()
             peak = float(want.abs().max())
             atol = 1e-5 * peak
             rel = float((err / want.abs().clamp_min(atol)).max())
-            print(f"kernel {label} vs plain, R={R} B={B}: max_abs_err "
+            print(f"kernel {label} vs plain, R={R} B={B} w={w}: max_abs_err "
                   f"{float(err.max()):.3e} (peak {peak:.4g}), max rel err "
                   f"{rel:.3e}; tolerance rtol 2e-4, atol {atol:.3e}")
             if not bool((err <= 2e-4 * want.abs() + atol).all()):
                 fail(f"{label} disagrees with its plain version at R={R} "
-                     f"B={B}")
+                     f"B={B} w={w}")
             max_err[lib] = max(max_err[lib], float(err.max()))
-            if lib in bf16_of:
-                name = bf16_of[lib]
-                err, bf16_plain[label] = bf16_check(
-                    label, name, wrapper, plain, args, want, bf16_atol, R, B)
-                max_err[name] = max(max_err[name], err)
-        misrounded_b1_check(bf16_plain["B1"], bf16_plain["B2 (3 maps)"], R, B)
+            name = bf16_of[lib]
+            err, bf16_plain[label] = bf16_check(
+                label, name, wrapper, plain, args, want, bf16_atol, R, B)
+            max_err[name] = max(max_err[name], err)
+        if crop_half == CROP_HALF:
+            misrounded_b1_check(bf16_plain["B1"], bf16_plain["B2 (3 maps)"],
+                                R, B)
     rng = np.random.default_rng(2)
     for shape in CHAIN_SHAPES:
         inputs = (("0.7", torch.full(shape, 0.7, device=dev)),
@@ -384,7 +421,9 @@ def fp32_share(bound: dict, ms: float, label: str = "FP32 bound") -> str:
 
 def variants_phase(card: str) -> tuple[dict, dict]:
     """The A/B entry point in turns kernels, plain, kernels; returns the
-    main shape's times per variant and the launches of its first run."""
+    main shape's times per variant and the launches of its first run.
+    Then the kernels alone at R=128, B=4096 with the WIDE_CROPS, where
+    every kernel must launch too."""
     times = {}
     for R, B in SHAPES:
         reset_launches()
@@ -412,6 +451,27 @@ def variants_phase(card: str) -> tuple[dict, dict]:
     for lib, n in launches.items():
         if n < 1:
             fail(f"the kernel A/B launched {lib} {n} times")
+    for w in WIDE_CROPS:
+        reset_launches()
+        run_ = kernel_variants.run(128, BATCH, w=w)
+        print("variants: " + json.dumps(run_))
+        wide = {}
+        for name, lib, wrapper, *_ in BF16_KERNELS:
+            wide.update({lib: wrapper.launches, name: wrapper.launches_bf16})
+        print(f"variants w={w}: launches {json.dumps(wide)}")
+        for entry, n in wide.items():
+            if n < 1:
+                fail(f"the kernel A/B at w={w} launched {entry} {n} times")
+        for v in kernel_variants.VARIANTS + kernel_variants.BF16_VARIANTS:
+            k_ms = run_[v + "_ms"]
+            base, dtype = kernel_variants.precision(v)
+            b = roofline.measure_bound(base, 128, BATCH, w=w,
+                                       compute_dtype=dtype)
+            share = 100 * b["bound_ms"] / k_ms
+            print(f"variant {v} R=128 B={BATCH} w={w}: kernel {k_ms:.4f} ms "
+                  f"per call, bound {b['bound_ms']:.4f} ms ({b['limit']}), "
+                  f"{share:.1f}% of bound{fp32_share(b, k_ms)} [{card}]")
+            check_shares(f"variant {v} w={w}", {"share of the bound": share})
     return times, launches
 
 
@@ -475,10 +535,11 @@ def peaks_phase(card: str) -> tuple[dict, dict, dict]:
     return report, launches, line
 
 
-def slice_cfg(dft_dtype: str = "float32"):
+def slice_cfg(dft_dtype: str = "float32", crop_half: int = CROP_HALF):
     cfg = roofline.bench_cfg(128)
     return cfg.replace(estimator=dataclasses.replace(
-        cfg.estimator, gauss_newton_iters=0, dft_dtype=dft_dtype))
+        cfg.estimator, gauss_newton_iters=0, dft_dtype=dft_dtype,
+        crop_half=crop_half))
 
 
 def on_route(loop, route: str):
@@ -498,7 +559,7 @@ def slice_phase(system, system_bf16, cfg, dev, card) -> tuple[dict, dict]:
     runs = [(route, lib, wrapper, route, system, False)
             for lib, wrapper, *_, route in KERNELS if route]
     runs += [(f"{route} bf16", name, wrapper, route, system_bf16, True)
-             for name, _, wrapper, *_, route in BF16_KERNELS]
+             for name, _, wrapper, *_, route in BF16_KERNELS if route]
 
     def run(route, sys_):
         out = montecarlo.run_batch(on_route(sys_.loop, route), sys_.layers,
@@ -518,29 +579,16 @@ def slice_phase(system, system_bf16, cfg, dev, card) -> tuple[dict, dict]:
         if bf16 and wrapper.launches:
             fail(f"the {label} loop launched the float32 kernel "
                  f"{wrapper.launches} times")
-        nu = sys_.loop.influence.shape[1]
-        if out.u.shape != (BATCH, STEPS, nu):
-            fail(f"{label}: u has shape {tuple(out.u.shape)}")
-        for field_name, field in zip(out._fields, out):
-            if not bool(torch.isfinite(field).all()):
-                fail(f"{label}: non-finite {field_name}")
-        settle = STEPS // 2
-        strehl = float(out.strehl_exact[:, settle:].mean())
-        marechal = float(out.strehl[:, settle:].mean())
-        rms = float(out.rms_res[:, settle:].mean())
-        if strehl < MIN_STREHL:
-            fail(f"{label}: settled exact Strehl {strehl:.5f} < "
-                 f"{MIN_STREHL}")
+        strehl = loop_checks(
+            f"slice ({label}, {name}): R={cfg.resolution} B={BATCH} "
+            f"steps={STEPS}: {name} launches {launches[name]}", out,
+            sys_.loop.influence.shape[1], BATCH)
         if strehl_b1 is None:
             strehl_b1 = strehl
         elif abs(strehl - strehl_b1) > ROUTE_STREHL_TOL:
             fail(f"{label}: settled exact Strehl {strehl:.5f} is not within "
                  f"{ROUTE_STREHL_TOL} of the float32 B1 loop's "
                  f"{strehl_b1:.5f}")
-        print(f"slice ({label}, {name}): R={cfg.resolution} B={BATCH} "
-              f"steps={STEPS}: {name} launches {launches[name]}; settled "
-              f"exact Strehl {strehl:.5f}, Marechal {marechal:.5f}, "
-              f"residual RMS {rms:.5f} rad")
         reference_phase(on_route(sys_.loop, route), sys_.layers, cfg, dev,
                         label)
     # run times, the runs in turns: forward, backward, forward
@@ -553,6 +601,108 @@ def slice_phase(system, system_bf16, cfg, dev, card) -> tuple[dict, dict]:
         print(f"slice ({label}) run: {min(ts):.4f} s (best of {ts}), "
               f"{BATCH * STEPS / min(ts):.1f} solves/s [{card}]")
     return launches, {label: min(ts) for label, ts in times.items()}
+
+
+def loop_checks(label: str, out, nu: int, B: int,
+                min_strehl: float = MIN_STREHL) -> float:
+    """Fails on a run whose u is not (B, STEPS, nu), whose outputs are
+    not finite, or whose settled exact Strehl is below ``min_strehl``;
+    prints and returns that Strehl."""
+    if out.u.shape != (B, STEPS, nu):
+        fail(f"{label}: u has shape {tuple(out.u.shape)}")
+    for field_name, field in zip(out._fields, out):
+        if not bool(torch.isfinite(field).all()):
+            fail(f"{label}: non-finite {field_name}")
+    settle = STEPS // 2
+    strehl = float(out.strehl_exact[:, settle:].mean())
+    print(f"{label}: settled exact Strehl {strehl:.5f}, Marechal "
+          f"{float(out.strehl[:, settle:].mean()):.5f}, residual RMS "
+          f"{float(out.rms_res[:, settle:].mean()):.5f} rad")
+    if strehl < min_strehl:
+        fail(f"{label}: settled exact Strehl {strehl:.5f} < {min_strehl}")
+    return strehl
+
+
+def wide_phase(system, system_wide, cfg, cfg_wide, dev, card) -> None:
+    """The bench configuration with estimator.crop_half=WIDE_CROP_HALF
+    (41-px crops, two crop bands) through B1: 25 steps at B=4096 must
+    launch B1 once a step and settle at exact Strehl >= MIN_STREHL; the
+    B=4 loop on the card and on the CPU agree; then its run time beside
+    the 31-px run's, in turns."""
+    w = 2 * system_wide.est.crop_half + 1
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
+                                     BATCH, device=dev)
+    b1 = K.psf_crop_diversity_sym3
+
+    def run(sys_, c):
+        out = montecarlo.run_batch(sys_.loop, sys_.layers, c, scen, STEPS,
+                                   shared_window="verified")
+        torch.cuda.synchronize()
+        return out
+    reset_launches()
+    out = run(system_wide, cfg_wide)
+    if b1.launches != STEPS:
+        fail(f"the {w}-px loop launched psf_div3_sym {b1.launches} times in "
+             f"{STEPS} steps")
+    nu = system_wide.loop.influence.shape[1]
+    loop_checks(f"wide ({w}-px crops, psf_div3_sym launches {b1.launches}):"
+                f" R={cfg_wide.resolution} B={BATCH} steps={STEPS}", out, nu,
+                BATCH)
+    reference_phase(system_wide.loop, system_wide.layers, cfg_wide, dev,
+                    f"sym3, {w}-px crops")
+    times = {31: [], w: []}
+    for _ in range(3):
+        for width, sys_, c in ((31, system, cfg), (w, system_wide, cfg_wide)):
+            t0 = time.perf_counter()
+            run(sys_, c)
+            times[width].append(time.perf_counter() - t0)
+    for width, ts in times.items():
+        print(f"wide: {width}-px crops, B1 route: {min(ts):.4f} s (best of "
+              f"{ts}), {BATCH * STEPS / min(ts):.1f} solves/s [{card}]")
+
+
+def loop_512_phase(dev, card) -> None:
+    """ROADMAP C.3: the bench configuration at R=512, B=256 (its own
+    build, as the roofline entry point's), 25 steps through B1 and B2:
+    each keeps lock (settled exact Strehl >= LOCK_STREHL; the bench's
+    0.975 is set at R=128), and the two settle within ROUTE_STREHL_TOL of
+    each other; the B=4 loop through B1 on the card and on the CPU
+    agree."""
+    R, B = LOOP_512
+    cfg = roofline.bench_cfg(R)
+    cfg = cfg.replace(estimator=dataclasses.replace(cfg.estimator,
+                                                    gauss_newton_iters=0))
+    t0 = time.time()
+    system = pipeline.build(cfg, dev)
+    torch.cuda.synchronize()
+    print(f"loop R={R}: pipeline.build in {time.time() - t0:.2f} s")
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
+                                     B, device=dev)
+    strehl = {}
+    for route, lib, wrapper in (("sym3", "psf_div3_sym",
+                                 K.psf_crop_diversity_sym3),
+                                ("general", "psf_div", K.psf_crop_diversity)):
+        reset_launches()
+        t0 = time.perf_counter()
+        out = montecarlo.run_batch(on_route(system.loop, route),
+                                   system.layers, cfg, scen, STEPS,
+                                   shared_window="verified")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if wrapper.launches < STEPS:
+            fail(f"the R={R} {route} loop launched {lib} {wrapper.launches} "
+                 f"times")
+        strehl[route] = loop_checks(
+            f"loop R={R} B={B} ({route}, {lib} launches {wrapper.launches}, "
+            f"{secs:.4f} s) [{card}]", out, system.loop.influence.shape[1],
+            B, LOCK_STREHL)
+    reference_phase(system.loop, system.layers, cfg, dev, f"sym3, R={R}")
+    diff = abs(strehl["sym3"] - strehl["general"])
+    print(f"loop R={R}: B1 vs B2 settled exact Strehl differ by {diff:.2e}; "
+          f"tolerance {ROUTE_STREHL_TOL}")
+    if diff > ROUTE_STREHL_TOL:
+        fail(f"the R={R} loops through B1 and B2 differ by {diff:.5f} in "
+             "settled exact Strehl")
 
 
 def roofline_phase(system, cfg, peaks: dict, times: dict, card: str):
@@ -690,6 +840,14 @@ def main() -> None:
              f"{system_bf16.est.dft_dtype}")
     loop_launches, run_s = slice_phase(system, system_bf16, cfg, dev, card)
     trace_phase(system, cfg, run_s["sym3"], card)
+    cfg_wide = slice_cfg(crop_half=WIDE_CROP_HALF)
+    t0 = time.time()
+    system_wide = pipeline.build(cfg_wide, dev)
+    torch.cuda.synchronize()
+    print(f"wide: pipeline.build with crop_half={WIDE_CROP_HALF} in "
+          f"{time.time() - t0:.2f} s")
+    wide_phase(system, system_wide, cfg, cfg_wide, dev, card)
+    loop_512_phase(dev, card)
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []
@@ -704,13 +862,15 @@ def main() -> None:
             "max_abs_err": max_err[lib], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "fp32_bound_ms": b["fp32_bound_ms"], "library_ms": None})
-    for name, lib, _, _, replaces, variant, _ in BF16_KERNELS:
+    for name, lib, _, _, replaces, variant, route in BF16_KERNELS:
         ms, plain_ms = times[variant]
         b = roofline.measure_bound(kernel_variants.precision(variant)[0],
                                    128, BATCH, compute_dtype=BF16)
         kernels.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
-            "replaces": replaces, "launches": loop_launches[name],
+            "replaces": replaces,
+            "launches": (loop_launches[name] if route
+                         else variant_launches[name]),
             "max_abs_err": max_err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "fp32_bound_ms": b["fp32_bound_ms"], "library_ms": None})

@@ -1,24 +1,24 @@
 """A/B of the diversity-PSF measurement kernels on one CUDA card (port of
 ``benchmarks/kernel_variants.py``).
 
-    python -m mpc_sensorlessao_tpu_torch.benchmarks.kernel_variants [R] [B]
+    python -m mpc_sensorlessao_tpu_torch.benchmarks.kernel_variants [R] [B] [w]
 
-Measures the three defocus-diversity PSF crops (-a, 0, +a) (w = 31,
-a = 3, scale 1.7e-3) of B seeded phases (std 0.3 rad) at resolution R
-(defaults R=512, B=8) with each of the four kernels:
+Measures the three defocus-diversity PSF crops (-a, 0, +a) (w x w,
+default w = 31; a = 3, scale 1.7e-3) of B seeded phases (std 0.3 rad) at
+resolution R (defaults R=512, B=8) with each of the four kernels:
 
   general    B2, ``psf_crop_diversity`` on the cos/sin of the three maps
   sym3       B1, ``psf_crop_diversity_sym3``
   sym3_thin  B4, ``psf_crop_diversity_sym3_thin``
   unfused    B3, ``psf_crop_intensity`` on the (B*3, R, R) total phases
 
-and each of B1-B3's bf16 branch (``compute_dtype="bfloat16"``),
-``sym3_bf16``, ``general_bf16`` and ``unfused_bf16`` (B4 has none),
+and each one's bf16 branch (``compute_dtype="bfloat16"``),
+``general_bf16``, ``sym3_bf16``, ``sym3_thin_bf16`` and ``unfused_bf16``,
 timed with CUDA events (``profiling.cuda_time_ms``: the median of 5
 repeats of ``reps`` calls, after a warm-up), and prints one JSON line:
 ``<variant>_us_per_scen``, ``<variant>_rel_diff_vs_general`` (relative
 difference of the output sums from ``general``, or for a bf16 variant
-from ``general_bf16``), ``R``, ``B``, ``device`` and ``card``
+from ``general_bf16``), ``R``, ``B``, ``w``, ``device`` and ``card``
 (the card's name and power limit as nvidia-smi gives them).  Raises
 without a CUDA device.
 """
@@ -36,14 +36,15 @@ from ..utils import profiling
 
 VARIANTS = ("general", "sym3", "sym3_thin", "unfused")
 BF16 = "_bf16"         # suffix of a variant's bf16 branch
-BF16_VARIANTS = ("general_bf16", "sym3_bf16", "unfused_bf16")
+BF16_VARIANTS = tuple(v + BF16 for v in VARIANTS)
 CROP = 31
 AMP = 3.0
 SCALE = 1.7e-3
 
 
-def inputs(R: int, B: int, device) -> dict:
-    """The JAX script's inputs, made with numpy from seed 0."""
+def inputs(R: int, B: int, device, w: int = CROP) -> dict:
+    """The JAX script's inputs, made with numpy from seed 0, for w x w
+    crops (w odd)."""
     z4 = zernike.make_basis(6, R, device="cpu").stack[4].numpy()
     rng = np.random.default_rng(0)
     phase = rng.normal(size=(B, R, R)).astype(np.float32) * 0.3
@@ -58,7 +59,7 @@ def inputs(R: int, B: int, device) -> dict:
                 div_cos=put(np.cos(div)), div_sin=put(np.sin(div)),
                 cos_a=put(np.cos(AMP * z4)), sin_a=put(np.sin(AMP * z4)),
                 total=(phase_d[:, None] + div_d).reshape(-1, R, R),
-                dft_op=dft.centered_partial_dft(R, (CROP - 1) // 2,
+                dft_op=dft.centered_partial_dft(R, (w - 1) // 2,
                                                 device=device))
 
 
@@ -82,7 +83,7 @@ def variants(inp: dict, plain: bool = False) -> dict:
         general, sym3 = k.psf_crop_diversity, k.psf_crop_diversity_sym3
         thin, unfused = k.psf_crop_diversity_sym3_thin, k.psf_crop_intensity
     p, pup, op = inp["phase"], inp["pupil"], inp["dft_op"]
-    B = p.shape[0]
+    B, w = p.shape[0], op.shape[0]
     calls = {}
     for dtype in (None, "bfloat16"):
         suffix = BF16 if dtype else ""
@@ -91,22 +92,22 @@ def variants(inp: dict, plain: bool = False) -> dict:
                 p, pup, inp["div_cos"], inp["div_sin"], op, SCALE, dtype),
             "sym3" + suffix: lambda dtype=dtype: sym3(
                 p, pup, inp["cos_a"], inp["sin_a"], op, SCALE, dtype),
+            "sym3_thin" + suffix: lambda dtype=dtype: thin(
+                p, pup, inp["cos_a"], inp["sin_a"], op, SCALE, dtype),
             "unfused" + suffix: lambda dtype=dtype: unfused(
-                inp["total"], pup, op, SCALE, dtype).reshape(B, 3, CROP,
-                                                             CROP),
+                inp["total"], pup, op, SCALE, dtype).reshape(B, 3, w, w),
         })
-    calls["sym3_thin"] = lambda: thin(p, pup, inp["cos_a"], inp["sin_a"],
-                                      op, SCALE)
     return {name: calls[name] for name in VARIANTS + BF16_VARIANTS}
 
 
-def run(R: int, B: int, plain: bool = False, reps: int = 20) -> dict:
-    """The A/B at (R, B) on the first CUDA device: the JSON line's
-    fields, plus ``<variant>_ms`` per call."""
+def run(R: int, B: int, plain: bool = False, reps: int = 20,
+        w: int = CROP) -> dict:
+    """The A/B at (R, B) and crop width w on the first CUDA device: the
+    JSON line's fields, plus ``<variant>_ms`` per call."""
     if not torch.cuda.is_available():
         raise RuntimeError("the kernel A/B needs a CUDA device")
-    inp = inputs(R, B, "cuda")
-    out = {"R": R, "B": B, "device": torch.cuda.get_device_name(0),
+    inp = inputs(R, B, "cuda", w)
+    out = {"R": R, "B": B, "w": w, "device": torch.cuda.get_device_name(0),
            "plain": plain}
     ref = {}
     for name, fn in variants(inp, plain).items():
@@ -126,7 +127,8 @@ def run(R: int, B: int, plain: bool = False, reps: int = 20) -> dict:
 def main() -> None:
     R = int(sys.argv[1]) if len(sys.argv) > 1 else 512
     B = int(sys.argv[2]) if len(sys.argv) > 2 else 8
-    out = run(R, B)
+    w = int(sys.argv[3]) if len(sys.argv) > 3 else CROP
+    out = run(R, B, w=w)
     out["card"] = profiling.card()
     print(json.dumps(out))
 

@@ -42,6 +42,7 @@ using psf_mma::Precision;
 // Block k: items 3 k, 3 k + 1, 3 k + 2 of the N.
 struct PhaseFields {
   static constexpr int kMaps = kFields + 1;   // the items' phases, pupil
+  static constexpr bool kRecombine = false;
   const float* phase;                         // (N, R, R)
   const float* pupil;                         // (R, R)
   float* out_;                                // (N, w, w)
@@ -74,7 +75,6 @@ struct PhaseFields {
       }
     }
   }
-  __device__ void recombine(float (&)[kFields][4]) const {}
 };
 
 // Dynamic shared memory a block of the kernel of precision P takes.
@@ -83,47 +83,45 @@ constexpr size_t smem_bytes(Precision p) {
 }
 
 __global__ void __launch_bounds__(psf_mma::kThreads, 2)
-psf_crop_kernel(PhaseFields fields, const float2* __restrict__ tiles, int R,
-                int w, float scale, int vec16) {
-  psf_mma::crop_block<Precision::kTf32x3>(fields, tiles, R, w, scale, vec16);
+psf_crop_kernel(PhaseFields fields, psf_mma::Band band, int R, int w,
+                float scale, int vec16) {
+  psf_mma::crop_block<Precision::kTf32x3>(fields, band, R, w, scale, vec16);
 }
 
 __global__ void __launch_bounds__(psf_mma::kThreads, 2)
-psf_crop_bf16_kernel(PhaseFields fields, const float2* __restrict__ tiles,
-                     int R, int w, float scale, int vec16) {
-  psf_mma::crop_block<Precision::kBf16>(fields, tiles, R, w, scale, vec16);
+psf_crop_bf16_kernel(PhaseFields fields, psf_mma::Band band, int R, int w,
+                     float scale, int vec16) {
+  psf_mma::crop_block<Precision::kBf16>(fields, band, R, w, scale, vec16);
 }
 
-// Lays the operator out in `work` and launches `kernel` (of precision P),
-// both on `stream` of CUDA device `device`; cudaGetLastError() after both.
+// Lays the operator out in `work` and launches `kernel` (of precision P,
+// psf_mma::launch) on `stream` of CUDA device `device`; the first error.
 template <Precision P>
-int launch(void (*kernel)(PhaseFields, const float2*, int, int, float, int),
+int launch(void (*kernel)(PhaseFields, psf_mma::Band, int, int, float,
+                          int),
            const float* phase, const float* pupil, const float* are,
            const float* aim, float* work, float* out, int batch, int R,
            int w, float scale, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = psf_mma::prepare(kernel, smem_bytes(P), are, aim, work, R, w, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   using psf_mma::aligned16;
   const int vec16 = R % 4 == 0 && aligned16(phase) && aligned16(pupil);
-  kernel<<<(batch + kFields - 1) / kFields, psf_mma::kThreads,
-           smem_bytes(P), s>>>(PhaseFields{phase, pupil, out, batch},
-                               reinterpret_cast<float2*>(work), R, w, scale,
-                               vec16);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(psf_mma::launch(
+      kernel, dim3((batch + kFields - 1) / kFields), smem_bytes(P),
+      PhaseFields{phase, pupil, out, batch}, are, aim, work, R, w, scale,
+      vec16, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Lays the operator out in `work` -- ceil(R / 32) * 32 * 32 * 2 floats,
-// 16-byte aligned, allocated by the caller -- and launches the kernel,
-// both on `stream` (a cudaStream_t) of CUDA device `device`.  Returns
-// cudaGetLastError(): 0 when both launches were accepted.
+// Lays the operator out in `work` -- ceil(w / 32) * ceil(R / 32) * 32 *
+// 32 * 2 floats, 16-byte aligned, allocated by the caller -- and launches
+// the kernel (once per band pair of a crop wider than 32 px), all on
+// `stream` (a cudaStream_t) of CUDA device `device`.  Returns the first
+// error: 0 when every launch was accepted.
 int psf_crop(const float* phase, const float* pupil, const float* are,
              const float* aim, float* work, float* out, int batch, int R,
              int w, float scale, int device, void* stream) {

@@ -53,6 +53,7 @@ template <Precision P>
 struct DiversityFields {
   // phase, then (pcd, psd) of each diversity of the group
   static constexpr int kMaps = 1 + 2 * kFields;
+  static constexpr bool kRecombine = false;
   const float* phase;                 // (B, R, R)
   const float* pcd;                   // (n_div, R, R)
   const float* psd;                   // (n_div, R, R)
@@ -94,7 +95,6 @@ struct DiversityFields {
       }
     }
   }
-  __device__ void recombine(float (&)[kFields][4]) const {}
 };
 
 // Dynamic shared memory a block of the kernel of precision P takes.
@@ -104,22 +104,21 @@ constexpr size_t smem_bytes(Precision p) {
 
 __global__ void __launch_bounds__(psf_mma::kThreads, 2)
 psf_div_kernel(DiversityFields<Precision::kTf32x3> fields,
-               const float2* __restrict__ tiles, int R, int w, float scale,
-               int vec16) {
-  psf_mma::crop_block<Precision::kTf32x3>(fields, tiles, R, w, scale, vec16);
+               psf_mma::Band band, int R, int w, float scale, int vec16) {
+  psf_mma::crop_block<Precision::kTf32x3>(fields, band, R, w, scale, vec16);
 }
 
 __global__ void __launch_bounds__(psf_mma::kThreads, 2)
 psf_div_bf16_kernel(DiversityFields<Precision::kBf16> fields,
-                    const float2* __restrict__ tiles, int R, int w,
-                    float scale, int vec16) {
-  psf_mma::crop_block<Precision::kBf16>(fields, tiles, R, w, scale, vec16);
+                    psf_mma::Band band, int R, int w, float scale,
+                    int vec16) {
+  psf_mma::crop_block<Precision::kBf16>(fields, band, R, w, scale, vec16);
 }
 
-// Lays the operator out in `work` and launches `kernel` (of precision P),
-// both on `stream` of CUDA device `device`; cudaGetLastError() after both.
+// Lays the operator out in `work` and launches `kernel` (of precision P,
+// psf_mma::launch) on `stream` of CUDA device `device`; the first error.
 template <Precision P>
-int launch(void (*kernel)(DiversityFields<P>, const float2*, int, int,
+int launch(void (*kernel)(DiversityFields<P>, psf_mma::Band, int, int,
                           float, int),
            const float* phase, const float* pcd, const float* psd,
            const float* are, const float* aim, float* work, float* out,
@@ -128,27 +127,25 @@ int launch(void (*kernel)(DiversityFields<P>, const float2*, int, int,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || n_div <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = psf_mma::prepare(kernel, smem_bytes(P), are, aim, work, R, w, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   using psf_mma::aligned16;
   const int vec16 =
       R % 4 == 0 && aligned16(phase) && aligned16(pcd) && aligned16(psd);
   const dim3 grid(batch, (n_div + kFields - 1) / kFields);
-  kernel<<<grid, psf_mma::kThreads, smem_bytes(P), s>>>(
-      DiversityFields<P>{phase, pcd, psd, out, n_div},
-      reinterpret_cast<float2*>(work), R, w, scale, vec16);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(psf_mma::launch(
+      kernel, grid, smem_bytes(P),
+      DiversityFields<P>{phase, pcd, psd, out, n_div}, are, aim, work, R, w,
+      scale, vec16, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Lays the operator out in `work` -- ceil(R / 32) * 32 * 32 * 2 floats,
-// 16-byte aligned, allocated by the caller -- and launches the kernel,
-// both on `stream` (a cudaStream_t) of CUDA device `device`.  Returns
-// cudaGetLastError(): 0 when both launches were accepted.
+// Lays the operator out in `work` -- ceil(w / 32) * ceil(R / 32) * 32 *
+// 32 * 2 floats, 16-byte aligned, allocated by the caller -- and launches
+// the kernel (once per band pair of a crop wider than 32 px), all on
+// `stream` (a cudaStream_t) of CUDA device `device`.  Returns the first
+// error: 0 when every launch was accepted.
 int psf_div(const float* phase, const float* pcd, const float* psd,
             const float* are, const float* aim, float* work, float* out,
             int batch, int n_div, int R, int w, float scale, int device,

@@ -1,8 +1,9 @@
 // The tensor-core DFT engine of the PSF-measurement kernels B1
-// (psf_div3_sym.cu), B2 (psf_div.cu) and B3 (psf_crop.cu).  For the three
-// complex fields F_d (R x R) of one block it computes
+// (psf_div3_sym.cu), B2 (psf_div.cu), B3 (psf_crop.cu) and B4
+// (psf_div3_sym_thin.cu).  For the three complex fields F_d (R x R) of
+// one block it computes
 //
-//   out[d] = |A F_d A^T|^2 * scale,      A the (w, R) partial DFT, w <= 32,
+//   out[d] = |A F_d A^T|^2 * scale,      A the (w, R) partial DFT, any w,
 //
 // with both DFT stages on the tensor cores at float32 accuracy (3xTF32).
 // The kernels differ only in how their three fields are formed from the
@@ -47,11 +48,22 @@
 //     (5.9e-6 against 3.8e-6 of the peak in chip_smoke.py's kernel check,
 //     NVIDIA H100 80GB HBM3, 700 W);
 //   * a small kernel (operator_tiles) lays the operator out once per call
-//     as 32 x 32 tiles of (re, im), zero-padded to 32 rows and a whole
-//     number of tiles; they stream from L2 into a double-buffered
-//     shared-memory ring with cp.async, the next tile arriving while the
-//     current one is used.  The stream is, per strip, the R/32 tiles of
-//     stage 1, then the strip's own tile for stage 2;
+//     as 32 x 32 tiles of (re, im), in bands of 32 rows, zero-padded to a
+//     whole number of bands and tiles; they stream from L2 into a
+//     double-buffered shared-memory ring with cp.async, the next tile
+//     arriving while the current one is used.  The stream is, per strip,
+//     the R/32 tiles of stage 1, then the strip's own tile for stage 2;
+//   * a crop wider than 32 px is cut into nb = ceil(w / 32) bands of 32
+//     rows and columns, and the kernel is launched once per (row band,
+//     column band) pair of the output, the pair's operator bands and
+//     offsets a kernel argument (Band), read from the constant bank: as a
+//     value the loops kept (the pair from a third grid axis) it spilled
+//     B3 at 128 registers.  Each block forms its fields, runs stage 1 on
+//     its row band of A and stage 2 on its column band.  A w <= 32 crop
+//     (nb = 1) is one launch; a wider one forms each field nb^2 times and
+//     runs stage 1 nb times over (stage 2 once), the price of keeping each
+//     block's O one 32 x 32 tile: all nb column bands of O would not fit
+//     beside the loops at 128 registers;
 //   * the K loops are unrolled only as far as the 128 registers a thread
 //     (two blocks per SM) hold without spilling.
 //   Neither the (3, R, R) fields nor the (3, w, R) row intermediate ever
@@ -82,7 +94,8 @@
 // and the complex parts' mma -- are one trait each, so each DFT stage
 // has one loop body for both precisions.
 // The G a warp holds in stage 1 is one column tile of all three fields,
-// so that a policy can recombine them in registers before G is stored.
+// for kBf16 and for a policy that recombines, so that the policy can
+// recombine them in registers before G is stored.
 // The result O waits in shared memory between strips (kOSlots floats a
 // thread, read and written by that thread alone): in registers it
 // spilled beside the bf16 loops' operands at 128 registers.
@@ -90,6 +103,7 @@
 // A field-forming policy F is a small struct, built by its kernel from
 // the kernel's arguments, with
 //   static constexpr int kMaps;       (R, R) maps a K tile loads
+//   static constexpr bool kRecombine; recombine() is called
 //   const float* map(int a, int R);   map a's plane for this block: any
 //                                     readable plane where !present(a)
 //   bool present(int a);              false: map a reads as zeros
@@ -100,7 +114,8 @@
 //                                     the three fields at one pixel, where
 //                                     m[a * kTile * kTile] is map a's value
 //   void recombine(float (&g)[kFields][4]);
-//                                     kBf16 only: the float32 stage-1 rows
+//                                     where kRecombine, in either
+//                                     precision: the float32 stage-1 rows
 //                                     of the formed fields at 4 pixels ->
 //                                     those of the fields measured
 // (all const __device__ members).
@@ -115,7 +130,7 @@ namespace psf_mma {
 constexpr int kTile = 32;           // field tile edge, K tile depth
 constexpr int kWarps = 8;           // warps per block
 constexpr int kThreads = 32 * kWarps;
-constexpr int kCrop = 32;           // crop width padded to two m16 tiles
+constexpr int kCrop = 32;           // crop band: two m16 tiles
 constexpr int kFields = 3;          // fields per block
 constexpr int kTilePixels = kTile * kTile;
 // row stride, in (re, im) pairs, of the shared-memory tiles: A fragments
@@ -128,6 +143,18 @@ constexpr int kOpPairs = kCrop * kStride;
 // Operand precision of the DFT stages: float32 accuracy (3xTF32), or the
 // bf16 operands of the JAX kernels' compute_dtype="bfloat16" branch
 enum class Precision { kTf32x3, kBf16 };
+
+// Crop bands of a w-px crop.
+constexpr int bands(int w) { return (w + kCrop - 1) / kCrop; }
+
+// The band pair a launch computes: the operator tiles of its row band of
+// A (stage 1) and of its column band (stage 2), and where its 32 x 32
+// part of each crop starts.
+struct Band {
+  const float2* rows;   // operator tiles of A's rows u0.. (operator_tiles)
+  const float2* cols;   // operator tiles of A's rows v0..
+  int u0, v0;           // the pair's first crop row and column
+};
 
 // float32 slots a thread holds of the block's result O: re and im of its
 // 4 elements of each field's 16 x 8 tile
@@ -303,16 +330,18 @@ __device__ __forceinline__ void cp_async4_fill(void* dst, const void* src,
                    smem_addr(dst)), "l"(src), "r"(bytes));
 }
 
-// Operator tiles: tiles[k][u][x] = A[u][32 k + x] as (re, im), zero for
-// u >= w or 32 k + x >= R; nk * 32 * 32 pairs.
+// Operator tiles: tiles[i][k][u][x] = A[32 i + u][32 k + x] as (re, im)
+// for band i, zero for 32 i + u >= w or 32 k + x >= R; nb * nk * 32 * 32
+// pairs.
 __global__ void operator_tiles(const float* __restrict__ are,
                                const float* __restrict__ aim,
                                float2* __restrict__ tiles, int R, int w,
-                               int nk) {
+                               int nk, int nb) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= nk * kCrop * kTile) return;
-  const int k = e / (kCrop * kTile), u = (e / kTile) % kCrop;
-  const int x = k * kTile + e % kTile;
+  if (e >= nb * nk * kCrop * kTile) return;
+  const int tile = e / (kCrop * kTile);   // i * nk + k
+  const int u = tile / nk * kCrop + (e / kTile) % kCrop;
+  const int x = tile % nk * kTile + e % kTile;
   float2 a = make_float2(0.f, 0.f);
   if (u < w && x < R) {
     a = make_float2(are[static_cast<size_t>(u) * R + x],
@@ -321,12 +350,12 @@ __global__ void operator_tiles(const float* __restrict__ are,
   tiles[e] = a;
 }
 
-// The block's three crops; called by every thread of a kThreads block
-// launched with smem_bytes(F::kMaps, P) of dynamic shared memory.
+// The block's three crops, their `band` pair; called by every thread of
+// a kThreads block launched with smem_bytes(F::kMaps, P) of dynamic shared
+// memory.
 // `vec16`: R % 4 == 0 and every map 16-byte aligned.
 template <Precision P, class F>
-__device__ __forceinline__ void crop_block(const F& fields,
-                                           const float2* __restrict__ tiles,
+__device__ __forceinline__ void crop_block(const F& fields, const Band& band,
                                            int R, int w, float scale,
                                            int vec16) {
   constexpr bool kBf16 = P == Precision::kBf16;
@@ -361,13 +390,15 @@ __device__ __forceinline__ void crop_block(const F& fields,
   }
   auto plane = [&](int a) { return kTable ? table[a] : held[a]; };
 
-  // stage 1 roles: m16 tile m1 of the 32 crop rows, three n8 tiles j of
-  // the 12 (3 fields x 4) of the strip's 96 columns -- 3 n1 .. 3 n1 + 2;
-  // for kBf16 column tile n1 of each field j, which recombine needs
+  // stage 1 roles: m16 tile m1 of the band's 32 crop rows, three n8
+  // tiles j of the 12 (3 fields x 4) of the strip's 96 columns -- 3 n1 ..
+  // 3 n1 + 2; for kBf16 or a policy that recombines, column tile n1 of
+  // each field j, which recombine needs
   const int m1 = warp & 1, n1 = warp >> 1;
-  auto field_of = [&](int j) { return kBf16 ? j : (3 * n1 + j) / 4; };
+  constexpr bool kColumnTile = kBf16 || F::kRecombine;
+  auto field_of = [&](int j) { return kColumnTile ? j : (3 * n1 + j) / 4; };
   auto column_of = [&](int j) {
-    return kBf16 ? 8 * n1 : ((3 * n1 + j) % 4) * 8;
+    return kColumnTile ? 8 * n1 : ((3 * n1 + j) % 4) * 8;
   };
   // stage 2 roles: m16 tile m2 of the output rows u, n8 tile n2 of v
   const int m2 = warp & 1, n2 = warp >> 1;
@@ -386,11 +417,13 @@ __device__ __forceinline__ void crop_block(const F& fields,
     for (int k = 0; k < kOSlots; ++k) obuf[k * kThreads + threadIdx.x] = 0.f;
   }
 
-  // operator tile of `step` into its ring slot, two pairs a copy
+  // operator tile of `step` into its ring slot, two pairs a copy: of the
+  // row band for stage 1, of the column band for stage 2
   auto load_tile = [&](int step) {
     const int strip = step / (nk + 1), j = step % (nk + 1);
-    const float2* src = tiles + static_cast<size_t>(j < nk ? j : strip) *
-                                    kCrop * kTile;
+    const float2* src = (j < nk ? band.rows : band.cols) +
+                        static_cast<size_t>(j < nk ? j : strip) * kCrop *
+                            kTile;
     float2* dst = ring + (step & 1) * kOpPairs;
 #pragma unroll
     for (int i = 0; i < kCrop * kTile / 2 / kThreads; ++i) {
@@ -455,7 +488,7 @@ __device__ __forceinline__ void crop_block(const F& fields,
     } else {
       // the strip's G from the stage-1 accumulators: rows u, u + 8,
       // columns yo, yo + 1 as two (re, im) pairs a store
-      if constexpr (kBf16) {
+      if constexpr (F::kRecombine) {
         fields.recombine(g_re);
         fields.recombine(g_im);
       }
@@ -567,7 +600,8 @@ __device__ __forceinline__ void crop_block(const F& fields,
   const int live = fields.fields();
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const int u = 16 * m2 + g + 8 * (r / 2), v = 8 * n2 + 2 * t + r % 2;
+    const int u = band.u0 + 16 * m2 + g + 8 * (r / 2);
+    const int v = band.v0 + 8 * n2 + 2 * t + r % 2;
     if (u < w && v < w) {
 #pragma unroll
       for (int d = 0; d < kFields; ++d) {
@@ -584,23 +618,35 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The host side of a launch, on `stream` of the current device: checks R
-// and w, lets `kernel` take `smem` bytes of dynamic shared memory, and
-// lays the operator out in `work` -- ceil(R / 32) * 32 * 32 * 2 floats,
-// 16-byte aligned, allocated by the caller.  Returns the first error.
-template <class Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem, const float* are,
-                    const float* aim, float* work, int R, int w,
-                    cudaStream_t stream) {
-  if (R <= 0 || w <= 0 || w > kCrop) return cudaErrorInvalidValue;
+// Runs `kernel` on `grid` blocks of kThreads, on `stream` of the current
+// device: checks R and w, lets `kernel` take `smem` bytes of dynamic
+// shared memory, lays the operator out in `work` -- bands(w) * ceil(R /
+// 32) * 32 * 32 * 2 floats, 16-byte aligned, allocated by the caller --
+// and launches `kernel` (fields, band, R, w, scale, vec16) once per band
+// pair of the crop.  Returns the first error.
+template <class Kernel, class F>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const F& fields,
+                   const float* are, const float* aim, float* work, int R,
+                   int w, float scale, int vec16, cudaStream_t stream) {
+  if (R <= 0 || w <= 0) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int nk = (R + kTile - 1) / kTile;
-  const int pairs = nk * kCrop * kTile;
+  const int nk = (R + kTile - 1) / kTile, nb = bands(w);
+  const size_t per_band = static_cast<size_t>(nk) * kCrop * kTile;
+  float2* const tiles = reinterpret_cast<float2*>(work);
+  const int pairs = nb * nk * kCrop * kTile;
   operator_tiles<<<(pairs + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      are, aim, reinterpret_cast<float2*>(work), R, w, nk);
+      are, aim, tiles, R, w, nk, nb);
+  for (int i = 0; i < nb; ++i) {
+    for (int j = 0; j < nb; ++j) {
+      const Band band{tiles + i * per_band, tiles + j * per_band, kCrop * i,
+                      kCrop * j};
+      kernel<<<grid, kThreads, smem, stream>>>(fields, band, R, w, scale,
+                                                vec16);
+    }
+  }
   return cudaGetLastError();
 }
 

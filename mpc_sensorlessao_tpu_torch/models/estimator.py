@@ -17,7 +17,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from ..ops import dft, psf, psf_kernels, zernike
+from ..ops import dft, psf, zernike
 from ..utils.config import EstimatorConfig
 
 
@@ -152,19 +152,6 @@ def _linearize(mode_stack, diversity_phases, pupil, dft_op, scale):
     return b, torch.cat(cols).T                                # (p,), (p, nx)
 
 
-def check_crop_width(crop_half: int, device: torch.device | str) -> None:
-    """Refuse, on a CUDA device, a crop wider than the measurement
-    kernels take (``psf_kernels.MAX_CROP``): the loop would otherwise
-    fail deep inside its first step.  The plain versions on the CPU take
-    any width."""
-    w = 2 * crop_half + 1
-    if torch.device(device).type == "cuda" and w > psf_kernels.MAX_CROP:
-        raise ValueError(
-            f"estimator.crop_half={crop_half} gives {w}-px crops; the CUDA "
-            f"measurement kernels take at most {psf_kernels.MAX_CROP} "
-            "(crop_half <= 15): a kernel for wider crops is ROADMAP.md C.2")
-
-
 def build(cfg: EstimatorConfig, basis: zernike.ZernikeBasis,
           device: torch.device | str = "cuda") -> EstimatorModel:
     """Build the estimator by linearizing the exact PSF map.
@@ -179,7 +166,6 @@ def build(cfg: EstimatorConfig, basis: zernike.ZernikeBasis,
             "estimator.method='mmse' is not ported yet (ROADMAP.md A.7)")
     if cfg.method != "ls":
         raise ValueError(f"unknown estimator method '{cfg.method}'")
-    check_crop_width(cfg.crop_half, device)
     R = cfg.resolution
     if basis.resolution != R:
         raise ValueError("basis and estimator grids must match")

@@ -13,16 +13,15 @@ of ``mpc_sensorlessao_tpu/ops/pallas_kernels.py``).
 On a CUDA tensor each wrapper launches its hand-written kernel (built with
 nvcc at first use, bound with ctypes, counted in ``<wrapper>.launches``)
 or raises; on a CPU tensor it runs its plain PyTorch version
-``<wrapper>_ref``.  There is no other fallback.  B1-B3 run both DFT
+``<wrapper>_ref``.  There is no other fallback.  All four run both DFT
 stages on the tensor cores in 3xTF32 (float32 accuracy) on one engine,
-``csrc/psf_mma.cuh``; B4 on the FP32 units.
+``csrc/psf_mma.cuh``, at any crop width w (the Pallas kernels' range).
 
-B1-B3 also take ``compute_dtype="bfloat16"``, the Pallas kernels' branch
+Each also takes ``compute_dtype="bfloat16"``, the Pallas kernels' branch
 that rounds the DFT stages' operands to bf16 and sums in float32: on a
 CUDA tensor the library's ``<name>_bf16`` entry point (one bf16 pass on
 the same engine, counted in ``<wrapper>.launches_bf16``), on a CPU tensor
-the plain version rounding at the same points.  B4 has no bf16 branch
-yet and raises for it.
+the plain version rounding at the same points.
 """
 
 from __future__ import annotations
@@ -33,9 +32,8 @@ import torch
 
 from . import cuda_build, dft
 
-MAX_CROP = 32          # crop width the kernels' warp layout holds
-MMA_TILE = 32          # K tile of B1-B3: their operator scratch holds whole
-                       # tiles
+MMA_TILE = 32          # K tile and crop band of the engine: its operator
+                       # scratch holds whole tiles of whole bands
 
 
 COMPUTE_DTYPES = (None, "bfloat16")
@@ -75,6 +73,13 @@ def _intensity_bf16(fre: torch.Tensor, fim: torch.Tensor,
     gim = are @ fim + aim @ fre
     if recombine is not None:
         gre, gim = recombine(gre), recombine(gim)
+    return _stage2_bf16(gre, gim, are, aim, scale)
+
+
+def _stage2_bf16(gre: torch.Tensor, gim: torch.Tensor, are: torch.Tensor,
+                 aim: torch.Tensor, scale: float) -> torch.Tensor:
+    """|G A^T|^2 * scale from float32 stage-1 rows G (..., w, R), rounded
+    to bfloat16 first, and the bf16-rounded operator's parts."""
     gre, gim = _bf16(gre), _bf16(gim)
     ore = gre @ are.T - gim @ aim.T                             # (...,w,w)
     oim = gre @ aim.T + gim @ are.T
@@ -131,12 +136,29 @@ def psf_crop_diversity_sym3_thin_ref(phase: torch.Tensor,
                                      ) -> torch.Tensor:
     """Plain PyTorch version of kernel B4: B1's function, with the six
     real products through the first DFT stage and the +- recombination
-    on the (w, R) rows; float32 only (``"bfloat16"`` raises)."""
-    _refuse_bf16_thin(compute_dtype)
+    on the (w, R) rows.
+
+    ``compute_dtype="bfloat16"`` rounds where
+    ``_psf_div3_sym_thin_kernel`` rounds: A and each of the six products,
+    whose stage-1 rows U_k = [Are; Aim] t_k are float32; the fields' rows
+    are recombined from them in float32 and only then rounded
+    (``_stage2_bf16``).
+    """
+    _check_compute_dtype(compute_dtype)
     c, s = torch.cos(phase), torch.sin(phase)
     pcd, psd = pupil * cos_a, pupil * sin_a
     t = torch.stack([c * pcd, s * psd, s * pcd, c * psd, pupil * c,
                      pupil * s], dim=1)                         # (B,6,R,R)
+    if compute_dtype == "bfloat16":
+        are, aim = _bf16(dft_op.real), _bf16(dft_op.imag)
+        t = _bf16(t)
+        Ur, Ui = (are @ t).unbind(1), (aim @ t).unbind(1)      # 6 x (B,w,R)
+        # rr = Are fr - Aim fi, ri = Are fi + Aim fr of each field
+        gre = torch.stack([Ur[0] + Ur[1] - Ui[2] + Ui[3], Ur[4] - Ui[5],
+                           Ur[0] - Ur[1] - Ui[2] - Ui[3]], dim=1)
+        gim = torch.stack([Ur[2] - Ur[3] + Ui[0] + Ui[1], Ur[5] + Ui[4],
+                           Ur[2] + Ur[3] + Ui[0] - Ui[1]], dim=1)
+        return _stage2_bf16(gre, gim, are, aim, scale)
     U = dft_op @ t.to(dft_op.dtype)                             # (B,6,w,R)
     rows = torch.stack([U[:, 0] + U[:, 1] + 1j * (U[:, 2] - U[:, 3]),
                         U[:, 4] + 1j * U[:, 5],
@@ -192,19 +214,19 @@ def _check(name: str, t: torch.Tensor, shape, device) -> None:
 
 def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
             per_item: tuple, scale: float, counts: tuple = (),
-            workspace: int = 0, compute_dtype: str | None = None
-            ) -> torch.Tensor:
+            compute_dtype: str | None = None) -> torch.Tensor:
     """Check the inputs of kernel library ``name`` and launch it on
     PyTorch's current stream.
 
     phase (B, R, R); ``maps`` the (label, tensor, shape) of its other
     float32 inputs; ``dft_op`` the complex64 (w, R) operator, passed as
-    its real and imaginary parts; the output is (B, *per_item, w, w)
-    float32.  The C entry point -- ``name``, or ``<name>_bf16`` for
+    its real and imaginary parts, any w; the output is (B, *per_item, w,
+    w) float32.  The C entry point -- ``name``, or ``<name>_bf16`` for
     ``compute_dtype="bfloat16"`` -- takes the pointers (phase, maps, real
-    and imaginary operator, with ``workspace`` > 0 a scratch of that many
-    float32, output), the ints (B, *counts, R, w), then scale, device and
-    stream; ``<entry>_error_string`` names its error codes.
+    and imaginary operator, the engine's operator scratch of
+    ``_operator_scratch(R, w)`` float32, output), the ints (B, *counts,
+    R, w), then scale, device and stream; ``<entry>_error_string`` names
+    its error codes.
     """
     entry = name if compute_dtype is None else f"{name}_bf16"
     if phase.device.type != "cuda":
@@ -214,8 +236,6 @@ def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
         raise ValueError(f"phase must be (B, R, R), got {tuple(phase.shape)}")
     B, R = phase.shape[0], phase.shape[-1]
     w = dft_op.shape[0]
-    if not 0 < w <= MAX_CROP:
-        raise ValueError(f"crop width {w} outside 1..{MAX_CROP}")
     dev = phase.device
     a_ri = torch.view_as_real(dft_op).permute(2, 0, 1).contiguous()
     _check("phase", phase, (B, R, R), dev)
@@ -223,9 +243,9 @@ def _launch(name: str, phase: torch.Tensor, maps, dft_op: torch.Tensor,
         _check(label, t, shape, dev)
     _check("dft_op (real part)", a_ri[0], (w, R), dev)
     out = torch.empty((B, *per_item, w, w), dtype=torch.float32, device=dev)
-    scratch = ([torch.empty(workspace, dtype=torch.float32, device=dev)]
-               if workspace else [])
-    ptrs = [phase, *(t for _, t, _ in maps), a_ri[0], a_ri[1], *scratch, out]
+    scratch = torch.empty(_operator_scratch(R, w), dtype=torch.float32,
+                          device=dev)
+    ptrs = [phase, *(t for _, t, _ in maps), a_ri[0], a_ri[1], scratch, out]
     ints = (B, *counts, R, w)
     launch = cuda_build.function(
         name, [ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
@@ -258,18 +278,9 @@ def psf_crop_diversity_sym3(phase: torch.Tensor, pupil: torch.Tensor,
                                            dft_op, scale, compute_dtype)
     out = _launch("psf_div3_sym", phase,
                   _sym3_maps(phase, pupil, cos_a, sin_a), dft_op, (3,), scale,
-                  workspace=_operator_scratch(phase),
                   compute_dtype=compute_dtype)
     _count(psf_crop_diversity_sym3, compute_dtype)
     return out
-
-
-def _refuse_bf16_thin(compute_dtype) -> None:
-    _check_compute_dtype(compute_dtype)
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "kernel B4 (psf_crop_diversity_sym3_thin) has no "
-            f"compute_dtype={compute_dtype!r} branch yet (ROADMAP.md B)")
 
 
 def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
@@ -278,21 +289,24 @@ def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
                                  compute_dtype: str | None = None
                                  ) -> torch.Tensor:
     """Kernel B4: B1's function and arguments, with the +- recombination
-    on the thin row intermediate; float32 only (``"bfloat16"`` raises)."""
-    _refuse_bf16_thin(compute_dtype)
+    on the thin row intermediate.  Same arguments as
+    ``psf_crop_diversity_sym3_thin_ref``."""
+    _check_compute_dtype(compute_dtype)
     if phase.device.type == "cpu":
         return psf_crop_diversity_sym3_thin_ref(phase, pupil, cos_a, sin_a,
-                                                dft_op, scale)
+                                                dft_op, scale, compute_dtype)
     out = _launch("psf_div3_sym_thin", phase,
-                  _sym3_maps(phase, pupil, cos_a, sin_a), dft_op, (3,), scale)
-    psf_crop_diversity_sym3_thin.launches += 1
+                  _sym3_maps(phase, pupil, cos_a, sin_a), dft_op, (3,), scale,
+                  compute_dtype=compute_dtype)
+    _count(psf_crop_diversity_sym3_thin, compute_dtype)
     return out
 
 
-def _operator_scratch(phase) -> int:
-    """Floats of the scratch in which B1-B3 lay the operator out as
-    32 x 32 tiles of (re, im): ``2 * 32 * 32 * ceil(R / 32)``."""
-    return 2 * MMA_TILE * MAX_CROP * -(-phase.shape[-1] // MMA_TILE)
+def _operator_scratch(R: int, w: int) -> int:
+    """Floats of the scratch in which the engine lays the operator out as
+    32 x 32 tiles of (re, im) in bands of 32 rows:
+    ``2 * 32 * 32 * ceil(R / 32) * ceil(w / 32)``."""
+    return 2 * MMA_TILE * MMA_TILE * -(-R // MMA_TILE) * -(-w // MMA_TILE)
 
 
 def _sym3_maps(phase, pupil, cos_a, sin_a):
@@ -323,7 +337,6 @@ def psf_crop_diversity(phase: torch.Tensor, pupil: torch.Tensor,
                    ("pupil * div_sin", (pupil * div_sin).contiguous(),
                     (n_div, R, R))],
                   dft_op, (n_div,), scale, counts=(n_div,),
-                  workspace=_operator_scratch(phase),
                   compute_dtype=compute_dtype)
     _count(psf_crop_diversity, compute_dtype)
     return out
@@ -340,14 +353,12 @@ def psf_crop_intensity(phase: torch.Tensor, pupil: torch.Tensor,
                                       compute_dtype)
     R = phase.shape[-1]
     out = _launch("psf_crop", phase, [("pupil", pupil, (R, R))], dft_op,
-                  (), scale, workspace=_operator_scratch(phase),
-                  compute_dtype=compute_dtype)
+                  (), scale, compute_dtype=compute_dtype)
     _count(psf_crop_intensity, compute_dtype)
     return out
 
 
-# launches of each kernel: float32 and, for B1-B3, bf16 (``_count``)
+# launches of each kernel: float32 and bf16 (``_count``)
 for _wrapper in (psf_crop_diversity_sym3, psf_crop_diversity,
-                 psf_crop_intensity):
+                 psf_crop_intensity, psf_crop_diversity_sym3_thin):
     _wrapper.launches = _wrapper.launches_bf16 = 0
-psf_crop_diversity_sym3_thin.launches = 0

@@ -1,5 +1,5 @@
 """The port's CUDA kernels B1-B5 on the card, against their plain versions
-(B1-B3 also in their bf16 branch).
+(B1-B4 also in their bf16 branch, and at crops wider than 32 px).
 
 These tests need an NVIDIA GPU with nvcc (marker ``gpu``) and skip
 without one.  They import neither jax nor the JAX package, so on the GPU
@@ -8,13 +8,16 @@ machine they run without the repo's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 """
 
+import dataclasses
 import re
 
 import numpy as np
 import pytest
 import torch
 
+from mpc_sensorlessao_tpu_torch import reference_config
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
+from mpc_sensorlessao_tpu_torch.models import estimator
 from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, psf, psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
 
@@ -61,10 +64,13 @@ def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
 
 
+MMA_LIBS = ["psf_div3_sym", "psf_div", "psf_crop", "psf_div3_sym_thin"]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("lib", ["psf_div3_sym", "psf_div", "psf_crop"])
+@pytest.mark.parametrize("lib", MMA_LIBS)
 def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
-    """The built SASS of B1, and of B2 and B3 on its engine, holds HMMA
+    """The built SASS of B1, and of B2, B3 and B4 on its engine, holds HMMA
     (tensor-core) instructions, and ptxas reports no spill for any of
     a library's kernels (its float32 and bf16 entries'), within the 128
     registers a thread that two resident blocks per SM allow."""
@@ -162,7 +168,7 @@ BF16_HMMA = "HMMA.16816.F32.BF16"
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lib", ["psf_div3_sym", "psf_div", "psf_crop"])
+@pytest.mark.parametrize("lib", MMA_LIBS)
 def test_bf16_entries_build_without_spills_on_bf16_mma(cuda_device, lib):
     """Each library's bf16 kernel builds within 128 registers without a
     spill, and its SASS holds bf16 tensor-core products (HMMA.16816.F32.
@@ -186,15 +192,15 @@ def test_bf16_entries_build_without_spills_on_bf16_mma(cuda_device, lib):
 @pytest.mark.parametrize("R", [98, 128])
 @pytest.mark.parametrize("kernel,count", [("b1", 3), ("b2", 1), ("b2", 2),
                                           ("b2", 3), ("b2", 4), ("b3", 1),
-                                          ("b3", 7)])
+                                          ("b3", 7), ("b4", 3)])
 def test_bf16_cuda_kernels_match_bf16_plain(cuda_device, kernel, count, R):
     """Each kernel's bf16 entry (compute_dtype="bfloat16") vs its plain
     version's bf16 branch on the card, with the ragged groups of the
     float32 tests: B2 on n_div = 1, 2, 4 random maps and on the symmetric
-    triple (3), B3 on N = 1, 7 total phases; R=98 is a ragged edge of the
-    tile and not a multiple of 4.  The launch counts as a bf16 one, not
+    triple (3), B3 on N = 1, 7 total phases, B1 and B4 on the real
+    diversity; R=98 is a ragged edge of the tile and not a multiple of 4.  The launch counts as a bf16 one, not
     a float32 one.  Max abs error at most 4e-5 of the peak on the real
-    diversity (B1, B2 on the triple: chip_smoke.py's BF16_ATOL, below the
+    diversity (B1, B4, B2 on the triple: chip_smoke.py's BF16_ATOL, below the
     6e-5 by which a B1 kernel rounding its +- fields would miss at R=128)
     and 1e-4 on random maps and phases -- the tensor cores' stage-1 sums
     round toward zero and flip the bf16 rounding of a stage-1 element now
@@ -203,9 +209,11 @@ def test_bf16_cuda_kernels_match_bf16_plain(cuda_device, kernel, count, R):
     function."""
     phase, pupil, cos_a, sin_a, op, scale = _b1_args(R, 3, 15, cuda_device)
     k = psf_kernels
-    if kernel == "b1":
-        wrapper = k.psf_crop_diversity_sym3
-        plain = k.psf_crop_diversity_sym3_ref
+    if kernel in ("b1", "b4"):
+        wrapper, plain = {
+            "b1": (k.psf_crop_diversity_sym3, k.psf_crop_diversity_sym3_ref),
+            "b4": (k.psf_crop_diversity_sym3_thin,
+                   k.psf_crop_diversity_sym3_thin_ref)}[kernel]
         args = (phase, pupil, cos_a, sin_a, op, scale)
     else:
         if count == 3:
@@ -233,7 +241,7 @@ def test_bf16_cuda_kernels_match_bf16_plain(cuda_device, kernel, count, R):
     peak = float(want.abs().max())
     err = float((got - want).abs().max())
     gap = float((want - plain(*args)).abs().max())
-    real_diversity = kernel == "b1" or (kernel == "b2" and count == 3)
+    real_diversity = kernel in ("b1", "b4") or (kernel == "b2" and count == 3)
     assert err <= (4e-5 if real_diversity else 1e-4) * peak, (err, peak)
     assert err <= gap / 4, (err, gap)
 
@@ -242,8 +250,8 @@ def test_bf16_cuda_kernels_match_bf16_plain(cuda_device, kernel, count, R):
 @pytest.mark.parametrize("kernel", ["b1", "b2", "b3", "b4"])
 def test_wrappers_raise_on_bad_input(cuda_device, kernel):
     """On a CUDA tensor each wrapper launches or raises: a float64 phase,
-    a phase on another grid than the maps and a crop wider than the kernels' 32 are
-    refused, not rerouted."""
+    a phase on another grid than the maps and an operator of another grid
+    are refused, not rerouted."""
     if kernel == "b1":
         wrapper = psf_kernels.psf_crop_diversity_sym3
         args = list(_b1_args(64, 2, 9, cuda_device))
@@ -255,10 +263,74 @@ def test_wrappers_raise_on_bad_input(cuda_device, kernel):
         wrapper(args[0].double(), *args[1:])
     with pytest.raises(ValueError, match="shape"):
         wrapper(args[0][:, :32, :32].contiguous(), *args[1:])
-    args[-2] = dft.centered_partial_dft(64, 16, device=cuda_device)
-    with pytest.raises(ValueError, match="crop width"):
+    args[-2] = dft.centered_partial_dft(96, 9, device=cuda_device)
+    with pytest.raises(ValueError, match="shape"):
         wrapper(*args)
     assert wrapper.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+@pytest.mark.parametrize("w", [33, 41, 63])
+@pytest.mark.parametrize("kernel", ["b1", "b2", "b3", "b4"])
+def test_cuda_kernels_match_plain_at_wide_crops(cuda_device, kernel, w,
+                                                dtype):
+    """B1-B4 at crops wider than one 32-px band of the engine (w = 33, 41,
+    63: two bands, the second ragged) vs their plain versions on the card,
+    R=128, B=3 (B2 on the symmetric triple, B3 on the 9 total phases),
+    float32 and bf16: the kernel launches (counted in its precision) and
+    meets the limits of the 31-px tests -- float32 rtol 2e-4, atol 1e-5
+    of the peak; bf16 4e-5 of the peak (real diversity) and 1/4 of the
+    bf16 plain version's gap from float32."""
+    c = (w - 1) // 2
+    if kernel == "b1":
+        wrapper = psf_kernels.psf_crop_diversity_sym3
+        plain = psf_kernels.psf_crop_diversity_sym3_ref
+        args = _b1_args(128, 3, c, cuda_device)
+    else:
+        wrapper, plain, args = _kernel_args(kernel, 128, 3, c, cuda_device)
+    bf16 = dtype is not None
+    before = (wrapper.launches, wrapper.launches_bf16)
+    got = wrapper(*args, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_bf16) == (
+        before[0] + (not bf16), before[1] + bf16)
+    want = plain(*args, compute_dtype=dtype)
+    assert got.shape == want.shape and got.shape[-2:] == (w, w)
+    peak = float(want.abs().max())
+    if not bf16:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
+        return
+    err = float((got - want).abs().max())
+    gap = float((want - plain(*args)).abs().max())
+    assert err <= 4e-5 * peak, (err, peak)
+    assert err <= gap / 4, (err, gap)
+
+
+@pytest.mark.gpu
+def test_estimator_build_on_cuda_takes_wide_crops(cuda_device):
+    """estimator.build(..., device="cuda") at crop_half=20 (41-px crops)
+    builds, and its measure launches kernel B1 once and matches the CPU
+    build's measure (plain version): rtol 2e-4, atol 1e-5 of the peak."""
+    cfg = reference_config(resolution=64)
+    est_cfg = dataclasses.replace(cfg.estimator, crop_half=20)
+    model = estimator.build(
+        est_cfg, zernike.make_basis(6, 64, device=cuda_device),
+        device=cuda_device)
+    ref = estimator.build(est_cfg, zernike.make_basis(6, 64, device="cpu"),
+                          device="cpu")
+    rng = np.random.default_rng(9)
+    ph = torch.as_tensor((rng.normal(size=(4, 64, 64)) * 0.3).astype(
+        np.float32))
+    b1 = psf_kernels.psf_crop_diversity_sym3
+    before = b1.launches
+    got = estimator.measure(model, ph.to(cuda_device))
+    torch.cuda.synchronize()
+    assert b1.launches == before + 1
+    want = estimator.measure(ref, ph)
+    assert got.shape == want.shape == (4, 3 * 41 * 41)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4,
+                               atol=1e-5 * float(want.abs().max()))
 
 
 CHAINS = {"b5a": (device_peaks.transc_sincos_chain,
