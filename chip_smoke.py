@@ -74,11 +74,29 @@ package):
    25 steps through B1 and through B2: both keep lock and settle within
    0.002 of each other in exact Strehl; the B=4 card-vs-CPU check of
    the slice phase, through B1.
-9. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+9. strong: the strong-turbulence recipe (ROADMAP A.7; config.
+   strong_turbulence: radial order 10, mmse estimator with the analytic
+   Von Karman prior, warm start, var_ridge 1e-2, r_weight 30) at R=512,
+   D/r0=10, the sim defaults, 500 steps, 256 shared-window scenarios (64
+   at each SNR of 5, 10, 20, 40 dB), from pipeline.warm_start_command:
+   MONTECARLO512_r05.json's D/r0=10 block.  Per SNR the settled (steps
+   250:) exact Strehl, its p10 and the diverged count (non-finite, or a
+   residual over 10x the turbulence RMS), beside the JAX target
+   0.9334-0.9338; each must reach 0.92 with 0 diverged, and B1 must
+   launch >= 2 times a step.  The run is traced once (trace_run), and
+   the B=4 card-vs-CPU check of the slice phase passes on it.  Then the
+   tracking estimator (track_gn_iters=1) with the estimator-VAR fusion
+   (est_gain 0.9, innovation_gate 5) at R=128, D/r0=15, B=64, 60 steps:
+   finite, B1 >= 4 launches a step in the first run, then 3 warm runs
+   timed (median and range a step), and the card-vs-CPU check at 10
+   steps.  The phase ends on the seconds of each of its parts: builds,
+   runs, the trace's run, stop and export, and key_averages, and each
+   reference check's card and CPU halves.
+10. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
    power limit; each kernel must launch >= k1 + k2 times, and no rate may
    exceed 105% of its published peak.
-10. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+11. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
@@ -86,10 +104,12 @@ package):
    the bf16 variants against their bound at the measured ceilings (none
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
-11. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+12. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
    psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
    (bound_ms and bound_by from measure_bound at the published peaks,
-   fp32_bound_ms beside them, null for the bf16 entries)
+   fp32_bound_ms beside them, null for the bf16 entries; B1's launches
+   in the strong and tracking runs as launches_strong and
+   launches_tracking)
    -- then the last line {"ok": true, "device": {...}}.
 """
 
@@ -105,6 +125,7 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants, roofline
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
@@ -193,6 +214,19 @@ MIN_STREHL = 0.975
 # to <= 0.9): the R=512 loop's floor
 LOCK_STREHL = 0.9
 ROUTE_STREHL_TOL = 0.002
+# the strong-turbulence recipe run (ROADMAP A.7): MONTECARLO512_r05.json's
+# D/r0=10 block -- R=512, 500 steps, 64 scenarios at each SNR -- whose
+# JAX settled exact Strehl is 0.9334-0.9338 per SNR with 0 diverged
+STRONG_R = 512
+STRONG_D = 10.0
+STRONG_STEPS = 500
+STRONG_REPS = 64
+STRONG_SNRS = (5.0, 10.0, 20.0, 40.0)
+STRONG_MIN_STREHL = 0.92
+JAX_STRONG = (0.9334, 0.9338)
+# (R, D/r0, B, steps) of the tracking and fusion run
+TRACK = (128, 15.0, 64, 60)
+TRACK_TIMED = 3             # warm tracking runs timed after the counted one
 
 
 def fail(msg: str):
@@ -749,27 +783,45 @@ def roofline_phase(system, cfg, peaks: dict, times: dict, card: str):
 
 
 def trace_phase(system, cfg, untraced_s: float, card: str) -> None:
-    """One torch.profiler trace of the 25-step B1 run: device busy time
-    against the traced run's own wall time (and, beside it, against the
-    untraced run timed just before), and the top kernels and ops by
-    device time."""
+    """One torch.profiler trace of the 25-step B1 run (trace_run)."""
     scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
                                      BATCH, device="cuda")
-    with profiling.trace(str(TRACE_DIR)) as prof:
+    trace_run(f"{STEPS}-step B1 run, B={BATCH}", lambda: montecarlo.run_batch(
+        system.loop, system.layers, cfg, scen, STEPS,
+        shared_window="verified"), untraced_s, card, TRACE_DIR)
+
+
+def trace_run(label: str, run, untraced_s: float, card: str,
+              trace_dir: Path) -> dict:
+    """One torch.profiler trace of ``run()``: device busy time against
+    the traced run's own wall time (and, beside it, against the untraced
+    run timed before), and the top kernels and ops by device time.
+    Prints and returns the seconds the trace took, by part: the traced
+    run, the profiler's stop and Chrome-trace export, key_averages()."""
+    t_start = time.perf_counter()
+    with profiling.trace(str(trace_dir)) as prof:
         t0 = time.perf_counter()
-        montecarlo.run_batch(system.loop, system.layers, cfg, scen, STEPS,
-                             shared_window="verified")
+        run()
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
+    t_stop = time.perf_counter()
     avg = prof.key_averages()
+    secs = {"trace_start": t0 - t_start, "trace_run": traced_s,
+            "trace_stop_export": t_stop - t0 - traced_s,
+            "trace_key_averages": time.perf_counter() - t_stop}
+    mib = (trace_dir / "trace.json").stat().st_size / 2 ** 20
+    print(f"trace timing: {label}: profiler start "
+          f"{secs['trace_start']:.2f} s, traced run {traced_s:.2f} s, stop "
+          f"and export {secs['trace_stop_export']:.2f} s ({mib:.1f} MiB "
+          f"trace.json), key_averages {secs['trace_key_averages']:.2f} s")
     kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy_ms == 0:
         print("trace: key_averages() shows no device time; the CUDA-event "
               "and host-clock times above stand")
-        return
-    print(f"trace: {STEPS}-step B1 run, B={BATCH}: device busy {busy_ms:.3f}"
+        return secs
+    print(f"trace: {label}: device busy {busy_ms:.3f}"
           f" ms in {traced_s * 1e3:.2f} ms traced, so the device is idle "
           f"{100 * (1 - busy_ms / (traced_s * 1e3)):.1f}% of the traced "
           f"run ({100 * (1 - busy_ms / (untraced_s * 1e3)):.1f}% of the "
@@ -787,36 +839,196 @@ def trace_phase(system, cfg, untraced_s: float, card: str) -> None:
         ms = e.self_device_time_total / 1e3
         print(f"trace op: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%), "
               f"{e.count} calls: {e.key}")
+    return secs
 
 
-def reference_phase(loop, layers, cfg, dev, route: str) -> None:
+def reference_phase(loop, layers, cfg, dev, route: str, n_steps: int = STEPS,
+                    mag=None, init_u=None) -> tuple[float, float]:
     """The loop at B=4 on the card (kernel) and on the CPU (plain
-    version), same operators and injected noise."""
+    version), same operators, injected noise, magnifications (default
+    1.0-1.8) and warm-start command.  Returns the seconds of the card's
+    run and of the CPU's."""
+    t0 = time.perf_counter()
     B = 4
     rng = np.random.default_rng(5)
     noise = torch.as_tensor(
         (float(loop.est.noise_std) * rng.standard_normal(
-            (B, STEPS, loop.est.n_pixels))).astype(np.float32))
-    mag = torch.linspace(1.0, 1.8, B)
-    kw = dict(n_steps=STEPS, start_step=cfg.sim.n_train + cfg.sim.n_valid,
+            (B, n_steps, loop.est.n_pixels))).astype(np.float32))
+    mag = torch.linspace(1.0, 1.8, B) if mag is None else mag
+    kw = dict(n_steps=n_steps, start_step=cfg.sim.n_train + cfg.sim.n_valid,
               mag=mag)
     gpu = closed_loop.simulate(loop, layers, cfg, None,
-                               noise_seq=noise.to(dev), **kw)
-    cpu = closed_loop.simulate(tree.cast(loop, device="cpu"),
-                               tree.cast(layers, device="cpu"), cfg,
-                               None, noise_seq=noise, **kw)
+                               noise_seq=noise.to(dev), init_u=init_u, **kw)
+    torch.cuda.synchronize()
+    t_cpu = time.perf_counter()
+    cpu = closed_loop.simulate(
+        tree.cast(loop, device="cpu"), tree.cast(layers, device="cpu"), cfg,
+        None, noise_seq=noise,
+        init_u=None if init_u is None else init_u.cpu(), **kw)
+    cpu_s = time.perf_counter() - t_cpu
     u_ref, rms_ref = cpu.u.numpy(), cpu.rms_res.numpy()
     u, rms = gpu.u.cpu().numpy(), gpu.rms_res.cpu().numpy()
     u_err = float(np.abs(u - u_ref).max() / np.abs(u_ref).max())
     rms_err = float(np.max(np.abs(rms - rms_ref) / rms_ref))
-    print(f"reference ({route}): B={B} loop on the card vs on the CPU: u "
-          f"max err {u_err:.3e} of max|u| (tolerance 0.02), residual RMS "
-          f"max rel err {rms_err:.3e} (tolerance 0.01)")
+    print(f"reference ({route}): B={B} {n_steps}-step loop on the card vs on "
+          f"the CPU: u max err {u_err:.3e} of max|u| (tolerance 0.02), "
+          f"residual RMS max rel err {rms_err:.3e} (tolerance 0.01); "
+          f"card {t_cpu - t0:.2f} s, CPU {cpu_s:.2f} s")
     if not np.allclose(rms, rms_ref, rtol=0.01, atol=5e-3) or u_err > 0.02:
         fail(f"{route}: the loop on the card disagrees with the CPU loop")
+    return t_cpu - t0, cpu_s
+
+
+def recipe_cfg(R: int, d_over_r0: float, n_steps: int):
+    """reference_config(R) with the strong-turbulence recipe
+    (config.strong_turbulence) and the sim defaults (n_train 1000,
+    n_valid 500)."""
+    cfg = strong_turbulence(reference_config(resolution=R), d_over_r0)
+    return cfg.replace(sim=dataclasses.replace(cfg.sim, n_test=n_steps))
+
+
+def build_timed(label: str, cfg, dev):
+    t0 = time.time()
+    system = pipeline.build(cfg, dev)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    print(f"{label}: pipeline.build at R={cfg.resolution} in {secs:.2f} s")
+    return system, secs
+
+
+def strong_phase(dev, card) -> dict:
+    """ROADMAP A.7: the strong-turbulence recipe at published width
+    (MONTECARLO512_r05.json's D/r0=10 block) through B1, traced once; the
+    B=4 card-vs-CPU check; then the tracking estimator and the
+    estimator-VAR fusion at R=128.  Prints where the phase's seconds go
+    and returns B1's launches per run."""
+    t_phase = time.time()
+    secs = {}
+    b1 = K.psf_crop_diversity_sym3
+    R, d, n = STRONG_R, STRONG_D, STRONG_STEPS
+    cfg = recipe_cfg(R, d, n)
+    system, secs["build"] = build_timed(f"strong R={R} D/r0={d:g}", cfg, dev)
+    start = cfg.sim.n_train + cfg.sim.n_valid
+    t0 = time.perf_counter()
+    init_u = pipeline.warm_start_command(system, cfg, start)
+    secs["warm_start"] = time.perf_counter() - t0
+    reps = STRONG_REPS
+    B = reps * len(STRONG_SNRS)
+    scales = np.repeat([10.0 ** ((cfg.estimator.snr_db - s) / 20.0)
+                        for s in STRONG_SNRS], reps)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scen = montecarlo.ScenarioBatch(
+        start_step=torch.full((B,), float(start), **f32),
+        mag=torch.full((B,), cfg.sim.magnification, **f32),
+        noise_scale=torch.as_tensor(scales, **f32), noise_seed=int(d))
+
+    def run():
+        out = montecarlo.run_batch(system.loop, system.layers, cfg, scen, n,
+                                   shared_window="verified", init_u=init_u)
+        torch.cuda.synchronize()
+        return out
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    secs["first_run"] = first_s = time.perf_counter() - t0
+    launches = {"strong": b1.launches}
+    t0 = time.perf_counter()
+    run()
+    secs["warm_run"] = run_s = time.perf_counter() - t0
+    print(f"strong R={R} D/r0={d:g} B={B} steps={n}: build "
+          f"{secs['build']:.2f} s, run {run_s:.4f} s ({B * n / run_s:.1f} "
+          f"solves/s; the first run, warm-up included, {first_s:.4f} s), "
+          f"psf_div3_sym launches {launches['strong']} in the first run "
+          f"[{card}]")
+    if launches["strong"] < 2 * n:
+        fail(f"the strong-turbulence run launched psf_div3_sym "
+             f"{launches['strong']} times in {n} steps, fewer than 2 a step")
+    t0 = time.perf_counter()
+    settle = n // 2
+    res = out.rms_res[:, settle:].cpu().numpy()
+    turb = out.rms_turb[:, settle:].cpu().numpy()
+    sx = out.strehl_exact[:, settle:].cpu().numpy()
+    for i, snr in enumerate(STRONG_SNRS):
+        sl = slice(i * reps, (i + 1) * reps)
+        rm = res[sl].mean(axis=1)
+        ok = np.isfinite(rm) & (rm <= 10.0 * turb[sl].mean(axis=1))
+        per = sx[sl][ok].mean(axis=1)
+        mean = float(per.mean()) if ok.any() else float("nan")
+        p10 = float(np.percentile(per, 10)) if ok.any() else float("nan")
+        print(f"strong R={R} D/r0={d:g} SNR {snr:g} dB: settled exact "
+              f"Strehl {mean:.5f} (p10 {p10:.5f}) over {reps} scenarios, "
+              f"{int((~ok).sum())} diverged; JAX target {JAX_STRONG[0]}-"
+              f"{JAX_STRONG[1]}, gap {mean - JAX_STRONG[0]:+.5f} to its low "
+              f"end")
+        if not ok.all() or not mean >= STRONG_MIN_STREHL:
+            fail(f"strong SNR {snr:g} dB: settled exact Strehl {mean:.5f} "
+                 f"(floor {STRONG_MIN_STREHL}), {int((~ok).sum())} diverged")
+    secs["quality"] = time.perf_counter() - t0
+    secs.update(trace_run(f"{n}-step strong-turbulence run, R={R}, B={B}",
+                          run, run_s, card, TRACE_DIR / "strong"))
+    secs["reference_card"], secs["reference_cpu"] = reference_phase(
+        system.loop, system.layers, cfg, dev, f"strong, R={R}, D/r0={d:g}",
+        mag=torch.full((4,), cfg.sim.magnification), init_u=init_u)
+    del system, out
+
+    R, d, B, n = TRACK
+    cfg = recipe_cfg(R, d, n)
+    cfg = cfg.replace(
+        estimator=dataclasses.replace(cfg.estimator, track_gn_iters=1),
+        mpc=dataclasses.replace(cfg.mpc, est_gain=0.9, innovation_gate=5.0))
+    system, secs["tracking_build"] = build_timed(
+        f"tracking R={R} D/r0={d:g}", cfg, dev)
+    init_u = pipeline.warm_start_command(system, cfg, start)
+    scen = montecarlo.make_scenarios(
+        cfg, torch.Generator().manual_seed(1), B, d_over_r0_grid=(d,),
+        snr_db_grid=STRONG_SNRS, device=dev)
+
+    def track():
+        out = montecarlo.run_batch(system.loop, system.layers, cfg, scen, n,
+                                   shared_window="verified", init_u=init_u)
+        torch.cuda.synchronize()
+        return out
+    reset_launches()
+    t0 = time.perf_counter()
+    out = track()
+    secs["tracking_first_run"] = time.perf_counter() - t0
+    launches["tracking"] = b1.launches
+    warm = []
+    for _ in range(TRACK_TIMED):
+        t0 = time.perf_counter()
+        track()
+        warm.append(time.perf_counter() - t0)
+    secs["tracking_warm_runs"] = sum(warm)
+    step_ms = sorted(1e3 * t / n for t in warm)
+    for field_name, field in zip(out._fields, out):
+        if not bool(torch.isfinite(field).all()):
+            fail(f"the tracking run gave a non-finite {field_name}")
+    print(f"tracking R={R} D/r0={d:g} B={B} steps={n} (track_gn_iters 1, "
+          f"est_gain 0.9, innovation_gate 5): settled exact Strehl "
+          f"{float(out.strehl_exact[:, n // 2:].mean()):.5f}, residual RMS "
+          f"{float(out.rms_res[:, n // 2:].mean()):.5f} rad; warm runs "
+          f"{step_ms[len(step_ms) // 2]:.3f} ms a step (median of "
+          f"{TRACK_TIMED}, {step_ms[0]:.3f}-{step_ms[-1]:.3f}; the first "
+          f"run, warm-up included, "
+          f"{1e3 * secs['tracking_first_run'] / n:.3f}), psf_div3_sym "
+          f"launches {launches['tracking']} in the first run [{card}]")
+    if launches["tracking"] < 4 * n:
+        fail(f"the tracking run launched psf_div3_sym {launches['tracking']}"
+             f" times in {n} steps, fewer than 4 a step")
+    secs["tracking_reference_card"], secs["tracking_reference_cpu"] = (
+        reference_phase(system.loop, system.layers, cfg, dev,
+                        f"tracking, R={R}, D/r0={d:g}", n_steps=10,
+                        mag=torch.full((4,), cfg.sim.magnification),
+                        init_u=init_u))
+    total = time.time() - t_phase
+    print(f"strong: phase in {total:.2f} s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items())
+        + f", other {total - sum(secs.values()):.2f} s")
+    return launches
 
 
 def main() -> None:
+    t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = device_phase()
@@ -848,13 +1060,18 @@ def main() -> None:
           f"{time.time() - t0:.2f} s")
     wide_phase(system, system_wide, cfg, cfg_wide, dev, card)
     loop_512_phase(dev, card)
+    strong_launches = strong_phase(dev, card)
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []
     for lib, _, _, replaces, variant, route in KERNELS:
         ms, plain_ms = times[variant]
         b = roofline.measure_bound(variant, 128, BATCH)
-        kernels.append({
+        if lib == "psf_div3_sym":
+            paths = {f"launches_{k}": v for k, v in strong_launches.items()}
+        else:
+            paths = {}
+        kernels.append({**paths,
             "name": lib, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
             "replaces": replaces,
             "launches": (loop_launches[lib] if route
@@ -880,6 +1097,7 @@ def main() -> None:
             "replaces": replaces, "launches": chain_launches[lib],
             "max_abs_err": max_err[lib], **chain_line[lib]})
     print(json.dumps({"kernels": kernels}))
+    print(f"smoke: {time.time() - t_start:.2f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ from .utils.config import (
     ZernikeConfig,
     mag_conv,
     reference_config,
+    strong_turbulence,
 )
 
 __version__ = "0.1.0"

@@ -49,11 +49,8 @@ def _from(cls, tree, device, **given):
 
 def estimator_from_numpy(est, device) -> estimator.EstimatorModel:
     """EstimatorModel from the JAX one; its (2, w, R) real/imag DFT stack
-    becomes the port's complex (w, R) operator; ``dft_dtype`` carries
-    across."""
-    if _get(est, "map_reg") is not None:
-        raise NotImplementedError(
-            "mmse estimators are not ported yet (ROADMAP.md A.7)")
+    becomes the port's complex (w, R) operator; ``dft_dtype`` and the
+    mmse estimator's ``map_reg`` (or None) carry across."""
     op = np.asarray(_get(est, "dft_op"), dtype=np.float32)
     dft_op = torch.as_tensor((op[0] + 1j * op[1]).astype(np.complex64),
                              device=device)

@@ -6,7 +6,8 @@ periodic screens, and every step runs over an explicit scenario batch:
 one Python step loop over (B, ...) tensors on the models' device.
 
 Loop step (reference: README.md:444-626):
-  residual phase -> diversity PSFs + noise -> LS estimate -> b_ref ->
+  residual phase -> diversity PSFs + noise -> LS/MMSE estimate
+  [-> tracking Gauss-Newton] [-> estimator-VAR fusion] -> b_ref ->
   QP solve (fastmpc / closed-form) -> first-stage input ->
   DM modal correction -> next-step corrected phase.
 """
@@ -102,26 +103,66 @@ def check_ported(cfg: SystemConfig, solver: str) -> None:
         raise NotImplementedError(
             "mpc.newton_steps != 1 (the general Newton solve) is not "
             "ported yet (ROADMAP.md A.8)")
-    if cfg.estimator.track_gn_iters > 0:
-        raise NotImplementedError(
-            "estimator.track_gn_iters > 0 is not ported yet (ROADMAP.md A.7)")
-    if cfg.mpc.est_gain != 1.0 or cfg.mpc.innovation_gate is not None:
-        raise NotImplementedError(
-            "estimator-VAR fusion (mpc.est_gain / innovation_gate) is not "
-            "ported yet (ROADMAP.md A.7)")
+
+
+def track_estimate(models: LoopModels, y: torch.Tensor, x0: torch.Tensor,
+                   seed: torch.Tensor, sig2: torch.Tensor,
+                   n_iters: int) -> torch.Tensor:
+    """The tracking estimator (EstimatorConfig.track_gn_iters): full
+    re-linearized Gauss-Newton from ``seed``, so the capture basin is the
+    per-step innovation, not the absolute aberration.  Recovery-only
+    rule: a scenario takes the tracked estimate only where the base
+    estimate ``x0`` has clearly stopped explaining its measured PSFs
+    (chi-square per pixel over ``sig2`` (B,) above 20 and above 3x the
+    tracked one); a head-to-head chi-square pick would prefer the less
+    regularized estimate, which has the larger truth error in lock.  A
+    scenario whose Gauss-Newton solve failed (NaN) keeps ``x0``."""
+    est, stack = models.est, models.state_stack
+    x_gn = estimator_model.estimate_full_gn(est, y, stack, n_iters,
+                                            x_init=seed)
+    R = stack.shape[-1]
+    flat = stack.reshape(stack.shape[0], R * R)
+
+    def chi2(xc):
+        dy = y - estimator_model.measure(est, (xc @ flat).reshape(-1, R, R))
+        return torch.mean(dy * dy, dim=-1) / sig2
+
+    c_base = chi2(x0)
+    unlocked = (c_base > 3.0 * chi2(x_gn)) & (c_base > 20.0)
+    return torch.where(unlocked[:, None], x_gn, x0)
+
+
+def fuse_estimate(prob: newton_kkt.FastMPCProblem, x0, x_pre, x_pre2, u1,
+                  u2, u3, est_gain: float,
+                  gate: float | None) -> torch.Tensor:
+    """Estimator-VAR fusion (MPCConfig.est_gain / innovation_gate): the
+    VAR prediction of the current residual from the loop's own history,
+    x[k] = A1 a[k-1] + A2 a[k-2] + B u[k-1] with a[k-j] = x[k-j] -
+    B u[k-j-1], blended as x_pred + est_gain * innovation, the innovation
+    clamped to norm ``gate``."""
+    Bt = prob.B.T
+    x_pred = ((x_pre - u2 @ Bt) @ prob.A1.T
+              + (x_pre2 - u3 @ Bt) @ prob.A2.T + u1 @ Bt)
+    innov = x0 - x_pred
+    if gate is not None:
+        nrm = torch.linalg.vector_norm(innov, dim=-1, keepdim=True)
+        innov = innov * torch.clamp(gate / (nrm + 1e-12), max=1.0)
+    return x_pred + est_gain * innov
 
 
 def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
              cfg: SystemConfig, generator: torch.Generator | None,
              n_steps: int, start_step=0, solver: str | None = None,
              mag=None, noise_scale=1.0,
-             noise_seq: torch.Tensor | None = None) -> StepOutputs:
+             noise_seq: torch.Tensor | None = None,
+             init_u: torch.Tensor | None = None) -> StepOutputs:
     """Run the closed loop for n_steps from absolute turbulence step
     ``start_step`` over a batch of scenarios.
 
     The batch is the broadcast of ``mag`` (default cfg.sim magnification),
-    ``noise_scale``, ``start_step`` and the leading dims of ``noise_seq``;
-    all scalars give the single-scenario loop with (T, ...) outputs.
+    ``noise_scale``, ``start_step``, the leading dims of ``noise_seq`` and
+    of ``init_u``; all scalars give the single-scenario loop with (T, ...)
+    outputs.
     A host-number ``start_step`` is ONE turbulence window shared by every
     scenario: the screen sample and its piston removal run once per step
     and broadcast (the shared-window fast path); a (B,) tensor gives each
@@ -131,6 +172,11 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     ``noise_seq`` ((*batch, T, p) or (T, p)) is given -- the injected
     sequence of the parity tests -- else drawn per step from
     ``generator`` (a torch.Generator on the models' device).
+
+    ``init_u`` ((nu,) or (*batch, nu)) is the acquisition warm start
+    (MPCConfig.warm_start, pipeline.warm_start_command): the DM starts
+    at that command, so step 0 sees only the prediction error and its
+    du is u - init_u.
     """
     solver = solver or cfg.mpc.solver
     check_ported(cfg, solver)
@@ -153,9 +199,12 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     shared = not (isinstance(start_step, torch.Tensor) and start_step.dim())
     # float32 step arithmetic, as the JAX package's traced steps
     start = np.float32(float(start_step)) if shared else f32(start_step)
+    if init_u is not None:
+        init_u = f32(init_u)
     batch = torch.broadcast_shapes(
         mag.shape, noise_scale.shape, () if shared else start.shape,
-        () if noise_seq is None else noise_seq.shape[:-2])
+        () if noise_seq is None else noise_seq.shape[:-2],
+        () if init_u is None else init_u.shape[:-1])
     B = math.prod(batch)
     mag_b = mag.expand(batch).reshape(B)
     scale_b = noise_scale.expand(batch).reshape(B, 1)
@@ -167,10 +216,23 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     stack = models.state_stack.reshape(nx, R * R)
     w2 = (2 * est.crop_half + 1) ** 2
     peak_dl = torch.max(est.b_s[w2:2 * w2])
-    u1 = torch.zeros((B, nu), dtype=torch.float32, device=dev)
-    u2 = torch.zeros_like(u1)
+    # the carry of the JAX scan: u[k-1..k-3], x0[k-1..k-2], DM modes
+    u2 = torch.zeros((B, nu), dtype=torch.float32, device=dev)
+    u3 = torch.zeros_like(u2)
+    u1 = (u2 if init_u is None
+          else init_u.expand(*batch, nu).reshape(B, nu).clone())
     x_pre = torch.zeros((B, nx), dtype=torch.float32, device=dev)
-    ad_cor = torch.zeros_like(x_pre)
+    x_pre2 = torch.zeros_like(x_pre)
+    ad_cor = u1 @ models.influence.T
+    fuse = cfg.mpc.est_gain != 1.0 or cfg.mpc.innovation_gate is not None
+    track = cfg.estimator.track_gn_iters
+    if track > 0:
+        # per-scenario noise variance, with a model-error floor that
+        # keeps the chi-square meaningful in (near-)noiseless scenarios
+        sig2 = ((scale_b[:, 0] * est.noise_std) ** 2
+                + (1e-3 * torch.sqrt(torch.mean(est.b_s ** 2))) ** 2)
+    prob = models.prob
+    warmup = cfg.mpc.var_order    # steps 0..var_order have no history
     rows = []
     for idx in range(n_steps):
         # -- turbulence + correction (README.md:447-453) --
@@ -200,6 +262,15 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
                 est, y, models.state_stack, gn)
         else:
             x0 = estimator_model.estimate(est, y)
+        if track > 0:
+            # continuity seed: the last estimate moved by the applied
+            # command change
+            seed = (x0 if idx <= warmup
+                    else x_pre + (u1 - u2) @ prob.B.T)
+            x0 = track_estimate(models, y, x0, seed, sig2, track)
+        if fuse and idx > warmup:
+            x0 = fuse_estimate(prob, x0, x_pre, x_pre2, u1, u2, u3,
+                               cfg.mpc.est_gain, cfg.mpc.innovation_gate)
 
         # -- QP assembly (README.md:483-501); "hold": first-step
         # x0_pre = x0 instead of zeros (see MPCConfig.cold_start) --
@@ -247,8 +318,8 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
             x_pred_norm=torch.linalg.vector_norm(x_pred[:, :nx], dim=-1),
             cost=cost, rms_res=rms_res, rms_turb=rms_turb,
             strehl=torch.exp(-rms_res ** 2), strehl_exact=strehl_exact))
-        u1, u2 = u, u1
-        x_pre = x0
+        u1, u2, u3 = u, u1, u2
+        x_pre, x_pre2 = x0, x_pre
         ad_cor = u @ models.influence.T
 
     return StepOutputs(*(

@@ -74,7 +74,8 @@ def assert_shared_window(scen: ScenarioBatch) -> None:
 
 def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
               scen: ScenarioBatch, n_steps: int, solver: str | None = None,
-              shared_window: bool | str = False) -> closed_loop.StepOutputs:
+              shared_window: bool | str = False,
+              init_u: torch.Tensor | None = None) -> closed_loop.StepOutputs:
     """The closed loop over the scenario batch; outputs (B, T, ...).
 
     ``shared_window`` (True or "verified") runs the shared-window fast
@@ -83,6 +84,9 @@ def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
     is checked on the concrete batch either way (assert_shared_window);
     trajectories equal those of the batched path.  Noise comes from a
     generator on the models' device seeded with ``scen.noise_seed``.
+    ``init_u`` ((nu,) or (B, nu)) is the warm-start command
+    (MPCConfig.warm_start; pipeline.warm_start_command), applied on both
+    paths.
     """
     gen = torch.Generator(device=models.influence.device)
     gen.manual_seed(scen.noise_seed)
@@ -93,4 +97,5 @@ def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
         start = scen.start_step
     return closed_loop.simulate(models, layers, cfg, gen, n_steps=n_steps,
                                 start_step=start, solver=solver,
-                                mag=scen.mag, noise_scale=scen.noise_scale)
+                                mag=scen.mag, noise_scale=scen.noise_scale,
+                                init_u=init_u)

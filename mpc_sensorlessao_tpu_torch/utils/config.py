@@ -367,3 +367,19 @@ def reference_config(resolution: int = 128) -> SystemConfig:
         telescope=TelescopeConfig(resolution=resolution),
         estimator=EstimatorConfig(resolution=resolution),
     )
+
+
+def strong_turbulence(cfg: SystemConfig, d_over_r0: float) -> SystemConfig:
+    """``cfg`` at D/r0 = ``d_over_r0`` with the strong-turbulence recipe
+    (README.md:128-143), as the JAX package's sweep scripts set it up
+    (benchmarks/montecarlo_sweep.py:60-67): radial order 10 (65 states),
+    the warm start, var_ridge 1e-2, r_weight 30 and the mmse estimator
+    with prior_scale min(0.15, 0.5/(D/r0))."""
+    return cfg.replace(
+        zernike=dataclasses.replace(cfg.zernike, radial_order=10),
+        mpc=dataclasses.replace(cfg.mpc, warm_start=True, var_ridge=1e-2,
+                                r_weight=30.0),
+        estimator=dataclasses.replace(
+            cfg.estimator, method="mmse",
+            prior_scale=min(0.15, 0.5 / d_over_r0)),
+        sim=dataclasses.replace(cfg.sim, d_over_r0=d_over_r0))

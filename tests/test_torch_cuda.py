@@ -1,5 +1,7 @@
 """The port's CUDA kernels B1-B5 on the card, against their plain versions
-(B1-B4 also in their bf16 branch, and at crops wider than 32 px).
+(B1-B4 also in their bf16 branch, and at crops wider than 32 px), and the
+strong-turbulence recipe (re-linearized Gauss-Newton, the recipe loop) on
+the card against the CPU.
 
 These tests need an NVIDIA GPU with nvcc (marker ``gpu``) and skip
 without one.  They import neither jax nor the JAX package, so on the GPU
@@ -15,11 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from mpc_sensorlessao_tpu_torch import reference_config
+from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
-from mpc_sensorlessao_tpu_torch.models import estimator
+from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
+from mpc_sensorlessao_tpu_torch.models import pipeline
 from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, psf, psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
+from mpc_sensorlessao_tpu_torch.utils import tree
 
 
 @pytest.fixture
@@ -410,3 +414,144 @@ def test_matmul_tf32_restores_the_tf32_setting(cuda_device, prior):
         assert torch.backends.cuda.matmul.allow_tf32 is prior
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# ------------------------------------------- the strong-turbulence recipe
+
+def _recipe(R, d, n_test, **estimator_kw):
+    cfg = strong_turbulence(reference_config(resolution=R), d)
+    return cfg.replace(
+        estimator=dataclasses.replace(cfg.estimator, **estimator_kw),
+        sim=dataclasses.replace(cfg.sim, n_train=300, n_valid=50,
+                                n_test=n_test))
+
+
+@pytest.fixture(scope="module")
+def recipe_64():
+    """The recipe at R=64, D/r0=10, built on the card; skips without
+    one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _recipe(64, 10.0, 10)
+    return cfg, pipeline.build(cfg, "cuda")
+
+
+@pytest.mark.gpu
+def test_linearize_and_full_gn_on_card_match_cpu(cuda_device, recipe_64):
+    """linearize_at and two seeded mmse Gauss-Newton iterations on a batch
+    of 3 on the card vs the same on the CPU (the card's operators copied
+    there): y0 and J within 1e-4 of their scale (float32 sums of R^2
+    terms in other orders), x within 1e-3 of ||x_true||.  Scenario 0,
+    whose Gauss-Newton matrix is made not positive definite (a negative
+    rank-one map_reg part along its weakest direction), gives NaN on the
+    card too, and the tracking rule keeps its base estimate."""
+    _, sys_ = recipe_64
+    loop = sys_.loop
+    cpu = tree.cast(loop, device="cpu")
+    stack = cpu.state_stack
+    nx = stack.shape[0]
+    rng = np.random.default_rng(2)
+    x_true = torch.as_tensor((rng.normal(size=(3, nx)) * 0.3).astype(
+        np.float32))
+    x_true[0] = 0.0
+    ph = (x_true @ stack.reshape(nx, -1)).reshape(3, 64, 64)
+    y0, J = estimator.linearize_at(loop.est, ph.to(cuda_device),
+                                   loop.state_stack)
+    y0_ref, J_ref = estimator.linearize_at(cpu.est, ph, stack)
+    for got, want in ((y0, y0_ref), (J, J_ref)):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    y = estimator.measure(cpu.est, ph) + 0.05 * float(
+        cpu.est.noise_std) * torch.as_tensor(rng.standard_normal(
+            (3, cpu.est.n_pixels)).astype(np.float32))
+    seed = x_true + 0.05 * torch.as_tensor(rng.normal(size=(3, nx)).astype(
+        np.float32))
+    got = estimator.estimate_full_gn(loop.est, y.to(cuda_device),
+                                     loop.state_stack, 2,
+                                     x_init=seed.to(cuda_device))
+    want = estimator.estimate_full_gn(cpu.est, y, stack, 2, x_init=seed)
+    for i in range(3):
+        torch.testing.assert_close(
+            got[i].cpu(), want[i], rtol=0,
+            atol=1e-3 * max(float(x_true[i].norm()), 1.0))
+
+    lam = 1e-3 * float(torch.trace(cpu.est.A_s.T @ cpu.est.A_s)) / nx
+    J64 = J_ref.double()
+    H = (J64.transpose(1, 2) @ J64 + lam * torch.eye(nx, dtype=torch.float64)
+         + cpu.est.map_reg.double())
+    v = torch.linalg.eigh(H[0])[1][:, 0]
+    thresh = [1.0 / float(v @ torch.linalg.solve(Hi, v)) for Hi in H]
+    assert thresh[0] * 1.5 < min(thresh[1:]), thresh
+    c = (thresh[0] * min(thresh[1:])) ** 0.5
+    bad_reg = (cpu.est.map_reg - c * torch.outer(v, v).float())
+    bad = dataclasses.replace(loop.est, map_reg=bad_reg.to(cuda_device))
+    x0 = estimator.estimate(loop.est, y.to(cuda_device))
+    x_gn = estimator.estimate_full_gn(bad, y.to(cuda_device),
+                                      loop.state_stack, 1,
+                                      x_init=x_true.to(cuda_device))
+    assert torch.isnan(x_gn[0]).all() and torch.isfinite(x_gn[1:]).all()
+    sig2 = torch.full((3,), float(cpu.est.noise_std) ** 2,
+                      device=cuda_device)
+    x = closed_loop.track_estimate(dataclasses.replace(loop, est=bad),
+                                   y.to(cuda_device), x0,
+                                   x_true.to(cuda_device), sig2, 1)
+    assert torch.equal(x[0], x0[0]) and torch.isfinite(x).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["warm_start", "tracking_fusion"])
+def test_recipe_loop_on_card_matches_cpu(cuda_device, recipe_64, case):
+    """The recipe loop at B=4 from its warm start, 10 steps with injected
+    noise, on the card (B1) and on the CPU (plain versions, the same
+    operators): residual RMS rtol 0.01 / atol 5e-3, u atol 0.02 max|u|;
+    also with the tracking estimator and the estimator-VAR fusion (est_gain
+    0.9, innovation_gate 5), where B1 runs 4 times a step."""
+    cfg, sys_ = recipe_64
+    if case == "tracking_fusion":
+        cfg = cfg.replace(
+            estimator=dataclasses.replace(cfg.estimator, track_gn_iters=1),
+            mpc=dataclasses.replace(cfg.mpc, est_gain=0.9,
+                                    innovation_gate=5.0))
+    n_steps, B = 10, 4
+    start = cfg.sim.n_train + cfg.sim.n_valid
+    init_u = pipeline.warm_start_command(sys_, cfg, start)
+    rng = np.random.default_rng(5)
+    noise = torch.as_tensor((float(sys_.est.noise_std) * rng.standard_normal(
+        (B, n_steps, sys_.est.n_pixels))).astype(np.float32))
+    b1 = psf_kernels.psf_crop_diversity_sym3
+    before = b1.launches
+    kw = dict(n_steps=n_steps, start_step=start)
+    got = closed_loop.simulate(sys_.loop, sys_.layers, cfg, None,
+                               noise_seq=noise.to(cuda_device),
+                               init_u=init_u, **kw)
+    torch.cuda.synchronize()
+    assert b1.launches - before == n_steps * (
+        4 if case == "tracking_fusion" else 2)
+    want = closed_loop.simulate(
+        tree.cast(sys_.loop, device="cpu"),
+        tree.cast(sys_.layers, device="cpu"), cfg, None, noise_seq=noise,
+        init_u=init_u.cpu(), **kw)
+    for field in got:
+        assert torch.isfinite(field).all()
+    torch.testing.assert_close(got.rms_res.cpu(), want.rms_res, rtol=0.01,
+                               atol=5e-3)
+    torch.testing.assert_close(got.u.cpu(), want.u, rtol=0,
+                               atol=0.02 * float(want.u.abs().max()))
+
+
+@pytest.mark.gpu
+def test_d_over_r0_15_closes_with_shrunk_prior(cuda_device):
+    """The JAX package's test of the same name (tests/test_configs.py) on
+    the card: the recipe with prior_scale 0.05 at D/r0=15, R=128, 60
+    steps from the warm start holds the lock -- residual below 1 rad at
+    every step, settled residual below 0.35x the turbulence and settled
+    exact Strehl above 0.85."""
+    cfg = _recipe(128, 15.0, 60, prior_scale=0.05)
+    sys_ = pipeline.build(cfg, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    out = pipeline.run_closed_loop(sys_, cfg, gen)
+    res, turb = out.rms_res.cpu(), out.rms_turb.cpu()
+    assert float(res.max()) < 1.0
+    assert float(res[30:].mean()) < 0.35 * float(turb[30:].mean())
+    assert float(out.strehl_exact[30:].mean()) > 0.85

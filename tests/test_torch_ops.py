@@ -1132,45 +1132,22 @@ def test_line_search_picks_first_accepted_candidate():
 # ------------------------------------------------- branches not ported yet
 
 @pytest.mark.parametrize("branch", [
-    "mmse", "conditional", "track", "est_gain", "gate",
-    "warm_start", "newton_steps", "fastmpc_ramp", "admm"])
+    "conditional", "newton_steps", "fastmpc_ramp", "admm"])
 def test_unported_branches_raise(branch):
     """Each configuration branch the port does not have yet raises
     NotImplementedError naming its ROADMAP item -- never a quiet
     substitute."""
     cfg = reference_config(resolution=32)
     rep = dataclasses.replace
-    est, mpc_cfg = cfg.estimator, cfg.mpc
     solver = None
-    if branch == "mmse":
-        cfg = cfg.replace(estimator=rep(est, method="mmse"))
-    elif branch == "conditional":
-        cfg = cfg.replace(atmosphere=rep(cfg.atmosphere, flow="conditional"))
-    elif branch == "track":
-        cfg = cfg.replace(estimator=rep(est, track_gn_iters=1))
-    elif branch == "est_gain":
-        cfg = cfg.replace(mpc=rep(mpc_cfg, est_gain=0.5))
-    elif branch == "gate":
-        cfg = cfg.replace(mpc=rep(mpc_cfg, innovation_gate=1.0))
-    elif branch == "warm_start":
-        cfg = cfg.replace(mpc=rep(mpc_cfg, warm_start=True))
-    elif branch == "newton_steps":
-        cfg = cfg.replace(mpc=rep(mpc_cfg, newton_steps=2))
-    else:
-        solver = branch
-    if branch == "mmse":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            estimator.build(cfg.estimator,
-                            zernike.make_basis(6, 32, device="cpu"),
-                            device="cpu")
-        return
     if branch == "conditional":
+        cfg = cfg.replace(atmosphere=rep(cfg.atmosphere, flow="conditional"))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             pipeline.build(cfg, "cpu")
         return
-    if branch == "warm_start":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pipeline.run_closed_loop(None, cfg, None)
-        return
+    if branch == "newton_steps":
+        cfg = cfg.replace(mpc=rep(cfg.mpc, newton_steps=2))
+    else:
+        solver = branch
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         closed_loop.check_ported(cfg, solver or cfg.mpc.solver)
