@@ -83,7 +83,9 @@ package):
    250:) exact Strehl, its p10 and the diverged count (non-finite, or a
    residual over 10x the turbulence RMS), beside the JAX target
    0.9334-0.9338; each must reach 0.92 with 0 diverged, and B1 must
-   launch >= 2 times a step.  The run is traced once (trace_run), and
+   launch >= 2 times a step.  A 50-step window of the run (the same
+   build, untraced and then traced once, trace_run) gives B1's share of
+   device busy beside the 500-step trace's 60.3% (PERF.md §5), and
    the B=4 card-vs-CPU check of the slice phase passes on it.  Then the
    tracking estimator (track_gn_iters=1) with the estimator-VAR fusion
    (est_gain 0.9, innovation_gate 5) at R=128, D/r0=15, B=64, 60 steps:
@@ -92,11 +94,33 @@ package):
    steps.  The phase ends on the seconds of each of its parts: builds,
    runs, the trace's run, stop and export, and key_averages, and each
    reference check's card and CPU halves.
-10. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+10. solvers: every solver of the loop's switch through B1 (ROADMAP A.8),
+   each run counted (B1 launches exactly steps x (1 + Gauss-Newton
+   passes), and each solver -- solve_fixed, solve, banded_solve (cyclic
+   reduction), admm_condensed -- called exactly as often as the run's
+   branch calls it: once a step, banded_solve once a Newton step) and
+   then timed warm: (a) the bench configuration of the slice phase (its
+   build), B=4096, 25 steps, through the general Newton solve
+   (newton_steps=2: within 0.002 of the slice phase's fixed-step B1
+   run's settled exact Strehl) and ADMM (400 iterations: settled
+   residual RMS within 0.1 rad of the fixed step's, max|du[1:]| <= 1.05
+   du_max); (b) BASELINE config 1 (tests/test_configs.py:26-39): VAR(1)
+   with the ramp rows (fastmpc_ramp), R=128, its own build, B=1024, 60
+   steps (A2 = 0, max|du| <= 1.01 du_max, the residual over the last 10
+   steps below 0.75x the turbulence); (c) MODES_r04.json's order-10 N=32
+   cells: radial order 10, the high-order recipe, N=32 through
+   with_horizon, B=64, 200 steps from the warm start, fixed and
+   general_cr (newton_steps=2: cyclic reduction), each within 0.003 of
+   its quality target (0.9846, 0.9847) with 0 diverged.  The B=4
+   card-vs-CPU check passes on newton_steps=2, ADMM (3 steps), the ramp
+   loop and general_cr (20 steps).  A 1-step ADMM run and a 5-step
+   general_cr run are traced (trace_run).  The phase ends on the seconds
+   of its parts.
+11. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
    power limit; each kernel must launch >= k1 + k2 times, and no rate may
    exceed 105% of its published peak.
-11. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+12. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
@@ -104,16 +128,18 @@ package):
    the bf16 variants against their bound at the measured ceilings (none
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
-12. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+13. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
    psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
    (bound_ms and bound_by from measure_bound at the published peaks,
    fp32_bound_ms beside them, null for the bf16 entries; B1's launches
    in the strong and tracking runs as launches_strong and
-   launches_tracking)
+   launches_tracking, in the solvers phase's runs as "launches_solvers
+   <run>")
    -- then the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import re
@@ -129,8 +155,9 @@ from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants, roofline
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
-from mpc_sensorlessao_tpu_torch.models import pipeline
-from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, psf, psf_kernels
+from mpc_sensorlessao_tpu_torch.models import pipeline, solvers
+from mpc_sensorlessao_tpu_torch.ops import block_tridiag, cuda_build, dft
+from mpc_sensorlessao_tpu_torch.ops import newton_kkt, psf, psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
 from mpc_sensorlessao_tpu_torch.parallel import montecarlo
 from mpc_sensorlessao_tpu_torch.utils import profiling, tree
@@ -223,7 +250,32 @@ STRONG_STEPS = 500
 STRONG_REPS = 64
 STRONG_SNRS = (5.0, 10.0, 20.0, 40.0)
 STRONG_MIN_STREHL = 0.92
+# the strong run's trace: a window of its first steps, and B1's share of
+# device busy in the whole 500-step trace (PERF.md §5)
+STRONG_TRACE_STEPS = 50
+B1_SHARE_500 = 60.3
 JAX_STRONG = (0.9334, 0.9338)
+# the solvers phase (ROADMAP A.8): ADMM's limits against the fixed step
+# (tests/test_closed_loop.py:58-60, 83-89); BASELINE config 1's ramp loop;
+# MODES_r04.json's order-10 N=32 cells, whose settled exact Strehl (fixed
+# 0.9846, general_cr 0.9847) does not depend on the platform
+ADMM_RES_TOL = 0.1
+ADMM_DU_SLACK = 1.05
+# ADMM's card-vs-CPU check and trace run fewer steps: each step is 400
+# iterations of ~25 launches (25 steps took 17.4 s on the CPU side, and
+# key_averages() of a 2-step trace 8.9 s); so does the general_cr trace.
+# Three steps still reach the ramp bounds shifted by a nonzero u1 (steps
+# 1 and 2)
+ADMM_REF_STEPS = 3
+ADMM_TRACE_STEPS = 1
+MODES_TRACE_STEPS = 5
+RAMP_BATCH = 1024
+RAMP_STEPS = 60
+MODES_BATCH = 64
+MODES_STEPS = 200
+MODES_REF_STEPS = 20
+MODES_TARGET = {"fixed": 0.9846, "general_cr": 0.9847}
+MODES_STREHL_TOL = 0.003
 # (R, D/r0, B, steps) of the tracking and fusion run
 TRACK = (128, 15.0, 64, 60)
 TRACK_TIMED = 3             # warm tracking runs timed after the counted one
@@ -581,11 +633,22 @@ def on_route(loop, route: str):
                                                               route))
 
 
-def slice_phase(system, system_bf16, cfg, dev, card) -> tuple[dict, dict]:
+def run_loop(sys_, cfg, scen, n_steps, init_u=None):
+    """The shared-window loop over ``scen`` for n_steps, synchronized."""
+    out = montecarlo.run_batch(sys_.loop, sys_.layers, cfg, scen, n_steps,
+                               shared_window="verified", init_u=init_u)
+    torch.cuda.synchronize()
+    return out
+
+
+def slice_phase(system, system_bf16, cfg, dev,
+                card) -> tuple[dict, dict, dict]:
     """Launches of each run's kernel in its 25-step loop -- the float32
     build through B1, B2 and B3, then the bf16 build (dft_dtype
-    "bfloat16") through their bf16 entries -- and each run's best
-    seconds, keyed by route (bf16 runs: "<route> bf16")."""
+    "bfloat16") through their bf16 entries -- each run's best seconds,
+    keyed by route (bf16 runs: "<route> bf16"), and the float32 B1 run's
+    settled numbers (``settled``): the fixed Newton step's, which the
+    solvers phase compares its runs with."""
     scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
                                      BATCH, device=dev)
     montecarlo.assert_shared_window(scen)
@@ -618,7 +681,7 @@ def slice_phase(system, system_bf16, cfg, dev, card) -> tuple[dict, dict]:
             f"steps={STEPS}: {name} launches {launches[name]}", out,
             sys_.loop.influence.shape[1], BATCH)
         if strehl_b1 is None:
-            strehl_b1 = strehl
+            strehl_b1, fixed = strehl, settled(out)
         elif abs(strehl - strehl_b1) > ROUTE_STREHL_TOL:
             fail(f"{label}: settled exact Strehl {strehl:.5f} is not within "
                  f"{ROUTE_STREHL_TOL} of the float32 B1 loop's "
@@ -634,7 +697,7 @@ def slice_phase(system, system_bf16, cfg, dev, card) -> tuple[dict, dict]:
     for label, ts in times.items():
         print(f"slice ({label}) run: {min(ts):.4f} s (best of {ts}), "
               f"{BATCH * STEPS / min(ts):.1f} solves/s [{card}]")
-    return launches, {label: min(ts) for label, ts in times.items()}
+    return launches, {label: min(ts) for label, ts in times.items()}, fixed
 
 
 def loop_checks(label: str, out, nu: int, B: int,
@@ -667,14 +730,8 @@ def wide_phase(system, system_wide, cfg, cfg_wide, dev, card) -> None:
     scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
                                      BATCH, device=dev)
     b1 = K.psf_crop_diversity_sym3
-
-    def run(sys_, c):
-        out = montecarlo.run_batch(sys_.loop, sys_.layers, c, scen, STEPS,
-                                   shared_window="verified")
-        torch.cuda.synchronize()
-        return out
     reset_launches()
-    out = run(system_wide, cfg_wide)
+    out = run_loop(system_wide, cfg_wide, scen, STEPS)
     if b1.launches != STEPS:
         fail(f"the {w}-px loop launched psf_div3_sym {b1.launches} times in "
              f"{STEPS} steps")
@@ -688,7 +745,7 @@ def wide_phase(system, system_wide, cfg, cfg_wide, dev, card) -> None:
     for _ in range(3):
         for width, sys_, c in ((31, system, cfg), (w, system_wide, cfg_wide)):
             t0 = time.perf_counter()
-            run(sys_, c)
+            run_loop(sys_, c, scen, STEPS)
             times[width].append(time.perf_counter() - t0)
     for width, ts in times.items():
         print(f"wide: {width}-px crops, B1 route: {min(ts):.4f} s (best of "
@@ -792,12 +849,13 @@ def trace_phase(system, cfg, untraced_s: float, card: str) -> None:
 
 
 def trace_run(label: str, run, untraced_s: float, card: str,
-              trace_dir: Path) -> dict:
+              trace_dir: Path) -> tuple[dict, float | None]:
     """One torch.profiler trace of ``run()``: device busy time against
     the traced run's own wall time (and, beside it, against the untraced
     run timed before), and the top kernels and ops by device time.
-    Prints and returns the seconds the trace took, by part: the traced
-    run, the profiler's stop and Chrome-trace export, key_averages()."""
+    Prints and returns the seconds the trace took, by part (the traced
+    run, the profiler's stop and Chrome-trace export, key_averages()),
+    and B1's share of the busy time in % (None without device time)."""
     t_start = time.perf_counter()
     with profiling.trace(str(trace_dir)) as prof:
         t0 = time.perf_counter()
@@ -820,7 +878,7 @@ def trace_run(label: str, run, untraced_s: float, card: str,
     if busy_ms == 0:
         print("trace: key_averages() shows no device time; the CUDA-event "
               "and host-clock times above stand")
-        return secs
+        return secs, None
     print(f"trace: {label}: device busy {busy_ms:.3f}"
           f" ms in {traced_s * 1e3:.2f} ms traced, so the device is idle "
           f"{100 * (1 - busy_ms / (traced_s * 1e3)):.1f}% of the traced "
@@ -839,7 +897,9 @@ def trace_run(label: str, run, untraced_s: float, card: str,
         ms = e.self_device_time_total / 1e3
         print(f"trace op: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%), "
               f"{e.count} calls: {e.key}")
-    return secs
+    b1_ms = sum(e.self_device_time_total for e in kernels
+                if re.search(r"\bpsf_div3_sym_kernel\b", e.key)) / 1e3
+    return secs, 100 * b1_ms / busy_ms
 
 
 def reference_phase(loop, layers, cfg, dev, route: str, n_steps: int = STEPS,
@@ -922,18 +982,13 @@ def strong_phase(dev, card) -> dict:
         mag=torch.full((B,), cfg.sim.magnification, **f32),
         noise_scale=torch.as_tensor(scales, **f32), noise_seed=int(d))
 
-    def run():
-        out = montecarlo.run_batch(system.loop, system.layers, cfg, scen, n,
-                                   shared_window="verified", init_u=init_u)
-        torch.cuda.synchronize()
-        return out
     reset_launches()
     t0 = time.perf_counter()
-    out = run()
+    out = run_loop(system, cfg, scen, n, init_u)
     secs["first_run"] = first_s = time.perf_counter() - t0
     launches = {"strong": b1.launches}
     t0 = time.perf_counter()
-    run()
+    run_loop(system, cfg, scen, n, init_u)
     secs["warm_run"] = run_s = time.perf_counter() - t0
     print(f"strong R={R} D/r0={d:g} B={B} steps={n}: build "
           f"{secs['build']:.2f} s, run {run_s:.4f} s ({B * n / run_s:.1f} "
@@ -964,8 +1019,20 @@ def strong_phase(dev, card) -> dict:
             fail(f"strong SNR {snr:g} dB: settled exact Strehl {mean:.5f} "
                  f"(floor {STRONG_MIN_STREHL}), {int((~ok).sum())} diverged")
     secs["quality"] = time.perf_counter() - t0
-    secs.update(trace_run(f"{n}-step strong-turbulence run, R={R}, B={B}",
-                          run, run_s, card, TRACE_DIR / "strong"))
+
+    def window():
+        return run_loop(system, cfg, scen, STRONG_TRACE_STEPS, init_u)
+    t0 = time.perf_counter()
+    window()
+    secs["window_run"] = window_s = time.perf_counter() - t0
+    trace_secs, b1_share = trace_run(
+        f"{STRONG_TRACE_STEPS}-step window of the strong-turbulence run, "
+        f"R={R}, B={B}", window, window_s, card, TRACE_DIR / "strong")
+    secs.update(trace_secs)
+    if b1_share is not None:
+        print(f"strong: B1 (psf_div3_sym_kernel) {b1_share:.1f}% of device "
+              f"busy in the {STRONG_TRACE_STEPS}-step window; "
+              f"{B1_SHARE_500:.1f}% in the 500-step trace (PERF.md §5)")
     secs["reference_card"], secs["reference_cpu"] = reference_phase(
         system.loop, system.layers, cfg, dev, f"strong, R={R}, D/r0={d:g}",
         mag=torch.full((4,), cfg.sim.magnification), init_u=init_u)
@@ -984,10 +1051,7 @@ def strong_phase(dev, card) -> dict:
         snr_db_grid=STRONG_SNRS, device=dev)
 
     def track():
-        out = montecarlo.run_batch(system.loop, system.layers, cfg, scen, n,
-                                   shared_window="verified", init_u=init_u)
-        torch.cuda.synchronize()
-        return out
+        return run_loop(system, cfg, scen, n, init_u)
     reset_launches()
     t0 = time.perf_counter()
     out = track()
@@ -1027,6 +1091,251 @@ def strong_phase(dev, card) -> dict:
     return launches
 
 
+def settled(out) -> dict:
+    """Settled (second half) exact Strehl, residual and turbulence RMS,
+    and the count of diverged scenarios (non-finite, or a settled
+    residual above 10x the turbulence), of a (B, steps, ...) run."""
+    s = out.rms_res.shape[1] // 2
+    res = out.rms_res[:, s:].mean(dim=1)
+    turb = out.rms_turb[:, s:].mean(dim=1)
+    ok = torch.isfinite(res) & (res <= 10.0 * turb)
+    return {"strehl": float(out.strehl_exact[:, s:].mean()),
+            "rms_res": float(res.mean()), "rms_turb": float(turb.mean()),
+            "diverged": int((~ok).sum())}
+
+
+def solver_cfg(cfg, **mpc_kw):
+    return cfg.replace(mpc=dataclasses.replace(cfg.mpc, **mpc_kw))
+
+
+def solvers_phase(system, cfg, fixed: dict, dev, card) -> dict:
+    """ROADMAP A.8: every solver of the loop's switch through B1, each run
+    counted -- B1's launches and the solver calls (``count_solver_calls``)
+    -- then timed warm; B=4 card-vs-CPU checks on each new route.
+
+    (a) the bench configuration (the slice build), B=4096, 25 steps: the
+        general Newton solve (newton_steps=2) and ADMM (400 iterations,
+        default rho), each against ``fixed``, the slice phase's settled
+        numbers of the fixed Newton step on the same build and scenarios;
+    (b) BASELINE config 1 (tests/test_configs.py:26-39): VAR(1) with the
+        ramp rows (fastmpc_ramp), R=128, its own build, B=1024, 60 steps;
+    (c) MODES_r04.json's order=10_N=32 cells (benchmarks/modes_horizon.py
+        :98-160): radial order 10, the high-order recipe, N=32 through
+        with_horizon, fixed and general_cr (newton_steps=2: cyclic
+        reduction), B=64, 200 steps from the warm start.
+    Returns B1's launches in each counted run."""
+    t_phase = time.time()
+    secs = {}
+    b1 = K.psf_crop_diversity_sym3
+    launches = {}
+
+    def counted(label, run, steps, calls):
+        """run() once with the counts at 0 (B1 launches exactly ``steps``
+        and the solvers are called exactly ``calls`` times, or fail), then
+        once warm; returns the first output."""
+        reset_launches()
+        with count_solver_calls() as got:
+            t0 = time.perf_counter()
+            out = run()
+            first_s = time.perf_counter() - t0
+        launches[label] = b1.launches
+        want = {name: calls.get(name, 0) for name in got}
+        print(f"solvers {label}: solver calls in the first run {got} "
+              f"(expected {want})")
+        if got != want:
+            fail(f"the {label} run called the solvers {got}, not {want}")
+        t0 = time.perf_counter()
+        run()
+        warm_s = time.perf_counter() - t0
+        B = out.u.shape[0]
+        print(f"solvers {label}: warm run {warm_s:.4f} s "
+              f"({B * out.u.shape[1] / warm_s:.1f} solves/s, "
+              f"{1e3 * warm_s / out.u.shape[1]:.3f} ms a step; first run "
+              f"{first_s:.4f} s), psf_div3_sym launches {launches[label]} "
+              f"in the first [{card}]")
+        if launches[label] != steps:
+            fail(f"the {label} run launched psf_div3_sym {launches[label]} "
+                 f"times, not {steps}")
+        for field_name, field in zip(out._fields, out):
+            if not bool(torch.isfinite(field).all()):
+                fail(f"the {label} run gave a non-finite {field_name}")
+        secs[label] = first_s + warm_s
+        return out
+
+    # (a) the bench configuration through each solver
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
+                                     BATCH, device=dev)
+    runs = {"newton_steps=2": (solver_cfg(cfg, newton_steps=2),
+                               {"solve": STEPS}),
+            "admm": (solver_cfg(cfg, solver="admm"),
+                     {"admm_condensed": STEPS})}
+    bench = {}
+    for label, (c, calls) in runs.items():
+        out = counted(label, lambda c=c: run_loop(system, c, scen, STEPS),
+                      STEPS, calls)
+        bench[label] = settled(out)
+        bench[label]["du"] = float(out.du[:, 1:].abs().max())
+        print(f"solvers {label}: R={cfg.resolution} B={BATCH} "
+              f"steps={STEPS}: settled exact Strehl "
+              f"{bench[label]['strehl']:.5f}, residual RMS "
+              f"{bench[label]['rms_res']:.5f} rad, max|du[1:]| "
+              f"{bench[label]['du']:.4f} rad (du_max {cfg.mpc.du_max})")
+    print(f"solvers: the fixed step (slice phase, B1): settled exact "
+          f"Strehl {fixed['strehl']:.5f}, residual RMS "
+          f"{fixed['rms_res']:.5f} rad")
+    gap = abs(bench["newton_steps=2"]["strehl"] - fixed["strehl"])
+    print(f"solvers: newton_steps=2 vs the fixed step: settled exact "
+          f"Strehl differs by {gap:.2e} (limit {ROUTE_STREHL_TOL})")
+    if gap > ROUTE_STREHL_TOL:
+        fail(f"newton_steps=2 settles {gap:.5f} from the fixed step")
+    admm = bench["admm"]
+    d_res = abs(admm["rms_res"] - fixed["rms_res"])
+    print(f"solvers: admm vs the fixed step: settled residual RMS differs "
+          f"by {d_res:.4f} rad (limit {ADMM_RES_TOL}); max|du[1:]| "
+          f"{admm['du']:.4f} (limit {ADMM_DU_SLACK} du_max = "
+          f"{ADMM_DU_SLACK * cfg.mpc.du_max:.4f})")
+    if d_res > ADMM_RES_TOL or admm["du"] > ADMM_DU_SLACK * cfg.mpc.du_max:
+        fail("the admm loop misses its residual or ramp limit")
+    for label, n in (("newton_steps=2", STEPS), ("admm", ADMM_REF_STEPS)):
+        secs[f"reference {label}"] = sum(reference_phase(
+            system.loop, system.layers, runs[label][0], dev, label,
+            n_steps=n))
+    secs["trace admm"] = trace_window(
+        f"{ADMM_TRACE_STEPS}-step ADMM run, B={BATCH}",
+        lambda: run_loop(system, runs["admm"][0], scen, ADMM_TRACE_STEPS),
+        card, "solvers_admm")
+
+    # (b) BASELINE config 1: VAR(1) + the ramp rows
+    c = solver_cfg(roofline.bench_cfg(128), var_order=1,
+                   solver="fastmpc_ramp")
+    c = c.replace(sim=dataclasses.replace(c.sim, n_test=RAMP_STEPS))
+    ramp_sys, secs["ramp build"] = build_timed("solvers ramp", c, dev)
+    a2 = float(ramp_sys.loop.prob.A2.abs().max())
+    scen = montecarlo.make_scenarios(c, torch.Generator().manual_seed(1),
+                                     RAMP_BATCH, device=dev)
+    gn = c.estimator.gauss_newton_iters
+    out = counted("fastmpc_ramp (VAR(1))",
+                  lambda: run_loop(ramp_sys, c, scen, RAMP_STEPS),
+                  RAMP_STEPS * (1 + gn), {"solve": RAMP_STEPS})
+    du = float(out.du.abs().max())
+    res10 = float(out.rms_res[:, -10:].mean())
+    turb10 = float(out.rms_turb[:, -10:].mean())
+    print(f"solvers fastmpc_ramp (VAR(1)): R={c.resolution} B={RAMP_BATCH} "
+          f"steps={RAMP_STEPS}: max|A2| {a2:g}; settled exact Strehl "
+          f"{settled(out)['strehl']:.5f}; max|du| {du:.4f} rad (limit 1.01 "
+          f"du_max = {1.01 * c.mpc.du_max:.4f}); residual RMS over the last "
+          f"10 steps {res10:.4f} rad, 0.75x the turbulence {0.75 * turb10:.4f}")
+    if a2 != 0.0 or du > 1.01 * c.mpc.du_max or not res10 < 0.75 * turb10:
+        fail("the VAR(1) ramp loop misses a limit of tests/test_configs.py")
+    secs["reference fastmpc_ramp"] = sum(reference_phase(
+        ramp_sys.loop, ramp_sys.layers, c, dev, "fastmpc_ramp (VAR(1))"))
+    del ramp_sys, out
+
+    # (c) MODES order 10, N=32: fixed and general_cr
+    c = modes_cfg()
+    modes_sys, secs["modes build"] = build_timed("solvers modes", c, dev)
+    t0 = time.time()
+    modes_sys = pipeline.with_horizon(modes_sys, c)
+    torch.cuda.synchronize()
+    secs["modes with_horizon"] = time.time() - t0
+    print(f"solvers modes: with_horizon(N={c.mpc.horizon}) in "
+          f"{secs['modes with_horizon']:.2f} s [{card}]")
+    start = c.sim.n_train + c.sim.n_valid
+    init_u = pipeline.warm_start_command(modes_sys, c, start)
+    n = c.sim.n_test
+    f32 = dict(dtype=torch.float32, device=dev)
+    scen = montecarlo.ScenarioBatch(
+        start_step=torch.full((MODES_BATCH,), float(start), **f32),
+        mag=torch.full((MODES_BATCH,), c.sim.magnification, **f32),
+        noise_scale=torch.ones((MODES_BATCH,), **f32), noise_seed=1)
+    gn = c.estimator.gauss_newton_iters
+    for tag, newton_steps in (("fixed", 1), ("general_cr", 2)):
+        cn = solver_cfg(c, newton_steps=newton_steps)
+        label = f"modes order=10_N=32_{tag}"
+        # fixed: the precomputed step; general_cr: the general solve, whose
+        # every Newton step's Schur solve is one cyclic reduction
+        calls = ({"solve_fixed": n} if newton_steps == 1 else
+                 {"solve": n, "banded_solve": n * newton_steps})
+        out = counted(label, lambda cn=cn: run_loop(
+            modes_sys, cn, scen, n, init_u), n * (1 + gn), calls)
+        got = settled(out)
+        target = MODES_TARGET[tag]
+        print(f"solvers {label}: R={c.resolution} B={MODES_BATCH} steps={n}:"
+              f" settled exact Strehl {got['strehl']:.5f} (quality target "
+              f"{target}, limit +-{MODES_STREHL_TOL}), residual RMS "
+              f"{got['rms_res']:.4f} rad, rejection "
+              f"{got['rms_turb'] / got['rms_res']:.3f}, {got['diverged']} "
+              f"diverged")
+        if got["diverged"] or abs(got["strehl"] - target) > MODES_STREHL_TOL:
+            fail(f"{label} misses its quality target")
+    secs["trace general_cr"] = trace_window(
+        f"{MODES_TRACE_STEPS}-step general_cr run, N=32, B={MODES_BATCH}",
+        lambda: run_loop(modes_sys, cn, scen, MODES_TRACE_STEPS, init_u),
+        card, "solvers_general_cr")
+    secs["reference general_cr"] = sum(reference_phase(
+        modes_sys.loop, modes_sys.layers, cn, dev, "modes general_cr, N=32",
+        n_steps=MODES_REF_STEPS,
+        mag=torch.full((4,), c.sim.magnification), init_u=init_u))
+    total = time.time() - t_phase
+    print(f"solvers: phase in {total:.2f} s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items())
+        + f", other {total - sum(secs.values()):.2f} s [{card}]")
+    return launches
+
+
+@contextlib.contextmanager
+def count_solver_calls():
+    """Within the block, count the calls of each solver the loop's switch
+    can reach -- newton_kkt.solve_fixed and solve, block_tridiag.
+    banded_solve (the cyclic reduction inside solve's Newton steps) and
+    solvers.admm_condensed -- in the dict it yields."""
+    sites = [(newton_kkt, "solve_fixed"), (newton_kkt, "solve"),
+             (block_tridiag, "banded_solve"), (solvers, "admm_condensed")]
+    counts = {name: 0 for _, name in sites}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+    originals = [(module, name, getattr(module, name))
+                 for module, name in sites]
+    for module, name, fn in originals:
+        setattr(module, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+
+
+def trace_window(label: str, run, card: str, name: str) -> float:
+    """An untraced, then a traced run() (trace_run): where a solver's
+    step spends its time.  Returns the seconds both took."""
+    t0 = time.perf_counter()
+    run()
+    untraced_s = time.perf_counter() - t0
+    trace_run(label, run, untraced_s, card, TRACE_DIR / name)
+    return time.perf_counter() - t0
+
+
+def modes_cfg():
+    """MODES_r04.json's order-10 N=32 configuration
+    (benchmarks/modes_horizon.py:98-160): reference_config(128), radial
+    order 10 (66 modes, 65 states), var_ridge 1e-2, warm start, r_weight
+    30, var_max_radius 0.85, mmse estimator with prior_scale 0.1, the sim
+    defaults (n_train 1000, n_valid 500), 200 steps, horizon 32."""
+    cfg = reference_config(resolution=128)
+    return cfg.replace(
+        zernike=dataclasses.replace(cfg.zernike, radial_order=10),
+        mpc=dataclasses.replace(cfg.mpc, var_ridge=1e-2, warm_start=True,
+                                r_weight=30.0, var_max_radius=0.85,
+                                horizon=32),
+        estimator=dataclasses.replace(cfg.estimator, method="mmse",
+                                      prior_scale=0.1),
+        sim=dataclasses.replace(cfg.sim, n_test=MODES_STEPS))
+
+
 def main() -> None:
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1050,7 +1359,8 @@ def main() -> None:
     if system_bf16.est.dft_dtype != BF16:
         fail(f"the bf16 build's estimator has dft_dtype "
              f"{system_bf16.est.dft_dtype}")
-    loop_launches, run_s = slice_phase(system, system_bf16, cfg, dev, card)
+    loop_launches, run_s, fixed = slice_phase(system, system_bf16, cfg, dev,
+                                              card)
     trace_phase(system, cfg, run_s["sym3"], card)
     cfg_wide = slice_cfg(crop_half=WIDE_CROP_HALF)
     t0 = time.time()
@@ -1061,6 +1371,7 @@ def main() -> None:
     wide_phase(system, system_wide, cfg, cfg_wide, dev, card)
     loop_512_phase(dev, card)
     strong_launches = strong_phase(dev, card)
+    solver_launches = solvers_phase(system, cfg, fixed, dev, card)
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []
@@ -1069,6 +1380,8 @@ def main() -> None:
         b = roofline.measure_bound(variant, 128, BATCH)
         if lib == "psf_div3_sym":
             paths = {f"launches_{k}": v for k, v in strong_launches.items()}
+            paths.update({f"launches_solvers {k}": v
+                          for k, v in solver_launches.items()})
         else:
             paths = {}
         kernels.append({**paths,

@@ -8,12 +8,14 @@ one Python step loop over (B, ...) tensors on the models' device.
 Loop step (reference: README.md:444-626):
   residual phase -> diversity PSFs + noise -> LS/MMSE estimate
   [-> tracking Gauss-Newton] [-> estimator-VAR fusion] -> b_ref ->
-  QP solve (fastmpc / closed-form) -> first-stage input ->
+  QP solve (fastmpc, fixed or general Newton / fastmpc_ramp /
+  closed_form / admm) -> first-stage input ->
   DM modal correction -> next-step corrected phase.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -92,17 +94,14 @@ def _pupil_rms(models: LoopModels, phase: torch.Tensor) -> torch.Tensor:
                       / npix)
 
 
-def check_ported(cfg: SystemConfig, solver: str) -> None:
-    """Raise for configuration branches this port does not have yet."""
-    if solver in ("fastmpc_ramp", "admm"):
-        raise NotImplementedError(
-            f"solver '{solver}' is not ported yet (ROADMAP.md A.8)")
-    if solver not in ("fastmpc", "closed_form"):
+# the solver switch of MPCConfig.solver
+SOLVERS = ("fastmpc", "fastmpc_ramp", "closed_form", "admm")
+
+
+def check_solver(solver: str) -> None:
+    """Raise ValueError for a solver name outside the switch."""
+    if solver not in SOLVERS:
         raise ValueError(f"unknown solver '{solver}'")
-    if solver == "fastmpc" and cfg.mpc.newton_steps != 1:
-        raise NotImplementedError(
-            "mpc.newton_steps != 1 (the general Newton solve) is not "
-            "ported yet (ROADMAP.md A.8)")
 
 
 def track_estimate(models: LoopModels, y: torch.Tensor, x0: torch.Tensor,
@@ -179,7 +178,7 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     du is u - init_u.
     """
     solver = solver or cfg.mpc.solver
-    check_ported(cfg, solver)
+    check_solver(solver)
     if noise_seq is not None and noise_seq.shape[-2] < n_steps:
         raise ValueError(f"noise_seq has {noise_seq.shape[-2]} rows < "
                          f"n_steps={n_steps}")
@@ -232,6 +231,11 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
         sig2 = ((scale_b[:, 0] * est.noise_std) ** 2
                 + (1e-3 * torch.sqrt(torch.mean(est.b_s ** 2))) ** 2)
     prob = models.prob
+    # the condensed QP's box and ramp bounds (ADMM); the first block's
+    # ramp bounds shift by u[k-1] each step (README.md:449-451)
+    U_max = torch.full((N * nu,), cfg.mpc.u_max, dtype=torch.float32,
+                       device=dev)
+    dU_base_max = torch.full_like(U_max, cfg.mpc.du_max)
     warmup = cfg.mpc.var_order    # steps 0..var_order have no history
     rows = []
     for idx in range(n_steps):
@@ -280,12 +284,27 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
         r, c, x_free = mpc.gradient_terms(models.mats, x0, x_pre_eff, bref)
 
         # -- solve (README.md:504-570) --
-        if solver == "fastmpc":
+        if solver == "fastmpc" and cfg.mpc.newton_steps == 1:
+            # real-time mode: the constant-slack single Newton step
             state = newton_kkt.solve_fixed(models.prob, models.fixed_op, x0,
                                            x_pre_eff, bref, horizon=N)
             U = state.U.reshape(B, N * nu)
-        else:
+        elif solver in ("fastmpc", "fastmpc_ramp"):
+            # the general Newton solve; fastmpc_ramp adds the VAR_1 ramp
+            # rows with each scenario's running u[k-1]
+            ramp = solver == "fastmpc_ramp"
+            p = dataclasses.replace(prob, u_prev=u1) if ramp else prob
+            state = newton_kkt.solve(p, x0, x_pre_eff, bref, horizon=N,
+                                     n_newton=cfg.mpc.newton_steps,
+                                     ramp=ramp)
+            U = state.U.reshape(B, N * nu)
+        elif solver == "closed_form":
             U = solvers.closed_form(models.mats, r)
+        else:
+            shift = torch.nn.functional.pad(u1, (0, (N - 1) * nu))
+            U = solvers.admm_condensed(models.mats, r, -U_max, U_max,
+                                       shift - dU_base_max,
+                                       shift + dU_base_max)
 
         # -- actuate (README.md:576-601) --
         u = U[:, :nu]

@@ -74,15 +74,18 @@ def design_matrices(A1, A2, B, horizon: int, Q, P, R) -> MPCMatrices:
     R_tilda = torch.kron(eyeN, R)
     BtQB = B_conv.T @ Q_tilda @ B_conv
     H = 0.5 * (BtQB + BtQB.T) + R_tilda
-    # U = -0.5 pinv(H'H) H' r (README.md:417), with the JAX package's
-    # pinv cutoff 10 max(m, n) eps
-    HtH = H.T @ H
-    rtol = 10 * max(HtH.shape) * torch.finfo(HtH.dtype).eps
-    closed_form = -0.5 * torch.linalg.pinv(HtH, rtol=rtol) @ H.T
+    # U = -0.5 pinv(H'H) H' r (README.md:417)
+    closed_form = -0.5 * pinv(H.T @ H) @ H.T
     return MPCMatrices(
         M1=M1, M2=M2, B_conv=B_conv, Q_tilda=Q_tilda, R_tilda=R_tilda,
         E=ramp_difference_matrix(nu, N, **kw), H=H, closed_form=closed_form,
         M1B=M1 @ B, M2B=M2 @ B, horizon=N)
+
+
+def pinv(A: torch.Tensor) -> torch.Tensor:
+    """Pseudo-inverse with the JAX package's cutoff 10 max(m, n) eps."""
+    return torch.linalg.pinv(
+        A, rtol=10 * max(A.shape[-2:]) * torch.finfo(A.dtype).eps)
 
 
 def b_ref(mats: MPCMatrices, u_prev1, u_prev2) -> torch.Tensor:

@@ -1,27 +1,40 @@
-"""Batched fixed-barrier infeasible-start Newton KKT solve ("fastMPC"),
-the real-time subset (port of ``mpc_sensorlessao_tpu/ops/newton_kkt.py``;
-reference: Fast_MPC/VAR_2/{inf_newton_solver.m, fast_mpc_*.m}).
+"""Batched fixed-barrier infeasible-start Newton KKT solves ("fastMPC")
+(port of ``mpc_sensorlessao_tpu/ops/newton_kkt.py``; reference:
+Fast_MPC/VAR_2/{inf_newton_solver.m, fast_mpc_*.m}).
 
   minimize  z'Hz + g'z + k * sum(-log(h - Pz))   s.t.  Cz = b
 
-with z = (u_0, x_1, u_1, x_2, ..., u_{T-1}, x_T), ONE infeasible-start
-Newton step from the midpoint init, barrier k fixed.  State is kept as
-(..., T, m) control / (..., T, n) state tensors with any leading batch
-dims, so a whole scenario batch is one set of matmuls.  In the
-real-time mode the Newton step collapses to precomputed linear maps
-(``FixedNewtonOperator``); the backtracking line search is a fixed bank
-of 16 candidate steps evaluated at once.
+with z = (u_0, x_1, u_1, x_2, ..., u_{T-1}, x_T), a fixed number of
+infeasible-start Newton steps from the midpoint init, barrier k fixed.
+State is kept as (..., T, m) control / (..., T, n) state tensors with
+any leading batch dims, so a whole scenario batch is one set of matmuls.
+The primal Hessian Phi is handled blockwise (stage-block-diagonal for
+box rows) and the dual Schur complement S = C Phi^-1 C' is assembled as
+a block-banded matrix (n x n blocks, bandwidth = VAR order): one dense
+Cholesky for short horizons, block cyclic reduction
+(ops/block_tridiag.py) from CR_MIN_HORIZON on.  With the VAR_1 ramp
+rows (``ramp=True``) the u-part of Phi is a per-coordinate tridiagonal
+across stages.  The backtracking line search is a fixed bank of 16
+candidate steps evaluated at once.
 
-The general multi-step ``solve`` (with ramp rows and cyclic reduction)
-is not ported yet (ROADMAP.md A.8).
+In the real-time mode (one Newton step) the step collapses to
+precomputed linear maps (``FixedNewtonOperator``, ``solve_fixed``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
+
+from . import block_tridiag
+
+# Horizon at which the Schur solve switches from one dense Cholesky to
+# block cyclic reduction (O(log T) depth, O(T n^3) work); the dense
+# factorization is O(T^3 n^3).
+CR_MIN_HORIZON = 16
 
 
 @dataclass(frozen=True)
@@ -31,8 +44,11 @@ class FastMPCProblem:
     A1, A2: (n, n) VAR coefficients (A2 zeros for VAR(1)); B: (n, m) modal
     influence; q_diag, qf_diag: (n,) stage / terminal state cost
     diagonals; r_diag: (m,) control cost diagonal; u_min, u_max: (m,)
-    box; barrier_k: 0-d log-barrier parameter; du_min, du_max, u_prev:
-    (m,) ramp-row data (used only by the ramp solver, not ported yet).
+    box; barrier_k: 0-d log-barrier parameter.  Ramp-rate rows
+    (VAR_1/fast_mpc_ineq_const.m:58-76), used only with ``ramp=True``:
+    du_min <= u_t - u_{t-1} <= du_max with u_{-1} = u_prev; du_min,
+    du_max: (m,); u_prev: (m,) or (..., m), one per scenario (the loop
+    passes its running command).
     """
 
     A1: torch.Tensor
@@ -74,14 +90,40 @@ class FixedNewtonOperator:
     px: torch.Tensor          # (T, n) 1/Phi_x
 
 
-def init_state(prob: FastMPCProblem, horizon: int) -> SolverState:
-    """Strictly feasible midpoint init (fast_mpc_init.m:19-27); the
-    inactive x box (README.md:538) gives X=0."""
+def init_state(prob: FastMPCProblem, horizon: int,
+               ramp: bool = False) -> SolverState:
+    """Strictly feasible init.
+
+    Box only: midpoints (fast_mpc_init.m:19-27); the inactive x box
+    (README.md:538) gives X=0.  With ramp rows the midpoint is infeasible
+    whenever |u_prev| > du_max (the reference's VAR_1 init ignores ramp
+    rows), so U starts at u_prev (zero increments) clipped strictly inside
+    the box, one row per scenario of u_prev.
+    """
     m = prob.u_min.shape[-1]
     n = prob.A1.shape[-1]
-    u0 = ((prob.u_min + prob.u_max) / 2.0).expand(horizon, m)
+    u_base = (ramp_start(prob.u_prev, prob.u_min, prob.u_max) if ramp
+              else (prob.u_min + prob.u_max) / 2.0)
+    u0 = u_base.unsqueeze(-2).expand(*u_base.shape[:-1], horizon, m)
     zeros = torch.zeros((horizon, n), dtype=u0.dtype, device=u0.device)
     return SolverState(U=u0, X=zeros, nu=zeros)
+
+
+def ramp_start(u_prev, u_min, u_max):
+    """The ramp-feasible start: u_prev clipped to 1e-3 of the box width
+    inside the box."""
+    margin = 1e-3 * (u_max - u_min)
+    return torch.clamp(u_prev, u_min + margin, u_max - margin)
+
+
+def _ramp_slacks(prob: FastMPCProblem, U):
+    """(hi, lo) ramp slacks per stage: the stage-t row covers u_t - u_{t-1}
+    with u_{-1} = u_prev (VAR_1/fast_mpc_ineq_const.m:58-76)."""
+    first = U[..., :1, :] - prob.u_prev.unsqueeze(-2)
+    rest = U[..., 1:, :] - U[..., :-1, :]
+    dU = torch.cat([first, rest.expand(*first.shape[:-2], *rest.shape[-2:])],
+                   dim=-2)
+    return prob.du_max - dU, dU - prob.du_min
 
 
 def equality_rhs(prob: FastMPCProblem, x0, x0_pre, w, horizon: int):
@@ -116,7 +158,8 @@ def _q_stack(prob: FastMPCProblem, T: int) -> torch.Tensor:
     return torch.cat([prob.q_diag.expand(T - 1, -1), prob.qf_diag[None]])
 
 
-def residuals(prob: FastMPCProblem, b, state: SolverState):
+def residuals(prob: FastMPCProblem, b, state: SolverState,
+              ramp: bool = False):
     """Dual and primal residuals (inf_newton_solver.m:12-13).
 
     rd_u = 2 R u + k P'd|_u - B' nu_t
@@ -129,6 +172,11 @@ def residuals(prob: FastMPCProblem, b, state: SolverState):
     d_lo = 1.0 / (U - prob.u_min)
     k = prob.barrier_k
     rd_u = 2.0 * prob.r_diag * U + k * (d_hi - d_lo) - nu @ prob.B
+    if ramp:
+        # the stage-t ramp row has +I on u_t, -I on u_{t-1}
+        r_hi, r_lo = _ramp_slacks(prob, U)
+        s = 1.0 / r_hi - 1.0 / r_lo
+        rd_u = rd_u + k * (s - _shift_up(s, 1))
     rd_x = (2.0 * _q_stack(prob, T) * X + nu
             - _shift_up(nu, 1) @ prob.A1 - _shift_up(nu, 2) @ prob.A2)
     rp = (X - _shift_down(X, 1) @ prob.A1.T - _shift_down(X, 2) @ prob.A2.T
@@ -144,23 +192,140 @@ def residual_norm(rd_u, rd_x, rp):
                       + torch.sum(rp ** 2, dim=(-2, -1)))
 
 
+def _schur_x_blocks(prob: FastMPCProblem, px):
+    """The x-part of the block-banded S = C Phi^-1 C' from 1/Phi_x ``px``
+    (T, n): (diag, sub1, sub2) blocks (T, n, n), S[i, i], S[i, i-1] and
+    S[i, i-2]; the u-part B Phi_u^-1 B' is added by the caller."""
+    A1, A2 = prob.A1, prob.A2
+    px1 = _shift_down(px, 1)                                    # px_{i-1}
+    px2 = _shift_down(px, 2)
+    eye = torch.eye(px.shape[-1], dtype=px.dtype, device=px.device)
+    diag = (eye * px[:, None, :] + (A1 * px1[:, None, :]) @ A1.T
+            + (A2 * px2[:, None, :]) @ A2.T)
+    sub1 = -A1 * px1[:, None, :] + (A2 * px2[:, None, :]) @ A1.T
+    sub2 = -A2 * px2[:, None, :]
+    return diag, sub1, sub2
+
+
+def _dense_banded(diag, sub1, sub2):
+    """The dense symmetric (..., T*n, T*n) matrix of a bandwidth-2 block
+    band: diag (..., T, n, n) S[i, i], sub1/sub2 (T, n, n) S[i, i-1] and
+    S[i, i-2]."""
+    T, n = diag.shape[-3], diag.shape[-1]
+    S = torch.zeros((*diag.shape[:-3], T, T, n, n), dtype=diag.dtype,
+                    device=diag.device)
+    i = torch.arange(T, device=diag.device)
+    S[..., i, i, :, :] = diag
+    for k, sub in ((1, sub1), (2, sub2)):
+        j = i[k:]
+        S[..., j, j - k, :, :] = sub[j]
+        S[..., j - k, j, :, :] = sub[j].mT
+    return S.transpose(-3, -2).reshape(*diag.shape[:-3], T * n, T * n)
+
+
+def newton_direction(prob: FastMPCProblem, b, state: SolverState,
+                     ramp: bool = False):
+    """One Newton direction (inf_newton_solver.m:24-35), batched over the
+    leading dims of ``b`` and ``state``:
+
+      Phi_u = 2R + k diag(d_hi^2 + d_lo^2)  (diagonal per stage; with ramp
+              rows a per-coordinate T x T tridiagonal across stages),
+      Phi_x[t] = 2 Q_t                      (diagonal),
+      S = C Phi^-1 C'  block-banded, bandwidth 2 (VAR(2)).
+
+    The ramp rows make the u-part of S dense in the stage index: the
+    (..., T, T, n, n) term M[i, j] = B diag(Phi_u^-1[:, i, j]) B' takes
+    B T^2 n^2 floats (1.1 GB at B=64, T=32, n=65; the loop runs ramp rows
+    at N=2).  Without ramp rows S goes to one dense Cholesky below
+    CR_MIN_HORIZON and to block cyclic reduction from it on.  A failed
+    Cholesky gives NaN to its own scenario only.
+    """
+    U, X, nu = state
+    T, m = U.shape[-2:]
+    n = X.shape[-1]
+    k = prob.barrier_k
+    B = prob.B
+
+    d_hi = 1.0 / (prob.u_max - U)
+    d_lo = 1.0 / (U - prob.u_min)
+    phi_u = 2.0 * prob.r_diag + k * (d_hi ** 2 + d_lo ** 2)   # (..., T, m)
+    px = 1.0 / (2.0 * _q_stack(prob, T))                       # (T, n)
+
+    rd_u, rd_x, rp = residuals(prob, b, state, ramp=ramp)
+
+    if ramp:
+        # the stage-t ramp rows contribute w_t (e_t - e_{t-1})(e_t -
+        # e_{t-1})' with w_t = 1/hi_t^2 + 1/lo_t^2 (stage 0: e_0 e_0')
+        r_hi, r_lo = _ramp_slacks(prob, U)
+        w = 1.0 / r_hi ** 2 + 1.0 / r_lo ** 2                  # (..., T, m)
+        diag_c = (phi_u + k * (w + _shift_up(w, 1))).mT        # (..., m, T)
+        off_c = (-k * w[..., 1:, :]).mT                        # (..., m, T-1)
+        Phi_u = (torch.diag_embed(diag_c) + torch.diag_embed(off_c, 1)
+                 + torch.diag_embed(off_c, -1))                # (..., m, T, T)
+        Ginv, info = torch.linalg.inv_ex(Phi_u)
+        Ginv = torch.where((info != 0)[..., None, None], torch.nan, Ginv)
+
+        def u_solve(v):                                        # (..., T, m)
+            return torch.einsum("...mts,...sm->...tm", Ginv, v)
+
+        M = torch.einsum("nm,...mij,km->...ijnk", B, Ginv, B)
+    else:
+        pu = 1.0 / phi_u
+
+        def u_solve(v):
+            return v * pu
+
+        W = torch.einsum("nm,...tm,km->...tnk", B, pu, B)      # (..., T, n, n)
+
+    # C Phi^-1 rd (row i)
+    ru = u_solve(rd_u)
+    rx = rd_x * px
+    c_phinv_rd = (-ru @ B.T + rx - _shift_down(rx, 1) @ prob.A1.T
+                  - _shift_down(rx, 2) @ prob.A2.T)
+    beta = -rp + c_phinv_rd                                    # (..., T, n)
+    batch = beta.shape[:-2]
+
+    diag, sub1, sub2 = _schur_x_blocks(prob, px)
+    if not ramp:
+        diag = diag + W
+    if not ramp and T >= CR_MIN_HORIZON:
+        # long horizons: block cyclic reduction on the banded system
+        full = (*batch, T, n, n)
+        dnu = -block_tridiag.banded_solve(diag.expand(full), sub1.expand(full),
+                                          sub2.expand(full), beta)
+    else:
+        S = _dense_banded(diag, sub1, sub2)
+        if ramp:
+            S = S + M.transpose(-3, -2).reshape(*M.shape[:-4], T * n, T * n)
+        dnu = -block_tridiag.cho_solve(
+            block_tridiag.cho_factor(S),
+            beta.reshape(*batch, T * n, 1)).reshape(*batch, T, n)
+
+    # dz = Phi^-1 (-rd - C' dnu)
+    dU = u_solve(-rd_u + dnu @ B)
+    ct_dnu_x = dnu - _shift_up(dnu, 1) @ prob.A1 - _shift_up(dnu, 2) @ prob.A2
+    dX = (-rd_x - ct_dnu_x) * px
+    return dU, dX, dnu
+
+
 # line search: Armijo-style decrease factor, backtracking ratio, bank size
 LS_ALPHA = 1e-4
 LS_BETA = 0.5
 LS_CANDIDATES = 16
 
 
-def line_search_step(prob, b, state, direction):
+def line_search_step(prob, b, state, direction, ramp: bool = False):
     """Parallel-candidate norm-descent backtracking.
 
     A fixed bank t in {1, beta, ..., beta^15}: accept the largest t whose
     residual norm satisfies the Armijo-style decrease AND keeps the
-    control strictly inside its box (replaces the sequential loop of
+    control strictly inside its box -- and, with ramp rows, every ramp
+    slack positive -- per scenario (replaces the sequential loop of
     backtracking_inf_newton.m:3-9); if none is accepted, take the
     smallest step.
     """
     dU, dX, dnu = direction
-    base = residual_norm(*residuals(prob, b, state))           # (...)
+    base = residual_norm(*residuals(prob, b, state, ramp=ramp))  # (...)
     ts = LS_BETA ** torch.arange(LS_CANDIDATES, dtype=dU.dtype,
                                  device=dU.device)
     tc = ts[:, None, None]                                      # (C, 1, 1)
@@ -171,9 +336,15 @@ def line_search_step(prob, b, state, direction):
     # candidates ride a new dim before the stage dim: (..., C, T, .)
     cand = SolverState(at(state.U, dU, tc), at(state.X, dX, tc),
                        at(state.nu, dnu, tc))
-    norm = residual_norm(*residuals(prob, b.unsqueeze(-3), cand))
+    cprob = (dataclasses.replace(prob, u_prev=prob.u_prev.unsqueeze(-2))
+             if ramp else prob)
+    norm = residual_norm(*residuals(cprob, b.unsqueeze(-3), cand, ramp=ramp))
     feasible = ((cand.U < prob.u_max).all(dim=(-2, -1))
                 & (cand.U > prob.u_min).all(dim=(-2, -1)))
+    if ramp:
+        r_hi, r_lo = _ramp_slacks(cprob, cand.U)
+        feasible = (feasible & (r_hi > 0).all(dim=(-2, -1))
+                    & (r_lo > 0).all(dim=(-2, -1)))
     oks = (norm <= (1.0 - LS_ALPHA * ts) * base[..., None]) & feasible
     # first accepted candidate (argmax of the int cast picks the first
     # True); fall back to the smallest step
@@ -188,8 +359,7 @@ def precompute_fixed_newton(prob: FastMPCProblem,
     """Build the constant operators, in the dtype of ``prob`` (the
     pipeline passes a float64 problem)."""
     T = horizon
-    n = prob.A1.shape[-1]
-    A1, A2, B = prob.A1, prob.A2, prob.B
+    B = prob.B
     k = prob.barrier_k
 
     u0 = (prob.u_min + prob.u_max) / 2.0
@@ -198,26 +368,10 @@ def precompute_fixed_newton(prob: FastMPCProblem,
     pu0 = 1.0 / (2.0 * prob.r_diag + k * (d_hi ** 2 + d_lo ** 2))
     px = 1.0 / (2.0 * _q_stack(prob, T))
 
-    W0 = (B * pu0) @ B.T
-    px1 = _shift_down(px, 1)
-    px2 = _shift_down(px, 2)
-    eye = torch.eye(n, dtype=B.dtype, device=B.device)
-    diag_blocks = (W0 + eye * px[:, None, :]
-                   + (A1 * px1[:, None, :]) @ A1.T
-                   + (A2 * px2[:, None, :]) @ A2.T)             # (T, n, n)
-    sub1_blocks = -A1 * px1[:, None, :] + (A2 * px2[:, None, :]) @ A1.T
-    sub2_blocks = -A2 * px2[:, None, :]
-    S = torch.zeros((T, n, T, n), dtype=B.dtype, device=B.device)
-    for i in range(T):
-        S[i, :, i, :] = diag_blocks[i]
-        if i >= 1:
-            S[i, :, i - 1, :] = sub1_blocks[i]
-            S[i - 1, :, i, :] = sub1_blocks[i].T
-        if i >= 2:
-            S[i, :, i - 2, :] = sub2_blocks[i]
-            S[i - 2, :, i, :] = sub2_blocks[i].T
-    neg_s_inv = -torch.linalg.inv(S.reshape(T * n, T * n))
-    return FixedNewtonOperator(neg_s_inv=neg_s_inv, pu0=pu0, px=px)
+    diag, sub1, sub2 = _schur_x_blocks(prob, px)
+    S = _dense_banded(diag + (B * pu0) @ B.T, sub1, sub2)
+    return FixedNewtonOperator(neg_s_inv=-torch.linalg.inv(S), pu0=pu0,
+                               px=px)
 
 
 def solve_fixed(prob: FastMPCProblem, op: FixedNewtonOperator, x0, x0_pre,
@@ -236,3 +390,46 @@ def solve_fixed(prob: FastMPCProblem, op: FixedNewtonOperator, x0, x0_pre,
                 - _shift_up(dnu, 2) @ prob.A2)
     dX = -ct_dnu_x * op.px
     return line_search_step(prob, b, state, (dU, dX, dnu))
+
+
+def solve(prob: FastMPCProblem, x0, x0_pre, w, horizon: int,
+          n_newton: int = 1, ramp: bool = False) -> SolverState:
+    """Fixed-barrier fixed-Newton solve (= mpc_fixed_log_newton,
+    Fast_MPC2.m:124-130), every step line-searched, batched over the
+    leading dims of x0 (..., n), x0_pre, w (..., T*n) and prob.u_prev.
+    ``ramp=True`` activates the VAR_1 ramp-rate rows
+    (VAR_1/fast_mpc_ineq_const.m:58-76) with prob.du_min/du_max/u_prev."""
+    b = equality_rhs(prob, x0, x0_pre, w, horizon)
+    state = init_state(prob, horizon, ramp=ramp)
+    for _ in range(n_newton):
+        state = line_search_step(prob, b, state,
+                                 newton_direction(prob, b, state, ramp=ramp),
+                                 ramp=ramp)
+    return state
+
+
+def solve_barrier_continuation(prob: FastMPCProblem, x0, x0_pre, w,
+                               horizon: int, k_start: float = 1.0,
+                               mu: float = 0.1, k_min_scaled: float = 1e-2,
+                               n_newton_inner: int = 20) -> SolverState:
+    """Barrier continuation k <- mu k until k*len(z) < k_min_scaled
+    (= mpc_fixed_newton / mpc_solve_full, Fast_MPC2.m:100-115,131-144),
+    on a static schedule of k values, n_newton_inner line-searched Newton
+    steps at each; batched as ``solve``."""
+    m = prob.u_min.shape[-1]
+    n = prob.A1.shape[-1]
+    z_len = horizon * (n + m)
+    ks = []
+    k = k_start
+    while k * z_len >= k_min_scaled:
+        ks.append(k)
+        k *= mu
+    b = equality_rhs(prob, x0, x0_pre, w, horizon)
+    state = init_state(prob, horizon)
+    for k in ks:
+        p = dataclasses.replace(prob, barrier_k=torch.tensor(
+            k, dtype=state.U.dtype, device=state.U.device))
+        for _ in range(n_newton_inner):
+            state = line_search_step(p, b, state,
+                                     newton_direction(p, b, state))
+    return state

@@ -275,7 +275,7 @@ class MPCConfig:
     x_box: float = 100.0               # fastMPC state box (inactive; README.md:538)
     barrier_k: float = 1e-2            # fixed log-barrier parameter
     newton_steps: int = 1              # fixed Newton step count
-    solver: str = "fastmpc"            # fastmpc | closed_form | barrier | admm
+    solver: str = "fastmpc"            # fastmpc | fastmpc_ramp | closed_form | admm
     # Acquisition warm start: initialize the DM so the first-step residual
     # is the VAR one-step *prediction error* of the last identification
     # states, not the full turbulence.  The linear estimator's ~1 rad

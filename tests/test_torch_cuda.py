@@ -1,7 +1,9 @@
 """The port's CUDA kernels B1-B5 on the card, against their plain versions
 (B1-B4 also in their bf16 branch, and at crops wider than 32 px), and the
-strong-turbulence recipe (re-linearized Gauss-Newton, the recipe loop) on
-the card against the CPU.
+strong-turbulence recipe (re-linearized Gauss-Newton, the recipe loop)
+and the general MPC solvers (multi-step Newton-KKT, cyclic reduction,
+ramp rows, ADMM, and the loop through each) on the card against the
+CPU.
 
 These tests need an NVIDIA GPU with nvcc (marker ``gpu``) and skip
 without one.  They import neither jax nor the JAX package, so on the GPU
@@ -19,9 +21,10 @@ import torch
 
 from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
-from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
-from mpc_sensorlessao_tpu_torch.models import pipeline
-from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, psf, psf_kernels
+from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator, mpc
+from mpc_sensorlessao_tpu_torch.models import pipeline, solvers
+from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, newton_kkt, psf
+from mpc_sensorlessao_tpu_torch.ops import psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
 from mpc_sensorlessao_tpu_torch.utils import tree
 
@@ -555,3 +558,119 @@ def test_d_over_r0_15_closes_with_shrunk_prior(cuda_device):
     assert float(res.max()) < 1.0
     assert float(res[30:].mean()) < 0.35 * float(turb[30:].mean())
     assert float(out.strehl_exact[30:].mean()) > 0.85
+
+
+# ------------------------------------------------- the general MPC solvers
+
+def _solver_problem(rng, T, B=4, n=3, m=2):
+    """A small VAR(2) problem (box 2, ramp 0.4) with per-scenario x0,
+    x0_pre, w and u_prev, on the CPU."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32))
+    prob = solvers.make_fastmpc_problem(
+        t(0.5 * np.eye(n) + 0.1 * rng.normal(size=(n, n))),
+        t(0.15 * np.eye(n) + 0.05 * rng.normal(size=(n, n))),
+        t(rng.normal(size=(n, m))), q_weight=10.0, p_weight=10.0,
+        r_weight=1.0, u_max=2.0, barrier_k=1e-2, du_max=0.4)
+    prob = dataclasses.replace(prob, u_prev=t(rng.uniform(-1.5, 1.5,
+                                                          (B, m))))
+    return prob, (t(rng.normal(size=(B, n)) * 0.5),
+                  t(rng.normal(size=(B, n)) * 0.5),
+                  t(rng.normal(size=(B, T * n)) * 0.3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dense", "cyclic_reduction", "ramp",
+                                  "admm"])
+def test_general_solvers_on_card_match_cpu(cuda_device, case):
+    """newton_kkt.solve (8 Newton steps: dense Schur at T=3, cyclic
+    reduction at T=20, ramp rows at T=3) and admm_condensed (400
+    iterations, two adaptive-rho rounds, per-scenario ramp bounds) on the
+    card vs the same call on the CPU: within 1e-4 of the solution's
+    scale (float32 sums in other orders)."""
+    rng = np.random.default_rng(11)
+    if case == "admm":
+        nx, nu, N = 4, 3, 3
+        t = dict(dtype=torch.float32)
+        mats = mpc.design_matrices(
+            torch.eye(nx, **t) * 0.5, torch.eye(nx, **t) * 0.1,
+            torch.as_tensor(rng.normal(size=(nx, nu)), **t), N,
+            10 * torch.eye(nx, **t), 10 * torch.eye(nx, **t),
+            torch.eye(nu, **t))
+        r = torch.as_tensor(rng.normal(size=(4, N * nu)) * 10, **t)
+        lo = torch.full((N * nu,), -0.8)
+        dlo = torch.full((4, N * nu), -0.3)
+        dlo[:, :nu] += torch.as_tensor(rng.uniform(-0.5, 0.5, (4, nu)), **t)
+        args = (r, lo, -lo, dlo, dlo + 0.6)
+        kw = dict(adapt_rounds=2)
+        want = solvers.admm_condensed(mats, *args, **kw)
+        got = solvers.admm_condensed(
+            tree.cast(mats, device=cuda_device),
+            *(a.to(cuda_device) for a in args), **kw)
+    else:
+        T = 20 if case == "cyclic_reduction" else 3
+        prob, args = _solver_problem(rng, T)
+        ramp = case == "ramp"
+        want = newton_kkt.solve(prob, *args, horizon=T, n_newton=8,
+                                ramp=ramp).U
+        got = newton_kkt.solve(tree.cast(prob, device=cuda_device),
+                               *(a.to(cuda_device) for a in args),
+                               horizon=T, n_newton=8, ramp=ramp).U
+    assert got.is_cuda and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                               atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.fixture(scope="module")
+def bench_64():
+    """reference_config(64) cut to 300 + 50 identification steps, built on
+    the card; skips without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reference_config(resolution=64)
+    cfg = cfg.replace(sim=dataclasses.replace(cfg.sim, n_train=300,
+                                              n_valid=50))
+    return cfg, pipeline.build(cfg, "cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver,newton_steps,horizon", [
+    ("admm", 1, 2), ("fastmpc_ramp", 1, 2), ("fastmpc", 2, 2),
+    ("fastmpc", 2, 16)])
+def test_solver_loop_on_card_matches_cpu(cuda_device, bench_64, solver,
+                                         newton_steps, horizon):
+    """The loop at B=4, 10 steps with injected noise, through each new
+    branch of the solver switch (ADMM, the ramp rows, the general Newton
+    solve; at N=16 through with_horizon, where it runs cyclic reduction),
+    on the card (B1 twice a step: the measure and one Gauss-Newton pass)
+    and on the CPU (plain versions, the same
+    operators): residual RMS rtol 0.01 / atol 5e-3, u atol 0.02 max|u|."""
+    cfg, sys_ = bench_64
+    cfg = cfg.replace(mpc=dataclasses.replace(
+        cfg.mpc, solver=solver, newton_steps=newton_steps, horizon=horizon))
+    if horizon != 2:
+        sys_ = pipeline.with_horizon(sys_, cfg)
+    n_steps, B = 10, 4
+    rng = np.random.default_rng(5)
+    noise = torch.as_tensor((float(sys_.est.noise_std) * rng.standard_normal(
+        (B, n_steps, sys_.est.n_pixels))).astype(np.float32))
+    b1 = psf_kernels.psf_crop_diversity_sym3
+    before = b1.launches
+    kw = dict(n_steps=n_steps, start_step=cfg.sim.n_train + cfg.sim.n_valid,
+              mag=torch.linspace(1.0, 1.8, B))
+    got = closed_loop.simulate(sys_.loop, sys_.layers, cfg, None,
+                               noise_seq=noise.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert b1.launches - before == n_steps * (
+        1 + cfg.estimator.gauss_newton_iters)
+    want = closed_loop.simulate(
+        tree.cast(sys_.loop, device="cpu"),
+        tree.cast(sys_.layers, device="cpu"), cfg, None, noise_seq=noise,
+        **kw)
+    for field in got:
+        assert torch.isfinite(field).all()
+    torch.testing.assert_close(got.rms_res.cpu(), want.rms_res, rtol=0.01,
+                               atol=5e-3)
+    torch.testing.assert_close(got.u.cpu(), want.u, rtol=0,
+                               atol=0.02 * float(want.u.abs().max()))

@@ -109,14 +109,24 @@ def test_interop_carries_the_measure_switch(jax_system, carried):
     assert est.div_sym3 is False
 
 
-@pytest.mark.parametrize("solver", ["fastmpc", "closed_form"])
+@pytest.mark.parametrize("solver,newton_steps", [
+    pytest.param("fastmpc", 1, id="fastmpc"),
+    pytest.param("closed_form", 1, id="closed_form"),
+    pytest.param("admm", 1, id="admm"),
+    pytest.param("fastmpc_ramp", 1, id="fastmpc_ramp"),
+    pytest.param("fastmpc", 2, id="fastmpc-newton_steps=2")])
 @pytest.mark.parametrize("noisy", [False, True])
 def test_simulate_matches_jax_with_carried_operators(jax_system, carried,
-                                                     solver, noisy):
+                                                     solver, newton_steps,
+                                                     noisy):
     """The port's loop on the JAX operators, measuring through the
     build's default route (B1's plain version), vs the JAX loop
-    (use_pallas=False, its jnp reference), same injected noise."""
-    _check_carried_loop(jax_system, carried, solver, noisy, "sym3")
+    (use_pallas=False, its jnp reference), same injected noise, through
+    every solver of the switch: the fixed Newton step, the closed form,
+    ADMM (400 iterations, ramp bounds shifted by u[k-1]), the ramp rows
+    with the running u[k-1], and the general Newton solve."""
+    _check_carried_loop(jax_system, carried, solver, noisy, "sym3",
+                        newton_steps=newton_steps)
 
 
 @pytest.mark.parametrize("route", ["general", "unfused"])
@@ -185,8 +195,11 @@ def test_simulate_bf16_matches_jax_through_each_route(jax_system, carried,
 
 
 def _check_carried_loop(jax_system, carried, solver, noisy, route,
-                        dft_dtype="float32", strehl_atol=1e-4):
+                        dft_dtype="float32", strehl_atol=1e-4,
+                        newton_steps=1):
     cfg, jsys = jax_system
+    cfg = cfg.replace(mpc=dataclasses.replace(cfg.mpc,
+                                              newton_steps=newton_steps))
     loop, layers = carried
     jloop = jsys.loop
     if dft_dtype != "float32":
@@ -204,7 +217,7 @@ def _check_carried_loop(jax_system, carried, solver, noisy, route,
     ref = jcl.simulate(jloop, jsys.layers, cfg, jax.random.PRNGKey(9),
                        n_steps=n_steps, start_step=START, solver=solver,
                        noise_scale=1.0, noise_seq=jnp.asarray(noise))
-    out = _port_loop(loop, layers, solver, noise)
+    out = _port_loop(loop, layers, solver, noise, newton_steps)
     assert out.u.shape == (n_steps, loop.influence.shape[1])
     for field in out:
         assert torch.isfinite(field).all()
@@ -217,9 +230,12 @@ def _check_carried_loop(jax_system, carried, solver, noisy, route,
     return ref, out, loop, noise
 
 
-def _port_loop(loop, layers, solver, noise):
+def _port_loop(loop, layers, solver, noise, newton_steps=1):
     """The port's loop from START with injected noise (steps, pixels)."""
-    return closed_loop.simulate(loop, layers, _cfg(reference_config), None,
+    cfg = _cfg(reference_config)
+    cfg = cfg.replace(mpc=dataclasses.replace(cfg.mpc,
+                                              newton_steps=newton_steps))
+    return closed_loop.simulate(loop, layers, cfg, None,
                                 n_steps=len(noise), start_step=START,
                                 solver=solver,
                                 noise_seq=torch.as_tensor(noise))
@@ -339,3 +355,68 @@ def test_run_closed_loop_and_summary(port_system):
     assert set(summ) == set(want)
     for k in summ:
         assert summ[k] == pytest.approx(want[k], rel=1e-5), k
+
+
+def test_var1_ramp_loop_on_own_build():
+    """BASELINE config 1 on the port's own build (tests/test_configs.py::
+    test_var1_pipeline_with_ramp_solver): VAR(1) with the active ramp
+    rows of solver fastmpc_ramp, R=64, 40 steps.  A2 is zero in the
+    problem, every step keeps the ramp bound (du within 1.01 du_max) and
+    the loop converges (residual over the last 10 steps below 0.75x the
+    turbulence)."""
+    cfg = reference_config(resolution=64)
+    cfg = cfg.replace(
+        sim=dataclasses.replace(cfg.sim, n_train=300, n_valid=50, n_test=40),
+        mpc=dataclasses.replace(cfg.mpc, var_order=1, solver="fastmpc_ramp"))
+    sys_ = pipeline.build(cfg, "cpu")
+    assert float(sys_.loop.prob.A2.abs().max()) == 0.0
+    out = pipeline.run_closed_loop(sys_, cfg,
+                                   torch.Generator().manual_seed(1))
+    assert float(out.du.abs().max()) <= cfg.mpc.du_max * 1.01
+    assert (float(out.rms_res[-10:].mean())
+            < 0.75 * float(out.rms_turb[-10:].mean()))
+
+
+@pytest.mark.parametrize("solver,newton_steps", [
+    ("admm", 1), ("fastmpc_ramp", 1), ("fastmpc", 2)])
+def test_run_batch_paths_take_every_solver(port_system, monkeypatch, solver,
+                                           newton_steps):
+    """Each new branch of the solver switch calls its solver once a step
+    and runs through run_batch's shared and batched windows (equal trajectories, as
+    test_run_batch_batched_window_matches_shared) and through
+    with_horizon(N=16); at N=16 >= CR_MIN_HORIZON the general Newton
+    solve's cyclic reduction gives the loop of the dense Schur factor
+    (CR_MIN_HORIZON raised past N) to u atol 1e-4 max|u|."""
+    cfg, sys_ = port_system
+    cfg = cfg.replace(mpc=dataclasses.replace(
+        cfg.mpc, solver=solver, newton_steps=newton_steps))
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(2),
+                                     2, device="cpu")
+    # the branch's solver runs once a step (the general Newton solve's
+    # loop is within 3e-6 of the fixed step's, so only this tells them
+    # apart)
+    module, name = ((closed_loop.solvers, "admm_condensed")
+                    if solver == "admm" else (closed_loop.newton_kkt, "solve"))
+    calls, solve = [], getattr(module, name)
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: calls.append(1) or solve(*a, **k))
+    shared = montecarlo.run_batch(sys_.loop, sys_.layers, cfg, scen, 4,
+                                  shared_window=True)
+    assert len(calls) == 4
+    batched = montecarlo.run_batch(sys_.loop, sys_.layers, cfg, scen, 4)
+    scale = float(shared.u.abs().max())
+    torch.testing.assert_close(batched.u, shared.u, rtol=0,
+                               atol=1e-4 * scale)
+    for field in shared:
+        assert torch.isfinite(field).all()
+    long = cfg.replace(mpc=dataclasses.replace(cfg.mpc, horizon=16))
+    sys16 = pipeline.with_horizon(sys_, long)
+    out = montecarlo.run_batch(sys16.loop, sys16.layers, long, scen, 4,
+                               shared_window=True)
+    assert torch.isfinite(out.u).all()
+    if solver == "fastmpc":
+        monkeypatch.setattr(closed_loop.newton_kkt, "CR_MIN_HORIZON", 10_000)
+        dense = montecarlo.run_batch(sys16.loop, sys16.layers, long, scen, 4,
+                                     shared_window=True)
+        torch.testing.assert_close(out.u, dense.u, rtol=0,
+                                   atol=1e-4 * float(dense.u.abs().max()))

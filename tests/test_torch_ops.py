@@ -1131,23 +1131,27 @@ def test_line_search_picks_first_accepted_candidate():
 
 # ------------------------------------------------- branches not ported yet
 
-@pytest.mark.parametrize("branch", [
-    "conditional", "newton_steps", "fastmpc_ramp", "admm"])
+@pytest.mark.parametrize("branch", ["conditional"])
 def test_unported_branches_raise(branch):
     """Each configuration branch the port does not have yet raises
     NotImplementedError naming its ROADMAP item -- never a quiet
     substitute."""
     cfg = reference_config(resolution=32)
     rep = dataclasses.replace
-    solver = None
-    if branch == "conditional":
-        cfg = cfg.replace(atmosphere=rep(cfg.atmosphere, flow="conditional"))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            pipeline.build(cfg, "cpu")
-        return
-    if branch == "newton_steps":
-        cfg = cfg.replace(mpc=rep(cfg.mpc, newton_steps=2))
-    else:
-        solver = branch
+    cfg = cfg.replace(atmosphere=rep(cfg.atmosphere, flow=branch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        closed_loop.check_ported(cfg, solver or cfg.mpc.solver)
+        pipeline.build(cfg, "cpu")
+
+
+@pytest.mark.parametrize("solver", ["barrier", "cvx"])
+def test_unknown_solver_raises(solver):
+    """A solver name outside the loop's switch raises ValueError before
+    the loop runs, as the JAX switch does ("barrier", which the config
+    comment once listed, included); every name of the switch passes."""
+    with pytest.raises(ValueError, match="unknown solver"):
+        closed_loop.check_solver(solver)
+    with pytest.raises(ValueError, match="unknown solver"):
+        closed_loop.simulate(None, None, reference_config(resolution=32),
+                             None, 1, solver=solver)
+    for name in closed_loop.SOLVERS:
+        closed_loop.check_solver(name)
