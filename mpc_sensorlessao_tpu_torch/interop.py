@@ -1,6 +1,7 @@
 """Carry the JAX package's built operators across to the port.
 
-The functions take the JAX ``LoopModels`` / ``FrozenFlowLayers`` fields
+The functions take the JAX ``LoopModels`` / ``FrozenFlowLayers`` /
+``EdgeFlowModel`` / ``EdgeFlowState`` fields
 as numpy arrays, keyed by the JAX field names -- either the JAX objects
 after ``jax.tree.map(np.asarray, ...)`` or plain mappings -- and return
 the port's objects on ``device``.  With them both engines can run the
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .models import closed_loop, estimator, mpc
-from .ops import newton_kkt, phase_screens
+from .ops import edge_flow, newton_kkt, phase_screens
 
 
 def _get(tree, name):
@@ -70,3 +71,30 @@ def loop_models_from_numpy(tree, device) -> closed_loop.LoopModels:
         prob=_from(newton_kkt.FastMPCProblem, _get(tree, "prob"), device),
         fixed_op=_from(newton_kkt.FixedNewtonOperator,
                        _get(tree, "fixed_op"), device))
+
+
+def edge_model_from_numpy(model, device) -> edge_flow.EdgeFlowModel:
+    """EdgeFlowModel from the JAX one: A and Bc keep their dtype (float32,
+    or bfloat16 for edge_op_dtype="bfloat16"), the ring indices become
+    int64; the JAX ``shift_select``/``impl`` choices are not carried."""
+    def op(name):
+        arr = np.asarray(_get(model, name))
+        dtype = (torch.bfloat16 if arr.dtype.name == "bfloat16"
+                 else torch.float32)
+        return torch.as_tensor(arr.astype(np.float32), device=device).to(
+            dtype)
+
+    def idx(name):
+        return torch.as_tensor(np.asarray(_get(model, name), np.int64),
+                               device=device)
+    return edge_flow.EdgeFlowModel(
+        A=op("A"), Bc=op("Bc"), outer_idx=idx("outer_idx"),
+        inner_idx=idx("inner_idx"),
+        step_px=tuple(tuple(float(v) for v in s)
+                      for s in _get(model, "step_px")),
+        nsub=tuple(tuple(int(v) for v in s) for s in _get(model, "nsub")),
+        size=int(_get(model, "size")))
+
+
+def edge_state_from_numpy(state, device) -> edge_flow.EdgeFlowState:
+    return _from(edge_flow.EdgeFlowState, state, device)

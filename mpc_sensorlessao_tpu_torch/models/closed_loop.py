@@ -1,9 +1,10 @@
 """Closed-loop sensorless-AO MPC simulation engine (port of
 ``mpc_sensorlessao_tpu/models/closed_loop.py``).
 
-The frozen-flow turbulence is evolved inside the loop from per-layer
-periodic screens, and every step runs over an explicit scenario batch:
-one Python step loop over (B, ...) tensors on the models' device.
+The frozen-flow turbulence is evolved inside the loop -- sampled from
+per-layer periodic screens, or advanced by the conditional-Gaussian flow
+(ops/edge_flow.py) -- and every step runs over an explicit scenario
+batch: one Python step loop over (B, ...) tensors on the models' device.
 
 Loop step (reference: README.md:444-626):
   residual phase -> diversity PSFs + noise -> LS/MMSE estimate
@@ -23,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import newton_kkt, phase_screens, zernike
+from ..ops import edge_flow, newton_kkt, phase_screens, zernike
 from ..utils import tree
 from ..utils.config import SystemConfig
 from . import dm as dm_model
@@ -154,7 +155,11 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
              n_steps: int, start_step=0, solver: str | None = None,
              mag=None, noise_scale=1.0,
              noise_seq: torch.Tensor | None = None,
-             init_u: torch.Tensor | None = None) -> StepOutputs:
+             init_u: torch.Tensor | None = None,
+             edge_model: edge_flow.EdgeFlowModel | None = None,
+             edge_state: edge_flow.EdgeFlowState | None = None,
+             turb_generator: torch.Generator | None = None,
+             edge_eps: torch.Tensor | None = None) -> StepOutputs:
     """Run the closed loop for n_steps from absolute turbulence step
     ``start_step`` over a batch of scenarios.
 
@@ -176,6 +181,19 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     (MPCConfig.warm_start, pipeline.warm_start_command): the DM starts
     at that command, so step 0 sees only the prediction error and its
     du is u - init_u.
+
+    ``edge_model``/``edge_state`` switch the turbulence to the
+    conditional-Gaussian flow (ops/edge_flow.advance in place of the
+    periodic sample; ``layers`` is then unused and may be None).  An
+    (L, n, n) state with a host-number ``start_step`` is ONE realization
+    shared by every scenario, advanced once a step and broadcast (the
+    edge-flow analogue of the shared window); a (B, L, n, n) state, or
+    per-scenario start steps (the state is then expanded), gives each
+    scenario its own flow and its own border noise.  The border noise is
+    ``edge_eps`` when given -- (T, K_max+1, L, nX), or
+    (*batch, T, K_max+1, L, nX) per scenario; the injected normals of
+    the parity tests -- else drawn from ``turb_generator`` (default
+    ``generator``).
     """
     solver = solver or cfg.mpc.solver
     check_solver(solver)
@@ -184,6 +202,17 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
                          f"n_steps={n_steps}")
     if noise_seq is None and generator is None:
         raise ValueError("simulate needs a generator or a noise_seq")
+    edge = edge_model is not None
+    if edge:
+        if edge_state is None:
+            raise ValueError("simulate with an edge_model needs an edge_state")
+        turb_generator = turb_generator or generator
+        if edge_eps is None and turb_generator is None:
+            raise ValueError("the conditional flow needs a turb_generator, "
+                             "a generator or an edge_eps")
+        if edge_eps is not None and edge_eps.shape[-4] < n_steps:
+            raise ValueError(f"edge_eps has {edge_eps.shape[-4]} steps < "
+                             f"n_steps={n_steps}")
     dev = models.influence.device
     est = models.est
     R = cfg.resolution
@@ -203,7 +232,10 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     batch = torch.broadcast_shapes(
         mag.shape, noise_scale.shape, () if shared else start.shape,
         () if noise_seq is None else noise_seq.shape[:-2],
-        () if init_u is None else init_u.shape[:-1])
+        () if init_u is None else init_u.shape[:-1],
+        () if not edge or edge_state.phases.dim() == 3
+        else edge_state.phases.shape[:1],
+        () if edge_eps is None else edge_eps.shape[:-4])
     B = math.prod(batch)
     mag_b = mag.expand(batch).reshape(B)
     scale_b = noise_scale.expand(batch).reshape(B, 1)
@@ -211,6 +243,25 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
         start = start.expand(batch).reshape(B)
     if noise_seq is not None:
         noise_seq = f32(noise_seq)
+    if edge:
+        phases = edge_state.phases
+        if (not shared or phases.dim() == 4
+                or (edge_eps is not None and edge_eps.dim() > 4)):
+            # each scenario its own flow: per-scenario start steps, a
+            # batched state or per-scenario border noise
+            phases = phases.expand(B, *phases.shape[-3:])
+            turb_start = np.broadcast_to(
+                np.asarray(start.cpu(), np.float32) if not shared
+                else start, (B,))
+        else:
+            turb_start = start
+        eflow = edge_flow.EdgeFlowState(phases=phases)
+        if edge_eps is not None:
+            edge_eps = f32(edge_eps)
+            if edge_eps.dim() > 4:
+                edge_eps = edge_eps.expand(
+                    *batch, *edge_eps.shape[-4:]).reshape(
+                        B, *edge_eps.shape[-4:])
 
     stack = models.state_stack.reshape(nx, R * R)
     w2 = (2 * est.crop_half + 1) ** 2
@@ -240,7 +291,12 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     rows = []
     for idx in range(n_steps):
         # -- turbulence + correction (README.md:447-453) --
-        if shared:
+        if edge:
+            eflow, raw = edge_flow.advance(
+                edge_model, eflow, turb_start + np.float32(idx),
+                turb_generator,
+                None if edge_eps is None else edge_eps[..., idx, :, :, :])
+        elif shared:
             raw = phase_screens.phase_at(layers, start + np.float32(idx), R)
         else:
             raw = phase_screens.phase_at(layers, start + idx, R)

@@ -1,7 +1,8 @@
 """End-to-end pipeline: turbulence -> system ID -> closed-loop MPC (port of
 ``mpc_sensorlessao_tpu/models/pipeline.py``).
 
-  L1 frozen-flow screens -> L2 Zernike series -> L3 VAR fit
+  L1 frozen-flow screens (periodic, or the conditional-Gaussian flow)
+  -> L2 Zernike series -> L3 VAR fit
   -> L4 DM influence -> L5 estimator model -> L6 MPC matrices
   -> L7 closed-loop simulation,
 with every tensor on one explicit device.  Screens, basis, DM and the
@@ -18,7 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import phase_screens, zernike, zernike_stats
+from ..ops import edge_flow, phase_screens, zernike, zernike_stats
 from ..utils import tree
 from ..utils.config import SystemConfig
 from . import closed_loop, dm, estimator, mpc, solvers, var
@@ -29,13 +30,17 @@ class System:
     """All precomputed models for a configured scenario."""
 
     basis: zernike.ZernikeBasis
-    layers: phase_screens.FrozenFlowLayers
+    layers: phase_screens.FrozenFlowLayers | None   # None: conditional flow
     est: estimator.EstimatorModel
     dm_model: dm.DMModel
     var_model: var.VARModel       # float64: the controller is built from it
     mats: mpc.MPCMatrices
     loop: closed_loop.LoopModels
     coeff_series: torch.Tensor    # (n_id, n_modes) open-loop Zernike series
+    # the conditional flow (atmosphere.flow="conditional"): its model, and
+    # its state at the test split (after the n_train + n_valid rollout)
+    edge_model: edge_flow.EdgeFlowModel | None = None
+    edge_state: edge_flow.EdgeFlowState | None = None
 
 
 def _controller(cfg: SystemConfig, vmodel: var.VARModel,
@@ -71,21 +76,17 @@ def _controller(cfg: SystemConfig, vmodel: var.VARModel,
 
 
 def build(cfg: SystemConfig, device: torch.device | str = "cuda") -> System:
-    """Build every subsystem from a config; screens are seeded from
-    cfg.sim.seed."""
-    if cfg.atmosphere.flow == "conditional":
-        raise NotImplementedError(
-            "atmosphere.flow='conditional' is not ported yet (ROADMAP.md A.9)")
-    if cfg.atmosphere.flow != "periodic":
-        raise ValueError(f"unknown atmosphere.flow '{cfg.atmosphere.flow}'")
+    """Build every subsystem from a config; screens, and the
+    conditional flow's border draws, are seeded from cfg.sim.seed."""
+    flow = cfg.atmosphere.flow
+    if flow not in ("periodic", "conditional"):
+        raise ValueError(f"unknown atmosphere.flow '{flow}'")
     if cfg.mpc.var_ridge < 0.0:
         raise ValueError(f"var_ridge must be >= 0, got {cfg.mpc.var_ridge}")
     R = cfg.resolution
     tel = dataclasses.replace(cfg.telescope, resolution=R)
 
     basis = zernike.make_basis(cfg.zernike.radial_order, R, device=device)
-    layers = phase_screens.make_layers(int(cfg.sim.seed), cfg.atmosphere,
-                                       tel, device=device)
     prior_cov = None
     if cfg.estimator.method == "mmse":
         # analytic Von Karman Zernike-coefficient covariance as the
@@ -104,10 +105,23 @@ def build(cfg: SystemConfig, device: torch.device | str = "cuda") -> System:
     # README.md:283-284
     mask_npix = torch.tensor(float(basis.mask.sum()), dtype=torch.float32,
                              device=device)
-    coeffs = closed_loop.turbulence_rollout(
-        layers, basis.fit_full, basis.mask, mask_npix,
-        n_steps=cfg.sim.n_train + cfg.sim.n_valid, resolution=R,
-        mag=cfg.sim.magnification)
+    n_id = cfg.sim.n_train + cfg.sim.n_valid
+    layers = edge_model = edge_state = None
+    if flow == "conditional":
+        edge_model, state0 = edge_flow.build(
+            int(cfg.sim.seed), cfg.atmosphere, tel,
+            op_dtype=cfg.atmosphere.edge_op_dtype, device=device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(cfg.sim.seed))
+        edge_state, coeffs = edge_flow.rollout(
+            edge_model, state0, gen, n_id, basis.fit_full, basis.mask,
+            mask_npix, mag=cfg.sim.magnification)
+    else:
+        layers = phase_screens.make_layers(int(cfg.sim.seed), cfg.atmosphere,
+                                           tel, device=device)
+        coeffs = closed_loop.turbulence_rollout(
+            layers, basis.fit_full, basis.mask, mask_npix, n_steps=n_id,
+            resolution=R, mag=cfg.sim.magnification)
 
     # VAR fit on the training window, piston removed (README.md:110-130)
     vmodel = var.fit(coeffs[:cfg.sim.n_train, 1:].double(),
@@ -117,7 +131,8 @@ def build(cfg: SystemConfig, device: torch.device | str = "cuda") -> System:
     mats, loop = _controller(cfg, vmodel, basis, est, dm_model)
     return System(basis=basis, layers=layers, est=est, dm_model=dm_model,
                   var_model=vmodel, mats=mats, loop=loop,
-                  coeff_series=coeffs)
+                  coeff_series=coeffs, edge_model=edge_model,
+                  edge_state=edge_state)
 
 
 def with_horizon(system: System, cfg: SystemConfig) -> System:
@@ -137,14 +152,17 @@ def run_closed_loop(system: System, cfg: SystemConfig,
                     generator: torch.Generator, n_steps: int | None = None,
                     solver: str | None = None) -> closed_loop.StepOutputs:
     """Closed loop over the test window (after train+valid), from the
-    warm-start command when cfg.mpc.warm_start is set."""
+    warm-start command when cfg.mpc.warm_start is set; on the
+    conditional flow from the system's edge_state, its border noise drawn
+    from ``generator`` too."""
     start = cfg.sim.n_train + cfg.sim.n_valid
     init_u = (warm_start_command(system, cfg, start) if cfg.mpc.warm_start
               else None)
     return closed_loop.simulate(
         system.loop, system.layers, cfg, generator,
         n_steps=cfg.sim.n_test if n_steps is None else n_steps,
-        start_step=start, solver=solver, init_u=init_u)
+        start_step=start, solver=solver, init_u=init_u,
+        edge_model=system.edge_model, edge_state=system.edge_state)
 
 
 def warm_start_command(system: System, cfg: SystemConfig,

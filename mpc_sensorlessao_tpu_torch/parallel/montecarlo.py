@@ -1,9 +1,9 @@
 """Monte-Carlo closed-loop scenario batches on one device (port of the
 single-device part of ``mpc_sensorlessao_tpu/parallel/montecarlo.py``).
 
-Scenarios vary turbulence window, D/r0 and SNR; the closed loop runs them
-as one batch.  The sharded multi-device runner is not ported yet
-(ROADMAP.md A.10).
+Scenarios vary turbulence window (or conditional-flow realization), D/r0
+and SNR; the closed loop runs them as one batch.  The sharded
+multi-device runner is not ported yet (ROADMAP.md A.10).
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import torch
 
 from ..models import closed_loop
 from ..utils.config import SystemConfig, mag_conv
+
+# mixed into the default border-noise seed of run_batch's conditional flow
+TURB_SEED_SALT = 0x7E5
 
 
 class ScenarioBatch(NamedTuple):
@@ -75,7 +78,11 @@ def assert_shared_window(scen: ScenarioBatch) -> None:
 def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
               scen: ScenarioBatch, n_steps: int, solver: str | None = None,
               shared_window: bool | str = False,
-              init_u: torch.Tensor | None = None) -> closed_loop.StepOutputs:
+              init_u: torch.Tensor | None = None,
+              edge_model=None, edge_state=None,
+              shared_turbulence: bool | str = False,
+              turb_generator: torch.Generator | None = None,
+              ) -> closed_loop.StepOutputs:
     """The closed loop over the scenario batch; outputs (B, T, ...).
 
     ``shared_window`` (True or "verified") runs the shared-window fast
@@ -87,9 +94,40 @@ def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
     ``init_u`` ((nu,) or (B, nu)) is the warm-start command
     (MPCConfig.warm_start; pipeline.warm_start_command), applied on both
     paths.
+
+    ``edge_model``/``edge_state`` switch the turbulence to the
+    conditional-Gaussian flow (ops/edge_flow.py), in two modes:
+
+    * ``shared_turbulence`` (True or "verified") -- ONE realization
+      shared by every scenario, advanced once a step and broadcast (the
+      analogue of ``shared_window``): it needs a shared start step
+      (checked as ``shared_window`` is) and an unbatched (L, n, n)
+      state;
+    * default -- per-scenario turbulence: each scenario draws its own
+      border noise from the scenario's start step (distinct start steps
+      allowed), from a (B, L, n, n) state (edge_flow.batch_states) or an
+      unbatched one that every scenario starts from.
+
+    ``turb_generator`` draws the border noise (on the models' device);
+    by default it is seeded from cfg.sim.seed for shared turbulence and
+    from ``scen.noise_seed`` per scenario.
     """
-    gen = torch.Generator(device=models.influence.device)
+    dev = models.influence.device
+    gen = torch.Generator(device=dev)
     gen.manual_seed(scen.noise_seed)
+    kw = {}
+    if edge_model is not None:
+        if shared_turbulence and edge_state.phases.dim() != 3:
+            raise ValueError(
+                "shared_turbulence needs ONE unbatched edge_state")
+        if turb_generator is None:
+            turb_generator = torch.Generator(device=dev)
+            turb_generator.manual_seed(
+                (int(cfg.sim.seed) if shared_turbulence else scen.noise_seed)
+                ^ TURB_SEED_SALT)
+        kw = dict(edge_model=edge_model, edge_state=edge_state,
+                  turb_generator=turb_generator)
+        shared_window = shared_turbulence
     if shared_window:
         assert_shared_window(scen)
         start = float(scen.start_step[0])
@@ -98,4 +136,4 @@ def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
     return closed_loop.simulate(models, layers, cfg, gen, n_steps=n_steps,
                                 start_step=start, solver=solver,
                                 mag=scen.mag, noise_scale=scen.noise_scale,
-                                init_u=init_u)
+                                init_u=init_u, **kw)

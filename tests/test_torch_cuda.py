@@ -1,8 +1,9 @@
 """The port's CUDA kernels B1-B5 on the card, against their plain versions
 (B1-B4 also in their bf16 branch, and at crops wider than 32 px), and the
-strong-turbulence recipe (re-linearized Gauss-Newton, the recipe loop)
-and the general MPC solvers (multi-step Newton-KKT, cyclic reduction,
-ramp rows, ADMM, and the loop through each) on the card against the
+strong-turbulence recipe (re-linearized Gauss-Newton, the recipe loop),
+the general MPC solvers (multi-step Newton-KKT, cyclic reduction,
+ramp rows, ADMM, and the loop through each) and the conditional-Gaussian
+flow (its build and loop, its bf16 border draw) on the card against the
 CPU.
 
 These tests need an NVIDIA GPU with nvcc (marker ``gpu``) and skip
@@ -23,7 +24,8 @@ from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator, mpc
 from mpc_sensorlessao_tpu_torch.models import pipeline, solvers
-from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, newton_kkt, psf
+from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, edge_flow
+from mpc_sensorlessao_tpu_torch.ops import newton_kkt, psf
 from mpc_sensorlessao_tpu_torch.ops import psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
 from mpc_sensorlessao_tpu_torch.utils import tree
@@ -674,3 +676,104 @@ def test_solver_loop_on_card_matches_cpu(cuda_device, bench_64, solver,
                                atol=5e-3)
     torch.testing.assert_close(got.u.cpu(), want.u, rtol=0,
                                atol=0.02 * float(want.u.abs().max()))
+
+
+@pytest.fixture(scope="module")
+def edge_64():
+    """reference_config(64) on the conditional flow, cut to 300 + 50
+    identification steps, built by pipeline.build with no device named
+    (so on the card); skips without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reference_config(resolution=64)
+    cfg = cfg.replace(
+        atmosphere=dataclasses.replace(cfg.atmosphere, flow="conditional"),
+        sim=dataclasses.replace(cfg.sim, n_train=300, n_valid=50))
+    return cfg, pipeline.build(cfg)
+
+
+@pytest.mark.gpu
+def test_conditional_build_defaults_to_the_card(cuda_device, edge_64):
+    """pipeline.build on a conditional config with no device builds on
+    the card: the flow's operators, its state at the test split and the
+    identification series, all finite."""
+    _, sys_ = edge_64
+    for t in (sys_.edge_model.A, sys_.edge_model.Bc,
+              sys_.edge_model.inner_idx, sys_.edge_state.phases,
+              sys_.coeff_series, sys_.loop.influence):
+        assert t.is_cuda
+    assert torch.isfinite(sys_.coeff_series).all()
+    assert torch.isfinite(sys_.edge_state.phases).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_scenario", [False, True])
+def test_conditional_loop_on_card_matches_cpu(cuda_device, edge_64,
+                                              per_scenario):
+    """The conditional-flow loop at B=4, 10 steps, with injected noise and
+    injected border normals, on the card (B1 twice a step: the measure
+    and one Gauss-Newton pass) and on the CPU
+    (plain versions, the same operators and state): one shared flow, and
+    one flow per scenario from the same state; residual RMS rtol 0.01 /
+    atol 5e-3, u atol 0.02 max|u|."""
+    cfg, sys_ = edge_64
+    n_steps, B = 10, 4
+    model = sys_.edge_model
+    rng = np.random.default_rng(5)
+    noise = torch.as_tensor((float(sys_.est.noise_std) * rng.standard_normal(
+        (B, n_steps, sys_.est.n_pixels))).astype(np.float32))
+    lead = (B,) if per_scenario else ()
+    eps = torch.as_tensor(rng.standard_normal(
+        (*lead, n_steps, model.k_max + 1, model.n_layers, model.n_border)
+    ).astype(np.float32))
+    b1 = psf_kernels.psf_crop_diversity_sym3
+    before = b1.launches
+    start = cfg.sim.n_train + cfg.sim.n_valid
+    kw = dict(n_steps=n_steps, mag=torch.linspace(1.0, 1.8, B))
+    if per_scenario:
+        kw["start_step"] = torch.full((B,), float(start))
+    else:
+        kw["start_step"] = start
+    got = closed_loop.simulate(sys_.loop, None, cfg, None,
+                               noise_seq=noise.to(cuda_device),
+                               edge_model=model, edge_state=sys_.edge_state,
+                               edge_eps=eps.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert b1.launches - before == n_steps * (
+        1 + cfg.estimator.gauss_newton_iters)
+    want = closed_loop.simulate(
+        tree.cast(sys_.loop, device="cpu"), None, cfg, None,
+        noise_seq=noise, edge_model=tree.cast(model, device="cpu"),
+        edge_state=tree.cast(sys_.edge_state, device="cpu"), edge_eps=eps,
+        **{k: v.cpu() if isinstance(v, torch.Tensor) else v
+           for k, v in kw.items()})
+    for field in got:
+        assert torch.isfinite(field).all()
+    torch.testing.assert_close(got.rms_res.cpu(), want.rms_res, rtol=0.01,
+                               atol=5e-3)
+    torch.testing.assert_close(got.u.cpu(), want.u, rtol=0,
+                               atol=0.02 * float(want.u.abs().max()))
+
+
+@pytest.mark.gpu
+def test_bf16_border_draw_on_card_matches_cpu(cuda_device):
+    """edge_op_dtype="bfloat16" at R=128: the card's border draw (a bf16
+    product with float32 output) vs the CPU's (the float32 upcast of the
+    same bf16 values) on the same phases and normals, one state per
+    scenario (B=3): within 1e-5 of the draw's scale (float32
+    accumulation order only)."""
+    cfg = reference_config(resolution=128)
+    tel = dataclasses.replace(cfg.telescope, resolution=128)
+    model, _ = edge_flow.build(0, cfg.atmosphere, tel, op_dtype="bfloat16",
+                               device=cuda_device)
+    states = edge_flow.batch_states(1, cfg.atmosphere, tel, 3,
+                                    device=cuda_device)
+    eps = torch.randn((3, model.n_layers, model.n_border),
+                      generator=torch.Generator().manual_seed(0))
+    got = edge_flow._draw_borders(model, states.phases, eps.to(cuda_device))
+    want = edge_flow._draw_borders(tree.cast(model, device="cpu"),
+                                   states.phases.cpu(), eps)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))

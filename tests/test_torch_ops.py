@@ -37,13 +37,18 @@ from mpc_sensorlessao_tpu_torch import reference_config
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
 from mpc_sensorlessao_tpu_torch.models import closed_loop, dm, estimator
 from mpc_sensorlessao_tpu_torch.models import mpc, pipeline, solvers, var
-from mpc_sensorlessao_tpu_torch.ops import dft, newton_kkt, phase_screens
+from mpc_sensorlessao_tpu_torch.ops import dft, edge_flow, newton_kkt
+from mpc_sensorlessao_tpu_torch.ops import phase_screens
 from mpc_sensorlessao_tpu_torch.ops import psf, psf_kernels, zernike
 from mpc_sensorlessao_tpu_torch.parallel import montecarlo
 from mpc_sensorlessao_tpu_torch.utils import metrics, tree
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# the suite runs one test file per worker process, several at once: one
+# intra-op thread each keeps torch's thread pools from oversubscribing the
+# cores (which slows small eager ops many times over)
+torch.set_num_threads(1)
 
 
 def t32(a):
@@ -784,7 +789,8 @@ def test_kernel_variants_agree_on_cpu():
 
 @pytest.mark.parametrize("builder", [
     "pipeline", "make_scenarios", "estimator", "dm", "make_layers",
-    "make_basis", "centered_partial_dft", "pupil_mask"])
+    "make_basis", "centered_partial_dft", "pupil_mask",
+    "pipeline_conditional", "edge_flow", "batch_states"])
 def test_builders_default_to_the_card(builder):
     """Every builder runs on the card unless the caller passes "cpu":
     without a CUDA device, a call that names no device raises."""
@@ -804,6 +810,12 @@ def test_builders_default_to_the_card(builder):
         "make_basis": lambda: zernike.make_basis(6, 32),
         "centered_partial_dft": lambda: dft.centered_partial_dft(32, 7),
         "pupil_mask": lambda: psf.pupil_mask(32),
+        "pipeline_conditional": lambda: pipeline.build(cfg.replace(
+            atmosphere=dataclasses.replace(cfg.atmosphere,
+                                           flow="conditional"))),
+        "edge_flow": lambda: edge_flow.build(3, cfg.atmosphere, tel),
+        "batch_states": lambda: edge_flow.batch_states(3, cfg.atmosphere,
+                                                       tel, 2),
     }
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
         calls[builder]()
@@ -1131,14 +1143,16 @@ def test_line_search_picks_first_accepted_candidate():
 
 # ------------------------------------------------- branches not ported yet
 
-@pytest.mark.parametrize("branch", ["conditional"])
+@pytest.mark.parametrize("branch", ["bezier_monotonic"])
 def test_unported_branches_raise(branch):
     """Each configuration branch the port does not have yet raises
     NotImplementedError naming its ROADMAP item -- never a quiet
-    substitute."""
+    substitute: the Bezier DM influence profiles (ROADMAP A.12; the
+    conditional flow, this test's former case, is ported and held in
+    tests/test_torch_edge_flow.py)."""
     cfg = reference_config(resolution=32)
     rep = dataclasses.replace
-    cfg = cfg.replace(atmosphere=rep(cfg.atmosphere, flow=branch))
+    cfg = cfg.replace(dm=rep(cfg.dm, influence=branch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         pipeline.build(cfg, "cpu")
 

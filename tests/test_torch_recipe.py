@@ -38,6 +38,10 @@ from mpc_sensorlessao_tpu_torch.parallel import montecarlo
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# the suite runs one test file per worker process, several at once: one
+# intra-op thread each keeps torch's thread pools from oversubscribing the
+# cores (which slows small eager ops many times over)
+torch.set_num_threads(1)
 
 START = 350.0       # n_train + n_valid: the test window
 D_OVER_R0 = 10.0

@@ -27,6 +27,10 @@ from mpc_sensorlessao_tpu_torch.ops import block_tridiag as bt
 from mpc_sensorlessao_tpu_torch.ops import newton_kkt
 
 torch.backends.cuda.matmul.allow_tf32 = False
+# the suite runs one test file per worker process, several at once: one
+# intra-op thread each keeps torch's thread pools from oversubscribing the
+# cores (which slows small eager ops many times over)
+torch.set_num_threads(1)
 
 SCENARIOS = 4
 
