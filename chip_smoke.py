@@ -133,11 +133,32 @@ package):
    whole advance; a 50-step window traced (B1's, the GEMM/GEMV kernels'
    and the copy kernels' shares of busy); the B=4 card-vs-CPU check
    with injected border normals.
-12. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+12. parallel: the scenario-sharded runner (ROADMAP A.10) through B1 on
+   the slice phase's build and batch (R=128, B=4096, 25 steps, verified
+   shared window): (a) a world of one rank under NCCL on cuda:0 --
+   run_sharded's statistics within rtol 1e-4 of run_batch's reduction
+   of the same batch (tests/test_parallel.py:63-68), a scenario with a
+   NaN magnification counted in n_diverged and kept out of the means,
+   dryrun_multichip(1); (b) two spawned ranks sharing cuda:0 over gloo,
+   each restoring the build from a checkpoint, run_sharded over the same
+   4096 scenarios (2048 a rank) within rtol 1e-4 of (a)'s one-process
+   statistics.  B1 launches exactly 25 times in (a) and in each rank;
+   warm ms a step of (a) and (b).
+13. population: the port's benchmarks/montecarlo_100k.py at R=128, all
+   16 cells (D/r0 5/10/15/20 x SNR 5/10/20/40), 800 reps a cell in
+   chunks of 400 (B=1600), 100 steps: 12,800 scenarios through B1
+   (exactly 100 x (1 + gauss_newton_iters) launches a chunk: 200), each
+   cell's mean / p10 settled exact
+   Strehl and diverged count beside MONTECARLO_r04.json's (0 diverged,
+   mean within 0.003), build seconds a D/r0, loop seconds, solves/s;
+   then the D/r0=5 part stopped after one chunk (MC1_STOP_AFTER=1) and
+   resumed from its checkpoint: summaries bit-identical to the
+   uninterrupted run's.
+14. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
    power limit; each kernel must launch >= k1 + k2 times, and no rate may
    exceed 105% of its published peak.
-13. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+15. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
@@ -145,13 +166,15 @@ package):
    the bf16 variants against their bound at the measured ceilings (none
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
-14. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+16. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
    psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
    (bound_ms and bound_by from measure_bound at the published peaks,
    fp32_bound_ms beside them, null for the bf16 entries; B1's launches
    in the strong and tracking runs as launches_strong and
    launches_tracking, in the solvers phase's runs as "launches_solvers
-   <run>", in the edge phase's as "launches_edge <run>")
+   <run>", in the edge phase's as "launches_edge <run>", in the parallel
+   and population phases' as "launches_parallel <run>" and
+   "launches_population <run>")
    -- then the last line {"ok": true, "device": {...}}.
 """
 
@@ -159,25 +182,33 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import os
 import re
+import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 
 from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants, roofline
+from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
+from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
 from mpc_sensorlessao_tpu_torch.models import pipeline, solvers
 from mpc_sensorlessao_tpu_torch.ops import block_tridiag, cuda_build, dft
 from mpc_sensorlessao_tpu_torch.ops import edge_flow, newton_kkt, psf
 from mpc_sensorlessao_tpu_torch.ops import psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
-from mpc_sensorlessao_tpu_torch.parallel import montecarlo
+from mpc_sensorlessao_tpu_torch.parallel import dryrun, montecarlo
+from mpc_sensorlessao_tpu_torch.parallel import mesh as mesh_lib
+from mpc_sensorlessao_tpu_torch.parallel import multihost
 from mpc_sensorlessao_tpu_torch.utils import profiling, tree
 from mpc_sensorlessao_tpu_torch.utils.config import mag_conv
 
@@ -335,6 +366,24 @@ EDGE_TRACE_SHARES = {
         r"gemm|gemv|Gemm|Gemv|xmma|cutlass",
     "copy, cat and index kernels": r"[Cc]opy|[Cc]at|[Ii]ndex|gather|scatter",
 }
+
+# the parallel phase (ROADMAP A.10): the sharded runner's statistics held
+# to run_batch's over the same scenarios (tests/test_parallel.py:63-68)
+PARALLEL_RTOL = 1e-4
+PARALLEL_RANKS = 2          # gloo ranks sharing cuda:0
+PARALLEL_TIMED = 2          # warm runs timed after the counted one
+PARALLEL_DIR = Path(__file__).resolve().parent / "build" / "parallel"
+# the population phase: the port's benchmarks/montecarlo_100k.py at
+# R=128, all 16 cells of MONTECARLO_r04.json, cut to 800 reps a cell in
+# chunks of 400 (B=1600 a chunk); each cell's settled mean exact Strehl
+# within 0.003 of that file's, 0 diverged; the D/r0=5 part stopped after
+# one chunk and resumed, bit-identical to the uninterrupted run
+POPULATION_R = 128
+POPULATION_ENV = {"MC1_DEVICE": "cuda", "MC1_DR0": "5,10,15,20",
+                  "MC1_SNR": "5,10,20,40", "MC1_REPS": "800",
+                  "MC1_CHUNK": "400", "MC1_STEPS": "100"}
+POPULATION_REF = Path(__file__).resolve().parent / "MONTECARLO_r04.json"
+POPULATION_TOL = 0.003
 
 
 def fail(msg: str):
@@ -1654,6 +1703,193 @@ def trace_window(label: str, run, card: str, name: str) -> float:
     return time.perf_counter() - t0
 
 
+def parallel_phase(system, cfg, dev, card) -> dict:
+    """ROADMAP A.10 on the card, through B1: (a) a world of one rank under
+    NCCL on cuda:0 -- run_sharded over the slice batch (B=4096, 25 steps,
+    verified shared window) held to run_batch's reduction of the same
+    batch within PARALLEL_RTOL, a scenario with a NaN magnification
+    counted in n_diverged and kept out of the means, dryrun_multichip(1);
+    (b) PARALLEL_RANKS spawned ranks sharing cuda:0 over gloo (NCCL
+    refuses two ranks on one card), each restoring the slice system from
+    a checkpoint, run_sharded over the same 4096 scenarios (2048 a rank),
+    held to (a)'s one-process statistics.  Any failed init, dead rank or
+    timed-out collective fails the smoke.  Returns B1's launches per
+    run."""
+    t_phase = time.time()
+    b1 = K.psf_crop_diversity_sym3
+    launches = {}
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
+                                     BATCH, device=dev)
+    with tempfile.TemporaryDirectory(prefix="smoke_world_") as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            world_size=1, rank=0, timeout=multihost.TIMEOUT)
+        try:
+            mesh = mesh_lib.scenario_mesh(device_type="cuda")
+            runner = montecarlo.make_sharded_runner(
+                system.loop, system.layers, cfg, STEPS, mesh,
+                shared_window=True)
+            reset_launches()
+            stats = runner(scen).as_floats()
+            launches["nccl"] = b1.launches
+            if b1.launches != STEPS:
+                fail(f"parallel (a): B1 launched {b1.launches} times in "
+                     f"{STEPS} steps")
+            warm = []
+            for _ in range(PARALLEL_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(runner(scen).mean_rms_res)
+                warm.append(time.perf_counter() - t0)
+            out = montecarlo.run_batch(system.loop, system.layers, cfg,
+                                       scen, STEPS, shared_window="verified")
+            one = montecarlo.reduce_stats(out, STEPS).as_floats()
+            try:
+                delta = multiprocess.max_rel_delta(stats, one)
+            except AssertionError as e:
+                fail(f"parallel (a): NCCL world of 1 vs run_batch: {e}")
+            print(f"parallel (a): NCCL world of 1 on cuda:0, B={BATCH}, "
+                  f"{STEPS} steps: settled exact Strehl "
+                  f"{stats['mean_strehl_exact']:.5f}, residual "
+                  f"{stats['mean_rms_res']:.5f} rad, "
+                  f"{stats['n_scenarios']:.0f} kept, "
+                  f"{stats['n_diverged']:.0f} diverged; max relative "
+                  f"delta to run_batch {delta:.3g} (limit {PARALLEL_RTOL}); "
+                  f"B1 launches {launches['nccl']}; warm "
+                  f"{1e3 * min(warm) / STEPS:.3f} ms a step (runs "
+                  f"{[round(w, 4) for w in warm]} s) [{card}]")
+            mag = scen.mag.clone()
+            mag[0] = float("nan")
+            bad = runner(scen._replace(mag=mag)).as_floats()
+            if not (bad["n_diverged"] >= 1
+                    and bad["n_scenarios"] + bad["n_diverged"] == BATCH
+                    and np.isfinite(bad["mean_rms_res"])
+                    and bad["mean_rms_res"] < 10.0):
+                fail(f"parallel (a): the poisoned scenario was not "
+                     f"contained: {bad}")
+            print(f"parallel (a): poisoned scenario contained: "
+                  f"{bad['n_diverged']:.0f} diverged, "
+                  f"{bad['n_scenarios']:.0f} kept, residual "
+                  f"{bad['mean_rms_res']:.5f} rad")
+        finally:
+            dist.destroy_process_group()
+    t0 = time.time()
+    dry = dryrun.dryrun_multichip(1, device="cuda:0")[0]
+    print(f"parallel (a): dryrun_multichip(1) under NCCL in "
+          f"{time.time() - t0:.2f} s: DP {dry['dp']['n_scenarios']:.0f} "
+          f"scenarios, conditional "
+          f"{dry['dp_conditional']['n_scenarios']:.0f}, ramp "
+          f"{dry['dp_ramp']['n_scenarios']:.0f}, cyclic reduction "
+          f"{dry['dp_cyclic_reduction']['n_scenarios']:.0f}, TP max error "
+          f"{dry['tp_max_abs_err']:.3g}, horizon residual "
+          f"{dry['hz_max_residual']:.3g}")
+
+    # (b) two ranks sharing the card over gloo, from a checkpoint
+    system_dir = str(PARALLEL_DIR / "slice_system")
+    multiprocess.save_system(system_dir, system, cfg)
+    job = {"system_dir": system_dir, "n_scenarios": BATCH,
+           "n_steps": STEPS, "d_grid": (5.0,), "snr_grid": (10.0,),
+           "seed": 1, "timed": PARALLEL_TIMED}
+    t0 = time.time()
+    ranks = multihost.spawn(multiprocess.sharded_stats, PARALLEL_RANKS,
+                            backend="gloo", device="cuda:0", args=(job,),
+                            timeout=600.0)
+    spawn_s = time.time() - t0
+    launches["gloo_2_ranks"] = sum(r["launches"] for r in ranks)
+    for rank, r in enumerate(ranks):
+        try:
+            delta = multiprocess.max_rel_delta(r["stats"], one)
+        except AssertionError as e:
+            fail(f"parallel (b): rank {rank} vs the one-process run: {e}")
+        if r["launches"] != STEPS:
+            fail(f"parallel (b): rank {rank} launched B1 {r['launches']} "
+                 f"times in {STEPS} steps")
+        print(f"parallel (b): rank {rank} of {PARALLEL_RANKS} (gloo, "
+              f"cuda:0, {BATCH // PARALLEL_RANKS} of {BATCH} scenarios): "
+              f"settled exact Strehl {r['stats']['mean_strehl_exact']:.5f}; "
+              f"max relative delta to (a)'s one-process run {delta:.3g} "
+              f"(limit {PARALLEL_RTOL}); B1 launches {r['launches']}; warm "
+              f"{1e3 * min(r['warm_s']) / STEPS:.3f} ms a step (runs "
+              f"{[round(w, 4) for w in r['warm_s']]} s) [{card}]")
+    print(f"parallel (b): spawn to results {spawn_s:.2f} s; parallel phase "
+          f"{time.time() - t_phase:.2f} s")
+    return launches
+
+
+def population_phase(card) -> dict:
+    """The port's benchmarks/montecarlo_100k.py on the card, cut to
+    POPULATION_ENV (12,800 scenarios x 100 steps at R=128, through B1):
+    each cell's mean / p10 settled exact Strehl and diverged count beside
+    MONTECARLO_r04.json's (held: 0 diverged, mean within POPULATION_TOL);
+    then the D/r0=5 part stopped after one chunk (MC1_STOP_AFTER=1) and
+    resumed from its checkpoint, its summaries bit-identical to the
+    uninterrupted run's.  Returns B1's launches per run."""
+    t_phase = time.time()
+    b1 = K.psf_crop_diversity_sym3
+    ref = json.loads(POPULATION_REF.read_text())["cells"]
+    ckpt = PARALLEL_DIR / "population"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    launches = {}
+    reset_launches()
+    full = montecarlo_100k.main(
+        [str(POPULATION_R)], dict(POPULATION_ENV, MC1_CKPT=str(ckpt / "full")))
+    launches["full"] = b1.launches
+    n_chunks = int(POPULATION_ENV["MC1_REPS"]) // int(
+        POPULATION_ENV["MC1_CHUNK"])
+    steps = int(POPULATION_ENV["MC1_STEPS"])
+    # B1 measures once a step and once more a Gauss-Newton pass
+    per_step = 1 + montecarlo_100k.tuned_cfg(
+        POPULATION_R, 5.0, steps).estimator.gauss_newton_iters
+    want = (n_chunks * len(POPULATION_ENV["MC1_DR0"].split(",")) * steps
+            * per_step)
+    if b1.launches != want:
+        fail(f"population: B1 launched {b1.launches} times, not {want}")
+    for d, v in full["per_d"].items():
+        print(f"population {d}: build {v['build_s']:.2f} s, loop "
+              f"{v['loop_s']:.2f} s, {v['solves_per_s']:.1f} solves/s "
+              f"[{card}]")
+    print(f"population: {full['n_scenarios']} scenarios x "
+          f"{full['n_steps']} steps at R={POPULATION_R}: loop "
+          f"{full['total_loop_s']:.2f} s, wall {full['total_wall_s']:.2f} s, "
+          f"{full['aggregate_solves_per_s']:.1f} solves/s; B1 launches "
+          f"{b1.launches} [{card}]")
+    for name, cell in full["cells"].items():
+        r = ref[name]
+        print(f"population {name}: mean {cell.get('mean_strehl')} p10 "
+              f"{cell.get('p10_strehl')} diverged {cell['n_diverged']} of "
+              f"{cell['n']} (MONTECARLO_r04.json: mean {r['mean_strehl']} "
+              f"p10 {r['p10_strehl']} diverged {r['n_diverged']} of "
+              f"{r['n']})")
+        if cell["n_diverged"] or abs(cell["mean_strehl"]
+                                     - r["mean_strehl"]) > POPULATION_TOL:
+            fail(f"population {name}: {cell} against MONTECARLO_r04.json "
+                 f"{r} (0 diverged, mean within {POPULATION_TOL})")
+    # kill and resume the D/r0=5 part
+    env5 = dict(POPULATION_ENV, MC1_DR0="5", MC1_CKPT=str(ckpt / "resume"))
+    reset_launches()
+    t0 = time.time()
+    try:
+        montecarlo_100k.main([str(POPULATION_R)],
+                             dict(env5, MC1_STOP_AFTER="1"))
+        fail("population: MC1_STOP_AFTER=1 did not stop the run")
+    except SystemExit as e:
+        if e.code != montecarlo_100k.STOPPED:
+            raise
+    resumed = montecarlo_100k.main([str(POPULATION_R), "--resume"], env5)
+    launches["resume"] = b1.launches
+    if not np.array_equal(resumed["summaries"][0], full["summaries"][0]):
+        diff = np.abs(resumed["summaries"][0] - full["summaries"][0])
+        fail(f"population: the resumed D/r0=5 summaries differ from the "
+             f"uninterrupted run's (max {np.nanmax(diff):.3g}, "
+             f"{int((diff != 0).sum())} entries)")
+    print(f"population: D/r0=5 stopped after 1 chunk and resumed at cursor "
+          f"{resumed['resumed_at_cursor']}: summaries bit-identical to the "
+          f"uninterrupted run's; B1 launches {b1.launches} in "
+          f"{time.time() - t0:.2f} s; population phase "
+          f"{time.time() - t_phase:.2f} s")
+    return launches
+
+
 def modes_cfg():
     """MODES_r04.json's order-10 N=32 configuration
     (benchmarks/modes_horizon.py:98-160): reference_config(128), radial
@@ -1708,6 +1944,8 @@ def main() -> None:
     strong_launches = strong_phase(dev, card)
     solver_launches = solvers_phase(system, cfg, fixed, dev, card)
     edge_launches = edge_phase(dev, card)
+    parallel_launches = parallel_phase(system, cfg, dev, card)
+    population_launches = population_phase(card)
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []
@@ -1720,6 +1958,10 @@ def main() -> None:
                           for k, v in solver_launches.items()})
             paths.update({f"launches_edge {k}": v
                           for k, v in edge_launches.items()})
+            paths.update({f"launches_parallel {k}": v
+                          for k, v in parallel_launches.items()})
+            paths.update({f"launches_population {k}": v
+                          for k, v in population_launches.items()})
         else:
             paths = {}
         kernels.append({**paths,

@@ -159,7 +159,8 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
              edge_model: edge_flow.EdgeFlowModel | None = None,
              edge_state: edge_flow.EdgeFlowState | None = None,
              turb_generator: torch.Generator | None = None,
-             edge_eps: torch.Tensor | None = None) -> StepOutputs:
+             edge_eps: torch.Tensor | None = None,
+             rows: slice | None = None) -> StepOutputs:
     """Run the closed loop for n_steps from absolute turbulence step
     ``start_step`` over a batch of scenarios.
 
@@ -194,6 +195,13 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     (*batch, T, K_max+1, L, nX) per scenario; the injected normals of
     the parity tests -- else drawn from ``turb_generator`` (default
     ``generator``).
+
+    ``rows`` (a slice of a 1-D batch) runs only those scenarios of the
+    batch, with the outputs (len(rows), T, ...): every random draw --
+    the measurement noise, per-scenario border noise -- is still made
+    for the whole batch and its rows kept, so a scenario's trajectory
+    does not depend on which rows run beside it (the scenario-sharded
+    runner, parallel/montecarlo.make_sharded_runner).
     """
     solver = solver or cfg.mpc.solver
     check_solver(solver)
@@ -237,22 +245,31 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
         else edge_state.phases.shape[:1],
         () if edge_eps is None else edge_eps.shape[:-4])
     B = math.prod(batch)
-    mag_b = mag.expand(batch).reshape(B)
-    scale_b = noise_scale.expand(batch).reshape(B, 1)
+    if rows is not None and len(batch) != 1:
+        raise ValueError(f"rows needs a 1-D batch, got {batch}")
+    # every draw is the whole batch's (B_all rows); ``keep`` takes the
+    # rows that run
+    B_all = B
+    keep = slice(None) if rows is None else rows
+    B = len(range(B_all)[keep])
+    mag_b = mag.expand(batch).reshape(B_all)[keep]
+    scale_b = noise_scale.expand(batch).reshape(B_all, 1)[keep]
     if not shared:
-        start = start.expand(batch).reshape(B)
+        start = start.expand(batch).reshape(B_all)
     if noise_seq is not None:
         noise_seq = f32(noise_seq)
     if edge:
         phases = edge_state.phases
+        edge_rows = None
         if (not shared or phases.dim() == 4
                 or (edge_eps is not None and edge_eps.dim() > 4)):
             # each scenario its own flow: per-scenario start steps, a
             # batched state or per-scenario border noise
-            phases = phases.expand(B, *phases.shape[-3:])
+            phases = phases.expand(B_all, *phases.shape[-3:])[keep]
             turb_start = np.broadcast_to(
                 np.asarray(start.cpu(), np.float32) if not shared
-                else start, (B,))
+                else start, (B_all,))
+            edge_rows = rows
         else:
             turb_start = start
         eflow = edge_flow.EdgeFlowState(phases=phases)
@@ -261,7 +278,9 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
             if edge_eps.dim() > 4:
                 edge_eps = edge_eps.expand(
                     *batch, *edge_eps.shape[-4:]).reshape(
-                        B, *edge_eps.shape[-4:])
+                        B_all, *edge_eps.shape[-4:])[keep]
+    if not shared:
+        start = start[keep]
 
     stack = models.state_stack.reshape(nx, R * R)
     w2 = (2 * est.crop_half + 1) ** 2
@@ -270,7 +289,7 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     u2 = torch.zeros((B, nu), dtype=torch.float32, device=dev)
     u3 = torch.zeros_like(u2)
     u1 = (u2 if init_u is None
-          else init_u.expand(*batch, nu).reshape(B, nu).clone())
+          else init_u.expand(*batch, nu).reshape(B_all, nu)[keep].clone())
     x_pre = torch.zeros((B, nx), dtype=torch.float32, device=dev)
     x_pre2 = torch.zeros_like(x_pre)
     ad_cor = u1 @ models.influence.T
@@ -288,14 +307,15 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
                        device=dev)
     dU_base_max = torch.full_like(U_max, cfg.mpc.du_max)
     warmup = cfg.mpc.var_order    # steps 0..var_order have no history
-    rows = []
+    steps = []
     for idx in range(n_steps):
         # -- turbulence + correction (README.md:447-453) --
         if edge:
             eflow, raw = edge_flow.advance(
                 edge_model, eflow, turb_start + np.float32(idx),
                 turb_generator,
-                None if edge_eps is None else edge_eps[..., idx, :, :, :])
+                None if edge_eps is None else edge_eps[..., idx, :, :, :],
+                rows=edge_rows)
         elif shared:
             raw = phase_screens.phase_at(layers, start + np.float32(idx), R)
         else:
@@ -310,10 +330,10 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
         # -- estimator (README.md:457-480) --
         if noise_seq is not None:
             noise = noise_seq[..., idx, :].expand(*batch, est.n_pixels)
-            noise = scale_b * noise.reshape(B, est.n_pixels)
+            noise = scale_b * noise.reshape(B_all, est.n_pixels)[keep]
         else:
-            noise = scale_b * estimator_model.sample_noise(est, generator,
-                                                           (B,))
+            noise = scale_b * estimator_model.sample_noise(
+                est, generator, (B_all,))[keep]
         y_clean = estimator_model.measure(est, phase_res)
         y = y_clean + noise
         gn = cfg.estimator.gauss_newton_iters
@@ -387,7 +407,7 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
         # exact Strehl from the zd=0 crop (the middle w^2 block of y_clean;
         # diversity order is (-a, 0, +a))
         strehl_exact = y_clean[:, w2:2 * w2].amax(dim=-1) / peak_dl
-        rows.append(StepOutputs(
+        steps.append(StepOutputs(
             u=u, du=u - u1, volts=volts, x_est=x0,
             x_est_norm=torch.linalg.vector_norm(x0, dim=-1),
             x_pred_norm=torch.linalg.vector_norm(x_pred[:, :nx], dim=-1),
@@ -397,10 +417,11 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
         x_pre, x_pre2 = x0, x_pre
         ad_cor = u @ models.influence.T
 
+    out_batch = batch if rows is None else (B,)
     return StepOutputs(*(
-        torch.stack(col, dim=1).reshape(*batch, n_steps,
+        torch.stack(col, dim=1).reshape(*out_batch, n_steps,
                                         *col[0].shape[1:])
-        for col in zip(*rows)))
+        for col in zip(*steps)))
 
 
 ROLLOUT_CHUNK = 32      # steps per batched window gather

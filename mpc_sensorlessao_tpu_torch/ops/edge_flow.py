@@ -123,7 +123,8 @@ def _covariance_matrix(p1: np.ndarray, p2: np.ndarray,
 
 
 def extension_operators(atm_layer: AtmosphereConfig, n: int, pitch: float,
-                        n_inner: int = 2, device="cpu"):
+                        n_inner: int = 2,
+                        device: torch.device | str = "cuda"):
     """A, B_chol for one layer (telescopeAbstract.m:863-884), host
     float64; the covariance blocks are evaluated on ``device``.
 
@@ -332,7 +333,7 @@ def _sample(frame: torch.Tensor, n: int, fy: np.ndarray,
 
 def advance(model: EdgeFlowModel, state: EdgeFlowState, idx,
             generator: torch.Generator | None = None,
-            eps: torch.Tensor | None = None):
+            eps: torch.Tensor | None = None, rows: slice | None = None):
     """One control step of every layer; returns (state', pupil phase).
 
     ``idx`` is the absolute step index: a host number, or a (B,) array
@@ -348,6 +349,12 @@ def advance(model: EdgeFlowModel, state: EdgeFlowState, idx,
     the injected normals of the parity tests -- else drawn round by round
     from ``generator`` (on the state's device), (L, nX) a round for an
     (L, n, n) state and (B, L, nX) for a batched one.
+
+    ``rows`` (a slice) says that the batched state holds those rows of a
+    batch whose (B,) step indices ``idx`` are: the schedule and the
+    drawn border noise are the whole batch's, and the rows kept, so a
+    scenario's flow does not depend on the rows advanced beside it
+    (closed_loop.simulate(rows=...)); ``eps`` is then the rows' own.
     """
     if eps is None and generator is None:
         raise ValueError("advance needs a generator or eps")
@@ -356,7 +363,9 @@ def advance(model: EdgeFlowModel, state: EdgeFlowState, idx,
     phases = state.phases[None] if shared else state.phases   # (S, L, n, n)
     S, L = phases.shape[:2]
     idx = np.atleast_1d(np.asarray(idx, np.float32))
-    if idx.size not in (1, S):
+    S_all = S if rows is None else idx.size
+    keep = slice(None) if rows is None else rows
+    if idx.size not in (1, S_all) or len(range(S_all)[keep]) != S:
         raise ValueError(f"{idx.size} step indices for {S} screen sets")
     sched = schedule(model, idx)
     K = model.k_max
@@ -367,12 +376,15 @@ def advance(model: EdgeFlowModel, state: EdgeFlowState, idx,
     def noise(s):
         if eps is not None:
             return eps[:, s]
-        return torch.randn((S, L, model.n_border), generator=generator,
-                           device=phases.device, dtype=phases.dtype)
+        return torch.randn((S_all, L, model.n_border), generator=generator,
+                           device=phases.device, dtype=phases.dtype)[keep]
 
     # rounds past every layer's shift count never touch the state
     rounds = max((int(np.abs(k).max()) for ky, kx, *_ in sched
                   for k in (ky, kx)), default=0)
+    if rows is not None:
+        sched = [(ky[rows], kx[rows], sgn, fy[rows], fx[rows])
+                 for ky, kx, sgn, fy, fx in sched]
     for s in range(rounds):
         frames = _embed(model, phases, _draw_borders(model, phases,
                                                      noise(s)))

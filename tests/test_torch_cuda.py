@@ -777,3 +777,96 @@ def test_bf16_border_draw_on_card_matches_cpu(cuda_device):
     assert got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
+
+
+def _parallel_system(dev):
+    cfg = reference_config(resolution=64)
+    cfg = cfg.replace(sim=dataclasses.replace(cfg.sim, n_train=300,
+                                              n_valid=50, n_test=10))
+    return cfg, pipeline.build(cfg, dev)
+
+
+@pytest.mark.gpu
+def test_sharded_stats_under_nccl_match_run_batch(cuda_device, tmp_path):
+    """A world of one rank under NCCL on the card: run_sharded over 64
+    shared-window scenarios, 10 steps, equals run_batch's reduction of
+    the same batch within rtol 1e-4 (tests/test_parallel.py), and a NaN
+    magnification is counted in n_diverged and kept out of the means."""
+    import torch.distributed as dist
+
+    from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
+    from mpc_sensorlessao_tpu_torch.parallel import mesh, montecarlo
+    from mpc_sensorlessao_tpu_torch.parallel import multihost
+
+    cfg, system = _parallel_system(cuda_device)
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
+                                     64, d_over_r0_grid=(5.0, 10.0),
+                                     snr_db_grid=(5.0, 10.0),
+                                     device=cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=multihost.TIMEOUT)
+    try:
+        runner = montecarlo.make_sharded_runner(
+            system.loop, system.layers, cfg, 10,
+            mesh.scenario_mesh(device_type="cuda"), shared_window=True)
+        stats = runner(scen).as_floats()
+        mag = scen.mag.clone()
+        mag[3] = float("nan")
+        bad = runner(scen._replace(mag=mag)).as_floats()
+    finally:
+        dist.destroy_process_group()
+    one = montecarlo.reduce_stats(montecarlo.run_batch(
+        system.loop, system.layers, cfg, scen, 10, shared_window=True), 10)
+    assert multiprocess.max_rel_delta(stats, one.as_floats()) <= 1e-4
+    assert stats["n_scenarios"] == 64
+    assert bad["n_diverged"] >= 1
+    assert bad["n_scenarios"] + bad["n_diverged"] == 64
+    assert np.isfinite(bad["mean_rms_res"]) and bad["mean_rms_res"] < 10.0
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_one_card_match_one_process(cuda_device,
+                                                      tmp_path):
+    """Two spawned ranks sharing cuda:0 over gloo (NCCL refuses two ranks
+    on one device), each restoring the system from a checkpoint: their
+    run_sharded statistics over 64 scenarios equal rank 0's one-process
+    run_batch of the same scenarios within rtol 1e-4, and each rank ran
+    B1 once a step and once more a Gauss-Newton pass."""
+    from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
+    from mpc_sensorlessao_tpu_torch.parallel import multihost
+
+    cfg, system = _parallel_system(cuda_device)
+    psf_kernels.psf_crop_diversity_sym3(*_b1_args(64, 1, 15, cuda_device))
+    system_dir = str(tmp_path / "system")
+    multiprocess.save_system(system_dir, system, cfg)
+    job = {"system_dir": system_dir, "n_scenarios": 64, "n_steps": 10,
+           "d_grid": (5.0, 10.0), "snr_grid": (5.0, 10.0), "seed": 1,
+           "reference": True}
+    ranks = multihost.spawn(multiprocess.sharded_stats, 2, backend="gloo",
+                            device="cuda:0", args=(job,), timeout=600.0)
+    assert ranks[0]["max_rel_delta"] <= 1e-4
+    assert ranks[0]["stats"] == ranks[1]["stats"]
+    per_step = 1 + cfg.estimator.gauss_newton_iters
+    assert [r["launches"] for r in ranks] == [10 * per_step] * 2
+
+
+@pytest.mark.gpu
+def test_population_resumes_bit_identically_on_card(cuda_device, tmp_path):
+    """benchmarks/montecarlo_100k.py on the card at R=64 (2 SNRs x 8
+    reps, 2 chunks, 20 steps): stopped after one chunk and resumed, the
+    summaries are bit-identical to the uninterrupted run's."""
+    from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
+
+    env = {"MC1_DEVICE": "cuda", "MC1_DR0": "5", "MC1_SNR": "10,20",
+           "MC1_REPS": "8", "MC1_CHUNK": "4", "MC1_STEPS": "20"}
+    full = montecarlo_100k.main(["64"], dict(env,
+                                             MC1_CKPT=str(tmp_path / "a")))
+    env_b = dict(env, MC1_CKPT=str(tmp_path / "b"))
+    with pytest.raises(SystemExit) as stop:
+        montecarlo_100k.main(["64"], dict(env_b, MC1_STOP_AFTER="1"))
+    assert stop.value.code == montecarlo_100k.STOPPED
+    resumed = montecarlo_100k.main(["64", "--resume"], env_b)
+    assert resumed["resumed_at_cursor"] == 1
+    assert np.isfinite(full["summaries"]).all()
+    np.testing.assert_array_equal(resumed["summaries"], full["summaries"])

@@ -119,7 +119,7 @@ def test_extension_operators_match_jax():
     Cov(Z,Z), ~1e6 here, amplifies that), and the same ring order."""
     n, pitch = 16, 1 / 15
     A, Bc = edge_flow.extension_operators(config.AtmosphereConfig(**ATM1),
-                                          n, pitch)
+                                          n, pitch, device="cpu")
     jA, jBc = jedge.extension_operators(jconfig.AtmosphereConfig(**ATM1), n,
                                         pitch)
     for got, want in ((A, jA), (Bc, jBc)):
@@ -144,7 +144,7 @@ def test_extension_operators_consistent():
     JAX operators."""
     n, pitch = 16, 1 / 15
     atm = config.AtmosphereConfig(**ATM1)
-    A, Bc = edge_flow.extension_operators(atm, n, pitch)
+    A, Bc = edge_flow.extension_operators(atm, n, pitch, device="cpu")
     Zp, Xp = _frame_points(n, pitch)
     assert A.shape == (len(Xp), len(Zp))
     ZZt = phase_stats.covariance_matrix(Zp, Zp, atm)
@@ -163,7 +163,7 @@ def test_conditional_sampling_joint_covariance():
     tests/test_edge_flow.py)."""
     n, pitch = 12, 1 / 11
     atm = config.AtmosphereConfig(**ATM1)
-    A, Bc = edge_flow.extension_operators(atm, n, pitch)
+    A, Bc = edge_flow.extension_operators(atm, n, pitch, device="cpu")
     Zp, Xp = _frame_points(n, pitch)
     ZZt = phase_stats.covariance_matrix(Zp, Zp, atm)
     ZXt = phase_stats.covariance_matrix(Zp, Xp, atm)

@@ -35,12 +35,16 @@ from mpc_sensorlessao_tpu.utils import config as jconfig
 from mpc_sensorlessao_tpu.utils import metrics as jmetrics
 from mpc_sensorlessao_tpu_torch import reference_config
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
+from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
+from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
 from mpc_sensorlessao_tpu_torch.models import closed_loop, dm, estimator
 from mpc_sensorlessao_tpu_torch.models import mpc, pipeline, solvers, var
 from mpc_sensorlessao_tpu_torch.ops import dft, edge_flow, newton_kkt
 from mpc_sensorlessao_tpu_torch.ops import phase_screens
 from mpc_sensorlessao_tpu_torch.ops import psf, psf_kernels, zernike
-from mpc_sensorlessao_tpu_torch.parallel import montecarlo
+from mpc_sensorlessao_tpu_torch.parallel import dryrun, estimator_tp
+from mpc_sensorlessao_tpu_torch.parallel import horizon, mesh, montecarlo
+from mpc_sensorlessao_tpu_torch.parallel import multihost
 from mpc_sensorlessao_tpu_torch.utils import metrics, tree
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -790,8 +794,11 @@ def test_kernel_variants_agree_on_cpu():
 @pytest.mark.parametrize("builder", [
     "pipeline", "make_scenarios", "estimator", "dm", "make_layers",
     "make_basis", "centered_partial_dft", "pupil_mask",
-    "pipeline_conditional", "edge_flow", "batch_states"])
-def test_builders_default_to_the_card(builder):
+    "pipeline_conditional", "edge_flow", "batch_states",
+    "extension_operators", "scenario_mesh", "tp_mesh", "hz_mesh", "spawn",
+    "dryrun_multichip", "multihost_main", "montecarlo_100k",
+    "multiprocess"])
+def test_builders_default_to_the_card(builder, monkeypatch):
     """Every builder runs on the card unless the caller passes "cpu":
     without a CUDA device, a call that names no device raises."""
     if torch.cuda.is_available():
@@ -816,7 +823,20 @@ def test_builders_default_to_the_card(builder):
         "edge_flow": lambda: edge_flow.build(3, cfg.atmosphere, tel),
         "batch_states": lambda: edge_flow.batch_states(3, cfg.atmosphere,
                                                        tel, 2),
+        "extension_operators": lambda: edge_flow.extension_operators(
+            cfg.atmosphere.layer(0), 8, 1 / 7),
+        "scenario_mesh": lambda: mesh.scenario_mesh(),
+        "tp_mesh": lambda: estimator_tp.tp_mesh(),
+        "hz_mesh": lambda: horizon.hz_mesh(),
+        "spawn": lambda: multihost.spawn(dryrun.dryrun_rank, 2),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
+        "multihost_main": lambda: multihost.main([]),
+        "montecarlo_100k": lambda: montecarlo_100k.main(
+            ["32"], {"MC1_DR0": "5", "MC1_REPS": "2", "MC1_CHUNK": "2"}),
+        "multiprocess": lambda: multiprocess.main([]),
     }
+    for var in ("MC1_DEVICE", "MP_DEVICE"):
+        monkeypatch.delenv(var, raising=False)
     with pytest.raises((AssertionError, RuntimeError), match="CUDA|NVIDIA"):
         calls[builder]()
 
