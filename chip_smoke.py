@@ -154,11 +154,31 @@ package):
    then the D/r0=5 part stopped after one chunk (MC1_STOP_AFTER=1) and
    resumed from its checkpoint: summaries bit-identical to the
    uninterrupted run's.
-14. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+14. classical: the port's benchmarks/classical_vs_mpc.py (the JAX
+   script's comparison of the classical Shack-Hartmann + TSVD integrator
+   loop with the sensorless MPC loop on one frozen-flow window) at its
+   own size: R=128, D/r0 5 and 10, 500 steps, n_train/n_valid 1000/500,
+   the strong recipe at D/r0=10, SH with 8 lenslets (128 is not a
+   multiple of 10), gains 0.3/0.5/0.7, an ideal and a noise-matched
+   integrator row.  Held to CLASSICAL_r05.json: the MPC's settled exact
+   Strehl within 0.003 (0.9728 / 0.9527), the ideal integrator's best
+   gain 0.7 with its residual within 1% (0.1747 / 0.3013), the
+   noise-matched residual within 3% (0.1845 / 0.3388), both MPC
+   advantages > 1; B1 launches exactly 500 x (1 + gauss_newton_iters) a
+   row, none in the build.  Then the card against the CPU (TF32 off):
+   the integrator on a 50-step window with one injected slope-noise
+   tensor (c_acc, rms within rtol 1e-4), the SH geometric, diffractive
+   and camera slopes at R=128 and the pyramid's at R=64 with modulation
+   0 and 3 (1e-4 of their peak), and imaging.read_out's photon, QE and
+   readout noise on a cuda generator held to tests/test_imaging.py's
+   mean and variance.  Prints build s, MPC and integrator ms a step, SH
+   and pyramid ms a call at B=1; the report goes to
+   chiprun_out/classical_vs_mpc.json.
+15. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
    power limit; each kernel must launch >= k1 + k2 times, and no rate may
    exceed 105% of its published peak.
-15. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+16. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
@@ -166,7 +186,7 @@ package):
    the bf16 variants against their bound at the measured ceilings (none
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
-16. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+17. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
    psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
    (bound_ms and bound_by from measure_bound at the published peaks,
    fp32_bound_ms beside them, null for the bf16 entries; B1's launches
@@ -174,7 +194,8 @@ package):
    launches_tracking, in the solvers phase's runs as "launches_solvers
    <run>", in the edge phase's as "launches_edge <run>", in the parallel
    and population phases' as "launches_parallel <run>" and
-   "launches_population <run>")
+   "launches_population <run>", in the classical rows as
+   "launches_classical d=<D/r0>")
    -- then the last line {"ok": true, "device": {...}}.
 """
 
@@ -196,12 +217,14 @@ import torch.distributed as dist
 from torch.autograd import DeviceType
 
 from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
+from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants, roofline
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
 from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
-from mpc_sensorlessao_tpu_torch.models import pipeline, solvers
+from mpc_sensorlessao_tpu_torch.models import imaging, integrator, pipeline
+from mpc_sensorlessao_tpu_torch.models import pyramid, solvers, wfs
 from mpc_sensorlessao_tpu_torch.ops import block_tridiag, cuda_build, dft
 from mpc_sensorlessao_tpu_torch.ops import edge_flow, newton_kkt, psf
 from mpc_sensorlessao_tpu_torch.ops import psf_kernels
@@ -384,6 +407,22 @@ POPULATION_ENV = {"MC1_DEVICE": "cuda", "MC1_DR0": "5,10,15,20",
                   "MC1_CHUNK": "400", "MC1_STEPS": "100"}
 POPULATION_REF = Path(__file__).resolve().parent / "MONTECARLO_r04.json"
 POPULATION_TOL = 0.003
+# the classical phase: benchmarks/classical_vs_mpc.py at the JAX script's
+# own size, held to its quality numbers (CLASSICAL_r05.json; only its times
+# depend on the platform)
+CLASSICAL_REF = Path(__file__).resolve().parent / "CLASSICAL_r05.json"
+CLASSICAL_R = 128
+CLASSICAL_STEPS = 500
+CLASSICAL_D = (5.0, 10.0)
+CLASSICAL_STREHL_TOL = 0.003     # MPC: only the estimator's noise stream differs
+CLASSICAL_IDEAL_RTOL = 0.01      # noiseless integrator: deterministic
+CLASSICAL_NOISY_RTOL = 0.03      # noise-matched: another stream, same law
+CLASSICAL_GAIN = 0.7
+CLASSICAL_CPU_STEPS = 50
+CLASSICAL_RTOL = 1e-4            # card vs CPU
+PYRAMID_R = 64
+PYRAMID_NL = 16
+OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
 def fail(msg: str):
@@ -1890,6 +1929,176 @@ def population_phase(card) -> dict:
     return launches
 
 
+def classical_phase(dev, card) -> dict:
+    """The port's benchmarks/classical_vs_mpc.py rows at the JAX script's
+    size (R=128, D/r0 5 and 10, 500 steps, n_train/n_valid 1000/500, the
+    strong recipe at D/r0=10; SH with 8 lenslets, since 128 is not a
+    multiple of 10; gains 0.3/0.5/0.7): the MPC's settled exact Strehl
+    within CLASSICAL_STREHL_TOL, the ideal integrator's best gain 0.7 and
+    its residual within 1%, the noise-matched one within 3% of
+    CLASSICAL_r05.json's, both advantages > 1, and B1's launches exact.
+    Then the card against the CPU (SH slopes and the integrator on the
+    D/r0=5 window, the pyramid at R=64) and the detector's noise law on a
+    cuda generator.  Writes the report to chiprun_out/ and returns B1's
+    launches per row."""
+    t_phase = time.time()
+    b1 = K.psf_crop_diversity_sym3
+    ref = json.loads(CLASSICAL_REF.read_text())["rows"]
+    report = {"resolution": CLASSICAL_R, "n_steps": CLASSICAL_STEPS,
+              "device": card, "rows": {}}
+    launches = {}
+    for d in CLASSICAL_D:
+        cfg = classical_vs_mpc.row_cfg(CLASSICAL_R, d, CLASSICAL_STEPS)
+        reset_launches()
+        row = classical_vs_mpc.row(cfg, dev)
+        key = f"d_over_r0={d:g}"
+        report["rows"][key] = row
+        launches[f"d={d:g}"] = b1.launches
+        # pipeline.build launches no kernel (the estimator linearizes with
+        # float64 matmuls, warm_start_command is host numpy); the loop
+        # measures once a step and once more a Gauss-Newton pass
+        want = CLASSICAL_STEPS * (1 + cfg.estimator.gauss_newton_iters)
+        got = (row["b1_launches_build"], row["mpc"]["b1_launches"],
+               b1.launches)
+        if got != (0, want, want):
+            fail(f"classical {key}: B1 launched (build, loop, row) {got}, "
+                 f"not (0, {want}, {want})")
+        r, m = ref[key], row["mpc"]
+        ideal, noisy = row["integrator"], row["integrator_snr_matched"]
+        print(f"classical {key}: build {row['build_s']:.2f} s; MPC loop "
+              f"{m['ms_per_step']:.3f} ms a step, settled exact Strehl "
+              f"{m['strehl_exact']:.5f} (JAX {r['mpc']['strehl_exact']}), "
+              f"residual {m['mean_rms_res']:.5f} rad (JAX "
+              f"{r['mpc']['mean_rms_res']}), B1 launches {b1.launches} "
+              f"[{card}]")
+        for label in ("integrator", "integrator_snr_matched"):
+            for run in row["runs"][label]:
+                print(f"classical {key} {label} gain {run['gain']}: "
+                      f"residual {run['mean_rms_res']:.5f} rad, "
+                      f"{run['ms_per_step']:.4f} ms a step [{card}]")
+        print(f"classical {key}: best ideal gain {ideal['gain']} residual "
+              f"{ideal['mean_rms_res']:.5f} (JAX "
+              f"{r['integrator']['mean_rms_res']}), noise-matched gain "
+              f"{noisy['gain']} {noisy['mean_rms_res']:.5f} (JAX "
+              f"{r['integrator_snr_matched']['mean_rms_res']}); MPC "
+              f"advantage {row['mpc_advantage_rms']:.4f} / "
+              f"{row['mpc_advantage_rms_snr_matched']:.4f} (JAX "
+              f"{r['mpc_advantage_rms']} / "
+              f"{r['mpc_advantage_rms_snr_matched']})")
+        checks = {
+            "MPC Strehl": abs(m["strehl_exact"] - r["mpc"]["strehl_exact"])
+            <= CLASSICAL_STREHL_TOL,
+            "ideal gain": ideal["gain"] == CLASSICAL_GAIN,
+            "ideal residual": abs(ideal["mean_rms_res"]
+                                  / r["integrator"]["mean_rms_res"] - 1)
+            <= CLASSICAL_IDEAL_RTOL,
+            "noise-matched residual": abs(
+                noisy["mean_rms_res"]
+                / r["integrator_snr_matched"]["mean_rms_res"] - 1)
+            <= CLASSICAL_NOISY_RTOL,
+            "advantage": row["mpc_advantage_rms"] > 1
+            and row["mpc_advantage_rms_snr_matched"] > 1}
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            fail(f"classical {key}: {failed} against CLASSICAL_r05.json")
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "classical_vs_mpc.json").write_text(
+        json.dumps(report, indent=2) + "\n")
+
+    # card against CPU on the D/r0=5 window, TF32 off
+    cfg = classical_vs_mpc.row_cfg(CLASSICAL_R, CLASSICAL_D[0],
+                                   CLASSICAL_CPU_STEPS)
+    system = pipeline.build(cfg, dev)
+    sh, stack, vault = classical_vs_mpc.classical_setup(system, cfg)
+    flat = classical_vs_mpc.turbulence_window(system, cfg,
+                                              CLASSICAL_CPU_STEPS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    noise = 0.02 * torch.randn((CLASSICAL_CPU_STEPS, sh.n_slopes),
+                               generator=gen, device=dev)
+    mask = system.loop.mask.reshape(-1)
+    cpu = torch.device("cpu")
+    cpu_vault = dataclasses.replace(vault, M=vault.M.to(cpu))
+    for gain in classical_vs_mpc.GAINS:
+        icfg = integrator.IntegratorConfig(gain=gain)
+        got = integrator.closed_loop(sh.slope_op, vault, stack, flat, icfg,
+                                     mask_flat=mask, slope_noise=noise)
+        want = integrator.closed_loop(
+            sh.slope_op.to(cpu), cpu_vault, stack.to(cpu), flat.to(cpu),
+            icfg, mask_flat=mask.to(cpu), slope_noise=noise.to(cpu))
+        for name, g, w in zip(("c_acc", "rms"), got, want):
+            # |card - CPU| <= rtol (|CPU| + max|CPU|)
+            err = float(((g.cpu() - w).abs()
+                         / (w.abs() + w.abs().max())).max())
+            if not err <= CLASSICAL_RTOL:
+                fail(f"classical: integrator gain {gain} {name} on the card "
+                     f"is {err:.3g} off the CPU's (rtol {CLASSICAL_RTOL})")
+    print(f"classical: integrator on the card vs the CPU, "
+          f"{CLASSICAL_CPU_STEPS}-step window with injected slope noise, "
+          f"gains {classical_vs_mpc.GAINS}: c_acc and rms within rtol "
+          f"{CLASSICAL_RTOL}")
+
+    phase = flat[:1].reshape(1, CLASSICAL_R, CLASSICAL_R)
+    sh_cpu = wfs.build(CLASSICAL_R, n_lenslet=8, device=cpu)
+    ref_slopes = (wfs.reference_slopes(sh), wfs.reference_slopes(sh_cpu))
+    paths = {
+        "geometric": lambda m, x, r: wfs.geometric_slopes(m, x),
+        "diffractive": lambda m, x, r: wfs.diffractive_slopes(m, x),
+        "camera": lambda m, x, r: wfs.camera_slopes(
+            m, x, None, threshold=(0.01, 0.1), ref_slopes=r)}
+    for name, fn in paths.items():
+        got = fn(sh, phase, ref_slopes[0])
+        want = fn(sh_cpu, phase.cpu(), ref_slopes[1])
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        ms = profiling.cuda_time_ms(lambda: fn(sh, phase, ref_slopes[0]), 20)
+        print(f"classical: SH {name} slopes R={CLASSICAL_R}, 8 lenslets, "
+              f"B=1: {ms:.4f} ms a call; card vs CPU max err {err:.3g} of "
+              f"the peak [{card}]")
+        if not err <= CLASSICAL_RTOL:
+            fail(f"classical: SH {name} slopes on the card are {err:.3g} of "
+                 f"the peak off the CPU's")
+    lo = (CLASSICAL_R - PYRAMID_R) // 2       # a square inside the pupil
+    screen = phase[0, lo:lo + PYRAMID_R, lo:lo + PYRAMID_R]
+    for modulation in (0.0, 3.0):
+        pyr = pyramid.build(PYRAMID_R, PYRAMID_NL, modulation=modulation,
+                            device=dev)
+        pyr_cpu = pyramid.build(PYRAMID_R, PYRAMID_NL,
+                                modulation=modulation, device=cpu)
+        got = pyramid.slopes(pyr, screen)
+        want = pyramid.slopes(pyr_cpu, screen.cpu())
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        ms = profiling.cuda_time_ms(lambda: pyramid.slopes(pyr, screen), 20)
+        print(f"classical: pyramid slopes R={PYRAMID_R}, {PYRAMID_NL} "
+              f"lenslets, modulation {modulation:g} "
+              f"({pyr.phasors.shape[0]} steps), B=1: {ms:.4f} ms a call; "
+              f"card vs CPU max err {err:.3g} of the peak [{card}]")
+        if not err <= CLASSICAL_RTOL:
+            fail(f"classical: pyramid slopes (modulation {modulation:g}) "
+                 f"on the card are {err:.3g} of the peak off the CPU's")
+
+    # the detector's noise law on a cuda generator (tests/test_imaging.py)
+    gen.manual_seed(1)
+    for label, det, flux, mean, var in (
+            ("photon", imaging.DetectorConfig(64, photon_noise=True), 50.0,
+             50.0, 50.0),
+            ("QE", imaging.DetectorConfig(64, photon_noise=True,
+                                          quantum_efficiency=0.5), 100.0,
+             50.0, 25.0),
+            ("readout", imaging.DetectorConfig(64, read_out_noise=3.0), 0.0,
+             0.0, 9.0)):
+        out = imaging.read_out(det, gen, torch.full((64, 64), flux,
+                                                    device=dev)).cpu()
+        got_mean, got_var = float(out.mean()), float(out.var(correction=0))
+        print(f"classical: read_out {label} noise on the card: mean "
+              f"{got_mean:.4f} (want {mean}), variance {got_var:.4f} "
+              f"(want {var})")
+        if not (abs(got_mean - mean) <= max(0.02 * mean, 0.15)
+                and abs(got_var - var) <= 0.1 * var):
+            fail(f"classical: read_out {label} noise misses its law")
+    print(f"classical: phase {time.time() - t_phase:.2f} s")
+    return launches
+
+
 def modes_cfg():
     """MODES_r04.json's order-10 N=32 configuration
     (benchmarks/modes_horizon.py:98-160): reference_config(128), radial
@@ -1946,6 +2155,7 @@ def main() -> None:
     edge_launches = edge_phase(dev, card)
     parallel_launches = parallel_phase(system, cfg, dev, card)
     population_launches = population_phase(card)
+    classical_launches = classical_phase(dev, card)
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []
@@ -1962,6 +2172,8 @@ def main() -> None:
                           for k, v in parallel_launches.items()})
             paths.update({f"launches_population {k}": v
                           for k, v in population_launches.items()})
+            paths.update({f"launches_classical {k}": v
+                          for k, v in classical_launches.items()})
         else:
             paths = {}
         kernels.append({**paths,

@@ -8,14 +8,20 @@ PyTorch, with the diversity-PSF measurement kernels as hand-written CUDA
 kernels for Hopper (csrc/).
 
 Layout (module and function names follow the JAX package):
-  ops/        zernike, phase statistics, phase screens, partial DFT, PSF
-              formation, the PSF kernel wrappers, fixed Newton-KKT solves
+  ops/        zernike, zernike statistics, Karhunen-Loeve modes, phase
+              statistics, phase screens, the conditional flow, partial
+              DFT, PSF formation, the PSF kernel wrappers, Newton-KKT
+              solves
   models/     VAR system ID, DM influence, estimator, MPC matrices,
-              solvers, closed-loop engine, pipeline
-  parallel/   Monte-Carlo scenario batches
-  utils/      config, special functions, metrics
+              solvers, closed-loop engine, pipeline; the classical
+              baseline: Shack-Hartmann and pyramid WFS, integrator,
+              detector/imager
+  parallel/   Monte-Carlo scenario batches, the scenario-sharded runner
+  utils/      config, special functions, metrics, units, photometry,
+              grid tools, log book, display
   csrc/       CUDA sources, built with nvcc at first use
-  benchmarks/ kernel_variants: the A/B of the measurement kernels
+  benchmarks/ the kernel A/B, device peaks, roofline, the population,
+              the classical-vs-MPC comparison
   interop.py  carries the JAX package's operators across as numpy arrays
 
 Setup runs on the host in numpy float64 where precision matters; the

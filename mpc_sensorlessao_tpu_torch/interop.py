@@ -1,8 +1,8 @@
 """Carry the JAX package's built operators across to the port.
 
 The functions take the JAX ``LoopModels`` / ``FrozenFlowLayers`` /
-``EdgeFlowModel`` / ``EdgeFlowState`` fields
-as numpy arrays, keyed by the JAX field names -- either the JAX objects
+``EdgeFlowModel`` / ``EdgeFlowState`` / ``SHModel`` / ``PyramidModel`` /
+``CalibrationVault`` / ``KLBasis`` fields as numpy arrays, keyed by the JAX field names -- either the JAX objects
 after ``jax.tree.map(np.asarray, ...)`` or plain mappings -- and return
 the port's objects on ``device``.  With them both engines can run the
 same operators, so a parity test holds the control step apart from the
@@ -17,8 +17,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from .models import closed_loop, estimator, mpc
-from .ops import edge_flow, newton_kkt, phase_screens
+from .models import closed_loop, estimator, integrator, mpc, pyramid, wfs
+from .ops import edge_flow, karhunen_loeve, newton_kkt, phase_screens
 
 
 def _get(tree, name):
@@ -48,14 +48,20 @@ def _from(cls, tree, device, **given):
     return cls(**kw)
 
 
+def _complex(ri, device) -> torch.Tensor:
+    """A JAX real/imag float32 stack (..., 2, m, n) as one complex64
+    tensor (..., m, n)."""
+    ri = np.asarray(ri, dtype=np.float32)
+    return torch.as_tensor((ri[..., 0, :, :] + 1j * ri[..., 1, :, :])
+                           .astype(np.complex64), device=device)
+
+
 def estimator_from_numpy(est, device) -> estimator.EstimatorModel:
     """EstimatorModel from the JAX one; its (2, w, R) real/imag DFT stack
     becomes the port's complex (w, R) operator; ``dft_dtype`` and the
     mmse estimator's ``map_reg`` (or None) carry across."""
-    op = np.asarray(_get(est, "dft_op"), dtype=np.float32)
-    dft_op = torch.as_tensor((op[0] + 1j * op[1]).astype(np.complex64),
-                             device=device)
-    return _from(estimator.EstimatorModel, est, device, dft_op=dft_op)
+    return _from(estimator.EstimatorModel, est, device,
+                 dft_op=_complex(_get(est, "dft_op"), device))
 
 
 def layers_from_numpy(layers, device) -> phase_screens.FrozenFlowLayers:
@@ -98,3 +104,48 @@ def edge_model_from_numpy(model, device) -> edge_flow.EdgeFlowModel:
 
 def edge_state_from_numpy(state, device) -> edge_flow.EdgeFlowState:
     return _from(edge_flow.EdgeFlowState, state, device)
+
+
+def sh_model_from_numpy(sh, device) -> wfs.SHModel:
+    """SHModel from the JAX one: its (2, w, n) DFT stack becomes the
+    complex (w, n) operator; the valid-subaperture indices are made from
+    ``valid``."""
+    valid = np.asarray(_get(sh, "valid"), dtype=bool)
+    return wfs.SHModel(
+        slope_op=_tensor(_get(sh, "slope_op"), device), valid=valid,
+        sub_px=int(_get(sh, "sub_px")),
+        dft_op=_complex(_get(sh, "dft_op"), device),
+        pupil=_tensor(_get(sh, "pupil"), device),
+        sel=torch.as_tensor(np.flatnonzero(valid.ravel()), device=device))
+
+
+def pyramid_model_from_numpy(model, device) -> pyramid.PyramidModel:
+    """PyramidModel from the JAX one: the real/imag mask and phasor pairs
+    become complex64 tensors (the JAX DFT matrix is not carried: the port
+    transforms with torch.fft); the reference slopes and slopes units
+    carry across."""
+    valid = np.asarray(_get(model, "valid"), dtype=bool)
+    return pyramid.PyramidModel(
+        pyr_mask=_complex(_get(model, "pyr_mask"), device),
+        phasors=_complex(_get(model, "phasors"), device),
+        pupil=_tensor(_get(model, "pupil"), device), valid=valid,
+        sel=torch.as_tensor(np.flatnonzero(valid.ravel()), device=device),
+        reference_slopes=_tensor(_get(model, "reference_slopes"), device),
+        slopes_units=float(np.asarray(_get(model, "slopes_units"))),
+        resolution=int(_get(model, "resolution")),
+        n_lenslet=int(_get(model, "n_lenslet")), c=int(_get(model, "c")))
+
+
+def vault_from_numpy(vault, device) -> integrator.CalibrationVault:
+    return integrator.CalibrationVault(
+        M=_tensor(_get(vault, "M"), device),
+        singular=np.asarray(_get(vault, "singular"), dtype=np.float64),
+        n_thresholded=int(_get(vault, "n_thresholded")))
+
+
+def kl_basis_from_numpy(kl, device) -> karhunen_loeve.KLBasis:
+    stack = _get(kl, "stack")
+    return karhunen_loeve.KLBasis(
+        to_zernike=_tensor(_get(kl, "to_zernike"), device),
+        variances=_tensor(_get(kl, "variances"), device),
+        stack=None if stack is None else _tensor(stack, device))

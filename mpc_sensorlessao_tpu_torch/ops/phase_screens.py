@@ -49,18 +49,35 @@ class FrozenFlowLayers:
 
 
 def synthesize_screen(seed: int, atm: AtmosphereConfig, n_pixels: int,
-                      pitch: float) -> np.ndarray:
-    """One Von Karman screen, (os*n_pixels)^2, periodic, float32.
+                      pitch: float, oversample: int | None = None,
+                      subharmonic_levels: int | None = None,
+                      method: str = "fourier") -> np.ndarray:
+    """One Von Karman screen, (os*n_pixels)^2, float32.
 
-    fourierPhaseScreen (atmosphere.m:449-474):
-    map = real(ifft2(psdRoot .* fft2(randn(N))/N)) * N^2 * df, plus
-    atm.subharmonic_levels of subharmonic patches below the fundamental
-    frequency; os = atm.oversample.  ``atm`` should be a single-layer slab
-    (atm.layer(i)).  (The "straight" and "cholesky" methods are not
-    ported yet, ROADMAP.md A.12.)
+    Methods (the reference's synthesis family):
+      "fourier":  fourierPhaseScreen (atmosphere.m:449-474), periodic:
+                  map = real(ifft2(psdRoot .* fft2(randn(N))/N)) * N^2 * df,
+                  plus subharmonic patches below the fundamental frequency;
+      "straight": fourierPhaseScreenStraight (atmosphere.m:476-516):
+                  complex spectral draws, DC zeroed, no oversampling gain;
+      "cholesky": choleskyPhaseScreen (atmosphere.m:593-641): exact dense
+                  covariance factorization -- small grids only
+                  (O(N^4) memory), no periodicity.
+    os defaults to atm.oversample, the subharmonic levels to
+    atm.subharmonic_levels.  ``atm`` should be a single-layer slab
+    (atm.layer(i)) so the fractional r0 weighting is per layer.
     """
-    subharmonic_levels = atm.subharmonic_levels
-    N = atm.oversample * n_pixels
+    if oversample is None:
+        oversample = atm.oversample
+    if subharmonic_levels is None:
+        subharmonic_levels = atm.subharmonic_levels
+    N = oversample * n_pixels
+    if method == "cholesky":
+        return _cholesky_screen(seed, atm, N, pitch)
+    if method == "straight":
+        return _straight_screen(seed, atm, N, pitch)
+    if method != "fourier":
+        raise ValueError(f"unknown screen method '{method}'")
     df = 1.0 / (N * pitch)
 
     fx = np.fft.fftfreq(N, d=pitch)
@@ -77,6 +94,38 @@ def synthesize_screen(seed: int, atm: AtmosphereConfig, n_pixels: int,
         screen = screen + _subharmonics(rng, atm, N, pitch, df,
                                         subharmonic_levels)
     return np.asarray(screen, dtype=np.float32)
+
+
+def _straight_screen(seed: int, atm: AtmosphereConfig, N: int,
+                     pitch: float) -> np.ndarray:
+    """fourierPhaseScreenStraight (atmosphere.m:476-516): independent
+    complex spectral draws cn = (randn + i randn) sqrt(PSD) df, DC zeroed,
+    out = real(ifftshift(ifft2(ifftshift(cn)))) N^2."""
+    rng = _host_rng(seed)
+    del_f = 1.0 / (N * pitch)
+    fx = (np.arange(N) - N // 2) * del_f
+    f = np.hypot(fx[:, None], fx[None, :])
+    psd = phase_stats.spectrum(f, atm, np)
+    psd[N // 2, N // 2] = 0.0
+    cn = ((rng.standard_normal((N, N)) + 1j * rng.standard_normal((N, N)))
+          * np.sqrt(psd) * del_f)
+    out = np.real(np.fft.ifftshift(np.fft.ifft2(np.fft.ifftshift(cn)))) * N * N
+    return np.asarray(out, dtype=np.float32)
+
+
+def _cholesky_screen(seed: int, atm: AtmosphereConfig, N: int,
+                     pitch: float) -> np.ndarray:
+    """choleskyPhaseScreen (atmosphere.m:593-641): exact sampling via a
+    dense covariance Cholesky factor; O(N^4) -- small N only."""
+    if N > 96:
+        raise ValueError("cholesky screens are O(N^4); use N<=96")
+    rng = _host_rng(seed)
+    ax = np.arange(N) * pitch
+    pts = (ax[:, None] + 1j * ax[None, :]).ravel()
+    C = phase_stats.covariance_matrix(pts, pts, atm)
+    L = np.linalg.cholesky(C + 1e-9 * np.eye(N * N))
+    return np.asarray((L @ rng.standard_normal(N * N)).reshape(N, N),
+                      dtype=np.float32)
 
 
 def _host_rng(seed: int) -> np.random.Generator:
@@ -119,12 +168,18 @@ def _subharmonics(rng: np.random.Generator, atm: AtmosphereConfig, N: int,
 
 
 def make_layers(seed: int, atm: AtmosphereConfig, tel: TelescopeConfig,
+                cover_steps: int | None = None, max_screen: int = 4096,
                 device: torch.device | str = "cuda") -> FrozenFlowLayers:
     """Build all layer screens + per-step pixel shifts.
 
     Wind shift per step: v * dt / pitch pixels along (sin, cos) of the
-    wind direction, in (row, col).  (The JAX package's ``cover_steps``
-    screen sizing is not ported yet, ROADMAP.md A.12.)
+    wind direction, in (row, col).
+
+    ``cover_steps``: size the screens so a rollout of that many steps never
+    revisits screen area (the role of the reference's conditional-Gaussian
+    edge extension, telescopeAbstract.m:335-342, without its finite
+    conditioning window).  None -> the default periodic oversampled screen
+    (wrap after ~os*R/|d| steps).  Capped at ``max_screen`` px per side.
     """
     R = tel.resolution
     pitch = tel.pixel_pitch
@@ -135,9 +190,17 @@ def make_layers(seed: int, atm: AtmosphereConfig, tel: TelescopeConfig,
         th = atm.wind_directions[i]
         steps.append((dpx * math.sin(th), dpx * math.cos(th)))
 
+    oversample = atm.oversample
+    if cover_steps is not None:
+        max_d = max(max(abs(sy), abs(sx)) for sy, sx in steps)
+        need = R + 2 + int(math.ceil(cover_steps * max_d))
+        need = min(need, max_screen)
+        oversample = max(oversample, int(math.ceil(need / R)))
+
     screens = []
     for i in range(atm.n_layers):
-        scr = synthesize_screen(seeds[i], atm.layer(i), R, pitch)
+        scr = synthesize_screen(seeds[i], atm.layer(i), R, pitch,
+                                oversample=oversample)
         # wrap-pad by the window size so every window is one plain slice
         screens.append(np.pad(scr, ((0, R + 1), (0, R + 1)), mode="wrap"))
     return FrozenFlowLayers(

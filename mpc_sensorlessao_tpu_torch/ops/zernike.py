@@ -146,6 +146,25 @@ def make_basis(radial_order: int, resolution: int,
     )
 
 
+def fit(basis: ZernikeBasis, phase: torch.Tensor) -> torch.Tensor:
+    """Zernike decomposition of phase map(s): (..., R, R) -> (..., K).
+
+    zernmodfit's c = z\\data (zernmodfit.m:209) as one batched matmul.
+    """
+    R = basis.resolution
+    flat = phase.reshape(*phase.shape[:-2], R * R)
+    return flat @ basis.fit_full.T
+
+
+def synthesize(basis: ZernikeBasis, coeffs: torch.Tensor) -> torch.Tensor:
+    """Weighted mode sum: coeffs (..., K) -> phase (..., R, R), the
+    reference's correction synthesis loop (README.md:596-601) as one
+    contraction."""
+    R = basis.resolution
+    flat = coeffs @ basis.stack.reshape(basis.n_modes, R * R)
+    return flat.reshape(*coeffs.shape[:-1], R, R)
+
+
 def piston_removed_phase_masked(phase: torch.Tensor, mask: torch.Tensor,
                                 mask_npix) -> torch.Tensor:
     """Mean-removed phase inside the pupil mask, zero outside

@@ -1,19 +1,23 @@
 """Zernike-coefficient statistics of Von Karman turbulence, the subset the
-MMSE estimator's prior needs (port of part of
+MMSE estimator's prior and the Karhunen-Loeve basis need (port of part of
 ``mpc_sensorlessao_tpu/ops/zernike_stats.py``).
 
-Spectral-domain analytics in Noll's Fourier formulation: the Von Karman
-phase PSD filtered by the closed-form Zernike aperture transforms,
-integrated by vectorized quadrature (the reference's OOMAO
-zernikeStats.m:152-203,359-430).  Only the per-mode variance and the
-coefficient covariance are here; the grid-propagated covariance, the
-residual, temporal and angular analytics and the residue OTF are not
-ported yet (ROADMAP.md A.12).
+Two complementary methods:
+
+1. Grid propagation (coefficient_covariance & friends): covariance
+   propagated through the SAME least-squares fit operator the pipeline
+   uses -- exact w.r.t. the discrete basis, resolution-limited.
+2. Spectral-domain analytics in Noll's Fourier formulation: the Von
+   Karman phase PSD filtered by the closed-form Zernike aperture
+   transforms, integrated by vectorized quadrature (the reference's OOMAO
+   zernikeStats.m:152-203,359-430): the per-mode variance and the
+   coefficient covariance.  The residual, temporal and angular analytics
+   and the residue OTF are not ported yet (ROADMAP.md A.12).
 
 Normalization: the framework's basis is UNNORMALIZED zernfun modes
 (zernmodfit convention); Noll-normalized modes are N_j = sqrt((2 -
 delta_m0)(n+1)) times larger, so framework coefficients are N_j times
-Noll coefficients.  Both functions return framework-convention
+Noll coefficients.  Every function returns framework-convention
 statistics, comparable to the pipeline's fits.
 
 Host numpy/scipy float64 setup code.
@@ -29,6 +33,72 @@ from scipy import special as _sp
 
 from ..utils.config import AtmosphereConfig
 from . import phase_stats, zernike
+
+
+@lru_cache(maxsize=8)
+def _fit_geometry(radial_order: int, resolution: int):
+    r, theta, mask = zernike._grid_polar(resolution)
+    z_in = zernike.eval_points(radial_order, r[mask], theta[mask])
+    w = np.linalg.pinv(z_in)                       # (K, P)
+    return r, theta, mask, w
+
+
+def _pupil_points(diameter: float, resolution: int, mask) -> np.ndarray:
+    """Complex-coded [m] coordinates of the in-pupil grid points."""
+    N1 = resolution - 1
+    xs = (np.arange(resolution) * 2.0 - N1) / N1 * (diameter / 2.0)
+    X, Y = np.meshgrid(xs, xs)
+    return (X + 1j * Y)[mask]
+
+
+def _piston_removed(C: np.ndarray) -> np.ndarray:
+    """M C M' with M = I - J/P, the in-aperture mean-removal projector."""
+    P = C.shape[0]
+    M = np.eye(P) - np.full((P, P), 1.0 / P)
+    return M @ C @ M.T
+
+
+def coefficient_covariance(
+    atm: AtmosphereConfig,
+    diameter: float,
+    radial_order: int,
+    resolution: int = 48,
+    piston_removed: bool = True,
+) -> np.ndarray:
+    """(K, K) covariance of fitted Zernike coefficients [rad^2].
+
+    ``piston_removed`` applies the mean-removal projector inside the
+    aperture before the fit (the pipeline's meanRmPhase convention).
+    """
+    _, _, mask, w = _fit_geometry(radial_order, resolution)
+    pts = _pupil_points(diameter, resolution, mask)
+    C = phase_stats.covariance_matrix(pts, pts, atm)
+    if piston_removed:
+        C = _piston_removed(C)
+    return w @ C @ w.T
+
+
+def coefficient_variances(atm, diameter, radial_order,
+                          resolution: int = 48,
+                          piston_removed: bool = True) -> np.ndarray:
+    """Per-mode variances (the diagonal), in the framework's modified
+    mode ordering."""
+    return np.diag(coefficient_covariance(
+        atm, diameter, radial_order, resolution, piston_removed)).copy()
+
+
+def total_residual_variance(atm, diameter, radial_order,
+                            resolution: int = 48) -> float:
+    """Piston-removed phase variance NOT captured by the first K modes
+    (the fitting-error floor for a modal corrector)."""
+    r, theta, mask, w = _fit_geometry(radial_order, resolution)
+    pts = _pupil_points(diameter, resolution, mask)
+    C = _piston_removed(phase_stats.covariance_matrix(pts, pts, atm))
+    P = pts.shape[0]
+    z_in = zernike.eval_points(radial_order, r[mask], theta[mask])
+    proj = z_in @ w                                # (P, P) fit projector
+    resid = C - proj @ C - C @ proj.T + proj @ C @ proj.T
+    return float(np.trace(resid) / P)
 
 
 def _mode_nm(radial_order: int):

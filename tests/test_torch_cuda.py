@@ -2,9 +2,10 @@
 (B1-B4 also in their bf16 branch, and at crops wider than 32 px), and the
 strong-turbulence recipe (re-linearized Gauss-Newton, the recipe loop),
 the general MPC solvers (multi-step Newton-KKT, cyclic reduction,
-ramp rows, ADMM, and the loop through each) and the conditional-Gaussian
-flow (its build and loop, its bf16 border draw) on the card against the
-CPU.
+ramp rows, ADMM, and the loop through each), the conditional-Gaussian
+flow (its build and loop, its bf16 border draw) and the sensing path of
+the classical comparison (SH and pyramid slopes, the integrator loop, the
+detector's noise law, the benchmark's row) on the card against the CPU.
 
 These tests need an NVIDIA GPU with nvcc (marker ``gpu``) and skip
 without one.  They import neither jax nor the JAX package, so on the GPU
@@ -870,3 +871,143 @@ def test_population_resumes_bit_identically_on_card(cuda_device, tmp_path):
     assert resumed["resumed_at_cursor"] == 1
     assert np.isfinite(full["summaries"]).all()
     np.testing.assert_array_equal(resumed["summaries"], full["summaries"])
+
+
+# ------------------------------------------------ sensing on the card
+
+def _screen(R, dev, scale=0.3, seed=3):
+    from mpc_sensorlessao_tpu_torch.ops import phase_screens
+    cfg = reference_config(resolution=R)
+    scr = phase_screens.synthesize_screen(
+        seed, cfg.atmosphere.layer(0), R, cfg.telescope.pixel_pitch)[:R, :R]
+    return torch.as_tensor((scr - scr.mean()) * scale, device=dev)
+
+
+def _peak_close(got, want, frac=1e-4):
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=frac * np.abs(want).max())
+
+
+@pytest.mark.gpu
+def test_sh_slopes_on_card_match_cpu(cuda_device):
+    """At R=128 with 8 lenslets (the classical comparison's geometry):
+    geometric, diffractive and noise-free camera slopes (thresholded,
+    reference subtracted) on the card within 1e-4 of their peak of the
+    CPU's, on a batch of two screens."""
+    from mpc_sensorlessao_tpu_torch.models import wfs
+    R = 128
+    ph = torch.stack([_screen(R, "cpu", seed=s) for s in (3, 4)])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sh = wfs.build(R, n_lenslet=8, device=dev)
+        x = ph.to(dev)
+        ref = wfs.reference_slopes(sh)
+        out[str(dev)] = [
+            wfs.geometric_slopes(sh, x), wfs.diffractive_slopes(sh, x),
+            wfs.camera_slopes(sh, x, None, threshold=(0.01, 0.1),
+                              ref_slopes=ref),
+            wfs.interaction_matrix(sh, zernike.make_basis(
+                4, R, device=dev).stack[1:])]
+    for got, want in zip(out[str(cuda_device)], out["cpu"]):
+        _peak_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("modulation", [0.0, 3.0])
+def test_pyramid_slopes_on_card_match_cpu(cuda_device, modulation):
+    """At R=64, 16 lenslets: detector image and slopes on the card (one
+    batched cuFFT pair over the modulation steps) within 1e-4 of their
+    peak of the CPU's; the gain calibration agrees within 1e-4."""
+    from mpc_sensorlessao_tpu_torch.models import pyramid
+    R = 64
+    ph = _screen(R, "cpu", scale=0.2)
+    tilt = zernike.make_basis(2, R, device="cpu").stack[1]
+    res = {}
+    for dev in ("cpu", cuda_device):
+        m = pyramid.build(R, 16, modulation=modulation, device=dev)
+        cal = pyramid.gain_calibration(m, tilt.to(dev))
+        res[str(dev)] = (pyramid.intensity_map(m, ph.to(dev)),
+                         pyramid.slopes(m, ph.to(dev)), cal.slopes_units)
+    card, cpu = res[str(cuda_device)], res["cpu"]
+    _peak_close(card[0], cpu[0])
+    _peak_close(card[1], cpu[1])
+    assert card[2] == pytest.approx(cpu[2], rel=1e-4)
+
+
+@pytest.mark.gpu
+def test_integrator_on_card_matches_cpu(cuda_device):
+    """The classical comparison's SH + TSVD integrator at R=64 on a
+    50-step window with one injected slope-noise tensor: c_acc and rms on
+    the card within rtol 1e-4 of the CPU's, at each gain and a delay."""
+    from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc as cvm
+    from mpc_sensorlessao_tpu_torch.models import integrator
+    cfg = cvm.row_cfg(64, 5.0, 50)
+    cfg = cfg.replace(sim=dataclasses.replace(cfg.sim, n_train=300,
+                                              n_valid=50))
+    system = pipeline.build(cfg, "cpu")
+    sh, stack, vault = cvm.classical_setup(system, cfg)
+    flat = cvm.turbulence_window(system, cfg, 50)
+    noise = 0.02 * torch.randn((50, sh.n_slopes),
+                               generator=torch.Generator().manual_seed(2))
+    mask = system.loop.mask.reshape(-1)
+    dev_vault = dataclasses.replace(vault, M=vault.M.to(cuda_device))
+    for icfg in (integrator.IntegratorConfig(0.7),
+                 integrator.IntegratorConfig(0.5, delay=2)):
+        want = integrator.closed_loop(sh.slope_op, vault, stack, flat, icfg,
+                                      mask_flat=mask, slope_noise=noise)
+        got = integrator.closed_loop(
+            sh.slope_op.to(cuda_device), dev_vault, stack.to(cuda_device),
+            flat.to(cuda_device), icfg, mask_flat=mask.to(cuda_device),
+            slope_noise=noise.to(cuda_device))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(),
+                                       rtol=1e-4,
+                                       atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["photon", "qe", "readout"])
+def test_read_out_noise_law_on_card(cuda_device, case):
+    """imaging.read_out drawn from a cuda generator meets
+    tests/test_imaging.py's criteria: Poisson mean = var = flux, QE after
+    the draw (var = QE^2 flux), readout std."""
+    from mpc_sensorlessao_tpu_torch.models import imaging
+    det, flux, mean, var = {
+        "photon": (imaging.DetectorConfig(64, photon_noise=True), 50.0,
+                   50.0, 50.0),
+        "qe": (imaging.DetectorConfig(64, photon_noise=True,
+                                      quantum_efficiency=0.5), 100.0, 50.0,
+               25.0),
+        "readout": (imaging.DetectorConfig(64, read_out_noise=3.0), 0.0,
+                    0.0, 9.0)}[case]
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    out = imaging.read_out(det, gen, torch.full((64, 64), flux,
+                                                device=cuda_device))
+    assert out.device.type == "cuda" and out.dtype == torch.float32
+    out = out.cpu().numpy()
+    assert out.mean() == pytest.approx(mean, rel=0.02, abs=0.15)
+    assert out.var() == pytest.approx(var, rel=0.1)
+
+
+@pytest.mark.gpu
+def test_classical_row_on_card(cuda_device):
+    """benchmarks/classical_vs_mpc.row on the card at R=64, 16 steps (cut
+    sim): B1 launches exactly 16 x (1 + gauss_newton_iters) in the MPC
+    loop and none in the build, and the ideal integrator rows equal the
+    CPU row's within rtol 1e-4 (the same window; the MPC's noise stream
+    differs between the devices)."""
+    from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc as cvm
+    cfg = cvm.row_cfg(64, 5.0, 16)
+    cfg = cfg.replace(sim=dataclasses.replace(cfg.sim, n_train=300,
+                                              n_valid=50))
+    card = cvm.row(cfg, cuda_device)
+    cpu = cvm.row(cfg, "cpu")
+    assert card["b1_launches_build"] == 0
+    assert card["mpc"]["b1_launches"] == 16 * (
+        1 + cfg.estimator.gauss_newton_iters)
+    np.testing.assert_allclose(
+        [r["mean_rms_res"] for r in card["runs"]["integrator"]],
+        [r["mean_rms_res"] for r in cpu["runs"]["integrator"]], rtol=1e-4)
+    assert card["mpc"]["strehl_exact"] > 0.9

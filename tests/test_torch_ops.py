@@ -34,12 +34,15 @@ from mpc_sensorlessao_tpu.ops import zernike as jz
 from mpc_sensorlessao_tpu.utils import config as jconfig
 from mpc_sensorlessao_tpu.utils import metrics as jmetrics
 from mpc_sensorlessao_tpu_torch import reference_config
+from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
 from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
 from mpc_sensorlessao_tpu_torch.models import closed_loop, dm, estimator
-from mpc_sensorlessao_tpu_torch.models import mpc, pipeline, solvers, var
-from mpc_sensorlessao_tpu_torch.ops import dft, edge_flow, newton_kkt
+from mpc_sensorlessao_tpu_torch.models import imaging, mpc, pipeline
+from mpc_sensorlessao_tpu_torch.models import pyramid, solvers, var, wfs
+from mpc_sensorlessao_tpu_torch.ops import dft, edge_flow, karhunen_loeve
+from mpc_sensorlessao_tpu_torch.ops import newton_kkt
 from mpc_sensorlessao_tpu_torch.ops import phase_screens
 from mpc_sensorlessao_tpu_torch.ops import psf, psf_kernels, zernike
 from mpc_sensorlessao_tpu_torch.parallel import dryrun, estimator_tp
@@ -797,7 +800,8 @@ def test_kernel_variants_agree_on_cpu():
     "pipeline_conditional", "edge_flow", "batch_states",
     "extension_operators", "scenario_mesh", "tp_mesh", "hz_mesh", "spawn",
     "dryrun_multichip", "multihost_main", "montecarlo_100k",
-    "multiprocess"])
+    "multiprocess", "wfs", "pyramid", "karhunen_loeve", "gaussian_frame",
+    "classical_row", "classical_vs_mpc"])
 def test_builders_default_to_the_card(builder, monkeypatch):
     """Every builder runs on the card unless the caller passes "cpu":
     without a CUDA device, a call that names no device raises."""
@@ -834,6 +838,15 @@ def test_builders_default_to_the_card(builder, monkeypatch):
         "montecarlo_100k": lambda: montecarlo_100k.main(
             ["32"], {"MC1_DR0": "5", "MC1_REPS": "2", "MC1_CHUNK": "2"}),
         "multiprocess": lambda: multiprocess.main([]),
+        "wfs": lambda: wfs.build(32, n_lenslet=8),
+        "pyramid": lambda: pyramid.build(16, 4),
+        "karhunen_loeve": lambda: karhunen_loeve.make_basis(
+            cfg.atmosphere, 1.0, 6, grid_basis=basis, resolution=16),
+        "gaussian_frame": lambda: imaging.gaussian_frame(16, 3.0),
+        "classical_row": lambda: classical_vs_mpc.row(
+            classical_vs_mpc.row_cfg(32, 5.0, 2)),
+        "classical_vs_mpc": lambda: classical_vs_mpc.main(
+            ["32"], {"CVM_DR0": "5", "CVM_STEPS": "2"}),
     }
     for var in ("MC1_DEVICE", "MP_DEVICE"):
         monkeypatch.delenv(var, raising=False)
@@ -1159,22 +1172,6 @@ def test_line_search_picks_first_accepted_candidate():
                           jnp.zeros((N, nx))))
     np.testing.assert_allclose(npy(got.U[0]), np.asarray(want.U), rtol=1e-6)
     assert float(got.U[0, 0, 0]) < 28.0
-
-
-# ------------------------------------------------- branches not ported yet
-
-@pytest.mark.parametrize("branch", ["bezier_monotonic"])
-def test_unported_branches_raise(branch):
-    """Each configuration branch the port does not have yet raises
-    NotImplementedError naming its ROADMAP item -- never a quiet
-    substitute: the Bezier DM influence profiles (ROADMAP A.12; the
-    conditional flow, this test's former case, is ported and held in
-    tests/test_torch_edge_flow.py)."""
-    cfg = reference_config(resolution=32)
-    rep = dataclasses.replace
-    cfg = cfg.replace(dm=rep(cfg.dm, influence=branch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.build(cfg, "cpu")
 
 
 @pytest.mark.parametrize("solver", ["barrier", "cvx"])
