@@ -174,11 +174,30 @@ package):
    mean and variance.  Prints build s, MPC and integrator ms a step, SH
    and pyramid ms a call at B=1; the report goes to
    chiprun_out/classical_vs_mpc.json.
-15. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+15. a12: the wavefront-sensing and MCAO slice (ROADMAP A.12), which
+   launches no PSF kernel (every count 0 after it). (a) The port's
+   examples/wfs_demo.py and mcao_demo.py on the card, held to the JAX
+   demos' numbers in mpc_sensorlessao_tpu_torch/examples/
+   demo_reference.json: the MCAO variances rtol 1e-6, the 60-screen
+   Monte-Carlo residual 1e-3, the tomography error and Strehl 1e-4, the
+   slopes-MMSE map RMS 5% (a float32 CG at tol 5e-2 is not reproducible
+   between implementations to more; PERF.md §6, PR 14). (b) A 40x40 SH
+   at R=320 (8 px a lenslet), 512 frames cut from 32 numpy-seeded
+   1280-px FFT screens (no subharmonics), the demo's noise (0.02 px),
+   tol 5e-2: the NGS, 3-GS tomographic (15" triangle, 8 km layer) and LGS (H = 90 km, 8 km
+   layer) reconstructors -- CG depth, ms a batch (CUDA events), each
+   frame's true residual (float64) within 2 x tol, and card against CPU
+   on 4 frames at a fixed depth of 4 iterations (1e-4 of each map's RMS,
+   the same depth) and, for the NGS, the tol run's map RMS within 5%.
+   (c) Card against CPU (1e-5 of the peak): relay.project_layers on 8
+   screen pairs off-axis and through an LGS cone, lgs.elongate_spots
+   with kw 8 and 9, raytrace.trace on 10^6 rays.  Report in
+   chiprun_out/a12.json, one summary line.
+16. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
    power limit; each kernel must launch >= k1 + k2 times, and no rate may
    exceed 105% of its published peak.
-16. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+17. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
@@ -186,7 +205,7 @@ package):
    the bf16 variants against their bound at the measured ceilings (none
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
-17. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+18. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
    psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
    (bound_ms and bound_by from measure_bound at the published peaks,
    fp32_bound_ms beside them, null for the bf16 entries; B1's launches
@@ -222,18 +241,21 @@ from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants, roofline
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
 from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
+from mpc_sensorlessao_tpu_torch.examples import mcao_demo, wfs_demo
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
 from mpc_sensorlessao_tpu_torch.models import imaging, integrator, pipeline
-from mpc_sensorlessao_tpu_torch.models import pyramid, solvers, wfs
+from mpc_sensorlessao_tpu_torch.models import lgs, pyramid, slopes_mmse
+from mpc_sensorlessao_tpu_torch.models import solvers, wfs
 from mpc_sensorlessao_tpu_torch.ops import block_tridiag, cuda_build, dft
 from mpc_sensorlessao_tpu_torch.ops import edge_flow, newton_kkt, psf
+from mpc_sensorlessao_tpu_torch.ops import phase_screens, raytrace, relay
 from mpc_sensorlessao_tpu_torch.ops import psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
 from mpc_sensorlessao_tpu_torch.parallel import dryrun, montecarlo
 from mpc_sensorlessao_tpu_torch.parallel import mesh as mesh_lib
 from mpc_sensorlessao_tpu_torch.parallel import multihost
 from mpc_sensorlessao_tpu_torch.utils import profiling, tree
-from mpc_sensorlessao_tpu_torch.utils.config import mag_conv
+from mpc_sensorlessao_tpu_torch.utils.config import AtmosphereConfig, mag_conv
 
 PALLAS = "mpc_sensorlessao_tpu/ops/pallas_kernels.py"
 CSRC = "mpc_sensorlessao_tpu_torch/csrc"
@@ -422,6 +444,26 @@ CLASSICAL_CPU_STEPS = 50
 CLASSICAL_RTOL = 1e-4            # card vs CPU
 PYRAMID_R = 64
 PYRAMID_NL = 16
+# a12: the wavefront-sensing and MCAO slice (ROADMAP A.12)
+A12_REF = (Path(__file__).resolve().parent / "mpc_sensorlessao_tpu_torch"
+           / "examples" / "demo_reference.json")
+A12_ANALYTIC_RTOL = 1e-6         # MCAO variances: host float64
+A12_MC_RTOL = 1e-3               # the 60-screen Monte-Carlo residual
+A12_TOMO_RTOL = 1e-4             # tomography error and Strehl
+A12_CG_RMS_RTOL = 0.05           # float32 CG at tol 5e-2 (PERF.md §6)
+A12_R = 320                      # 40x40 lenslets of 8 px
+A12_NL = 40
+A12_BATCH = 512
+A12_SCREEN_TILES = 4             # 32 screens of 1280 px cut 4 x 4
+A12_TOL = 5e-2
+A12_MAXIT = 100
+A12_CPU_FRAMES = 4
+A12_DEPTH = 4                    # the fixed CG depth held at 1e-4
+A12_MAP_RTOL = 1e-4              # card vs CPU at the fixed depth
+A12_RESIDUAL_SLACK = 2.0         # true residual <= slack x tol (float32)
+A12_LGS_H = 90e3
+A12_RAYS = 1_000_000
+A12_RTOL = 1e-5                  # card vs CPU, of the peak
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -2099,6 +2141,213 @@ def classical_phase(dev, card) -> dict:
     return launches
 
 
+def a12_slopes(atm, pitch, dev):
+    """(B, 2 n_valid) geometric slopes [rad/px] of A12_BATCH numpy-seeded
+    frames (32 FFT screens of 4 x 320 px without subharmonics, each cut
+    into 4 x 4 tiles), on the card, and the SH model."""
+    sh = wfs.build(A12_R, n_lenslet=A12_NL, device=dev)
+    n_screens = A12_BATCH // A12_SCREEN_TILES ** 2
+    side = A12_SCREEN_TILES * A12_R
+    frames = []
+    for s in range(n_screens):
+        scr = phase_screens.synthesize_screen(s, atm, side, pitch,
+                                              oversample=1,
+                                              subharmonic_levels=0)
+        tiles = scr.reshape(A12_SCREEN_TILES, A12_R, A12_SCREEN_TILES,
+                            A12_R).transpose(0, 2, 1, 3)
+        frames.append(tiles.reshape(-1, A12_R, A12_R) * 0.3)
+    ph = torch.as_tensor(np.concatenate(frames), device=dev)
+    ph = ph - ph.mean(dim=(-2, -1), keepdim=True)
+    return sh, wfs.geometric_slopes(sh, ph)
+
+
+def a12_phase(dev, card) -> dict:
+    """The wavefront-sensing and MCAO slice (ROADMAP A.12) on the card:
+    the two demos against the JAX demos' numbers (demo_reference.json),
+    the three slopes-MMSE reconstructors on a 40x40 SH at R=320 with
+    B=512 frames (CG depth, ms a batch, card against CPU), and card
+    against CPU for the relay, the LGS spot elongation and the ray trace.
+    Writes chiprun_out/a12.json and returns the report."""
+    t_phase = time.time()
+    ref = json.loads(A12_REF.read_text())
+    report = {"device": card}
+
+    # 1. the demos against the JAX demos' numbers
+    t0 = time.time()
+    w = wfs_demo.main(dev)
+    m = mcao_demo.main(dev)
+    report["demos"] = {"wfs": w, "mcao": m, "s": time.time() - t0}
+    checks = [("MCAO piston-free", m["piston_free_var_rad2"],
+               ref["mcao"]["piston_free_var_rad2"], A12_ANALYTIC_RTOL),
+              ("MCAO SCAO", m["scao_var_rad2"], ref["mcao"]["scao_var_rad2"],
+               A12_ANALYTIC_RTOL)]
+    for dm in ("one_dm", "two_dm"):
+        checks.append((f"MCAO {dm} field", m[dm]["mcao_var_rad2"],
+                       ref["mcao"][dm]["mcao_var_rad2"], A12_ANALYTIC_RTOL))
+        for k, (a, b) in enumerate(zip(m[dm]["target_vars_rad2"],
+                                       ref["mcao"][dm]["target_vars_rad2"])):
+            checks.append((f"MCAO {dm} direction {k}", a, b,
+                           A12_ANALYTIC_RTOL))
+    for k, (a, b) in enumerate(zip(m["monte_carlo_rad2"],
+                                   ref["mcao"]["monte_carlo_rad2"])):
+        checks.append((f"MCAO Monte-Carlo direction {k}", a, b, A12_MC_RTOL))
+    checks += [("tomography error", w["tomography_error_rad2"],
+                ref["wfs"]["tomography_error_rad2"], A12_TOMO_RTOL),
+               ("tomography Strehl", w["tomography_strehl"],
+                ref["wfs"]["tomography_strehl"], A12_TOMO_RTOL),
+               ("slopes-MMSE RMS", w["mmse_rms"], ref["wfs"]["mmse_rms"],
+                A12_CG_RMS_RTOL)]
+    for name, got, want, rtol in checks:
+        err = abs(got / want - 1)
+        print(f"a12 demo: {name} {got:.6g} (JAX {want:.6g}, rel {err:.2e}, "
+              f"rtol {rtol:g})")
+        if not err <= rtol:
+            fail(f"a12: {name} {got} is {err:.3g} off the JAX demo's {want}")
+    print(f"a12: demos {report['demos']['s']:.2f} s; MMSE CG depth "
+          f"{w['mmse_iterations']} [{card}]")
+
+    # 2. slopes-MMSE at 40x40 lenslets, R=320, B=512
+    cpu = torch.device("cpu")
+    atm = AtmosphereConfig(fractional_r0=(1.0,), altitudes=(0.0,),
+                           wind_speeds=(5.0,), wind_directions=(0.0,))
+    atm_h = dataclasses.replace(atm, altitudes=(8000.0,))
+    pitch = 1.0 / (A12_R - 1)
+    t0 = time.time()
+    sh, sl = a12_slopes(atm, pitch, dev)
+    torch.cuda.synchronize()
+    print(f"a12: {A12_BATCH} frames at R={A12_R}, {A12_NL}x{A12_NL} "
+          f"lenslets ({sh.n_valid} valid) in {time.time() - t0:.2f} s")
+    nv = (0.02 / pitch) ** 2                 # the demo's noise, 0.02 px
+    th = 15 * np.pi / 180 / 3600
+    gs = [(th, 0.0), (-th / 2, th * 0.866), (-th / 2, -th * 0.866)]
+    cases = {
+        "ngs": (lambda d: slopes_mmse.build(atm, 1.0, A12_NL, sh.valid, nv,
+                                            device=d),
+                slopes_mmse.reconstruct, sl),
+        "tomographic": (lambda d: slopes_mmse.build_tomographic(
+            atm_h, 1.0, A12_NL, sh.valid, nv, gs, device=d),
+            slopes_mmse.reconstruct_tomographic,
+            torch.stack([sl, sl.roll(1, 0), sl.roll(2, 0)], dim=1)),
+        "lgs": (lambda d: slopes_mmse.build_lgs(atm_h, 1.0, A12_NL, sh.valid,
+                                                nv, A12_LGS_H, device=d),
+                slopes_mmse.reconstruct_lgs, sl)}
+    report["slopes_mmse"] = {}
+    for name, (build, rec, x) in cases.items():
+        t0 = time.time()
+        model, model_cpu = build(dev), build(cpu)
+        build_s = time.time() - t0
+        maxit = A12_MAXIT if name != "tomographic" else 150
+        phi, it = rec(model, x, pitch, A12_TOL, maxit, return_iters=True)
+        y, _ = slopes_mmse.solve(model, x, pitch, A12_TOL, maxit)
+        res = slopes_mmse.relative_residual(model, x, pitch, y)
+        reps = 1 if name == "tomographic" else 2
+        ms = profiling.cuda_time_ms(lambda: rec(model, x, pitch, A12_TOL,
+                                                maxit), reps)
+        it = it.cpu()
+        row = {"build_s": build_s, "ms_per_batch": ms,
+               "iterations_min": int(it.min()),
+               "iterations_max": int(it.max()),
+               "iterations_mean": float(it.float().mean()),
+               "max_true_residual": float(res.max()),
+               "map_rms_mean": float(phi.std(dim=(-2, -1)).mean())}
+        if not torch.isfinite(phi).all() or phi.shape != (
+                A12_BATCH, A12_NL + 1, A12_NL + 1):
+            fail(f"a12: {name} gives {tuple(phi.shape)} or non-finite maps")
+        if not row["max_true_residual"] <= A12_RESIDUAL_SLACK * A12_TOL:
+            fail(f"a12: {name} true CG residual {row['max_true_residual']:.3g}"
+                 f" over {A12_RESIDUAL_SLACK} x tol")
+        # card against CPU on the first frames: the fixed depth at 1e-4 of
+        # each map's RMS, and (NGS) the tol run's map RMS
+        xs = x[:A12_CPU_FRAMES]
+        t0 = time.time()
+        got, got_it = rec(model, xs, pitch, 0.0, A12_DEPTH,
+                          return_iters=True)
+        want, want_it = rec(model_cpu, xs.cpu(), pitch, 0.0, A12_DEPTH,
+                            return_iters=True)
+        rms = want.pow(2).mean(dim=(-2, -1)).sqrt()
+        err = float(((got.cpu() - want).abs().amax(dim=(-2, -1))
+                     / rms).max())
+        row["fixed_depth_err_of_rms"] = err
+        if not (err <= A12_MAP_RTOL and torch.equal(got_it.cpu(), want_it)):
+            fail(f"a12: {name} at CG depth {A12_DEPTH} on the card is {err:.3g}"
+                 f" of the RMS off the CPU's (rtol {A12_MAP_RTOL})")
+        if name == "ngs":
+            want, want_it = rec(model_cpu, xs.cpu(), pitch, A12_TOL, maxit,
+                                return_iters=True)
+            rms_err = float((phi[:A12_CPU_FRAMES].std(dim=(-2, -1)).cpu()
+                             / want.std(dim=(-2, -1)) - 1).abs().max())
+            row["cpu_iterations"] = want_it.tolist()
+            row["card_iterations"] = it[:A12_CPU_FRAMES].tolist()
+            row["tol_run_rms_rel_err"] = rms_err
+            if not rms_err <= A12_CG_RMS_RTOL:
+                fail(f"a12: ngs map RMS on the card is {rms_err:.3g} off the "
+                     f"CPU's")
+        row["cpu_check_s"] = time.time() - t0
+        report["slopes_mmse"][name] = row
+        print(f"a12 slopes-MMSE {name}: B={A12_BATCH}, {A12_NL}x{A12_NL}, "
+              f"CG iterations {row['iterations_min']}-"
+              f"{row['iterations_max']} (mean {row['iterations_mean']:.1f}),"
+              f" {ms:.3f} ms a batch, true residual <= "
+              f"{row['max_true_residual']:.4f}; card vs CPU at depth "
+              f"{A12_DEPTH}: {err:.2e} of the RMS; build {build_s:.2f} s, "
+              f"CPU check {row['cpu_check_s']:.2f} s [{card}]")
+
+    # 3. card against CPU: relay, LGS elongation, ray trace
+    rng = np.random.default_rng(0)
+    scr = [torch.as_tensor(rng.normal(size=(8, n, n)), dtype=torch.float32)
+           for n in (192, 160)]
+    spots = wfs.spot_frames(sh, torch.as_tensor(rng.normal(
+        0, 0.5, (2, A12_R, A12_R)), dtype=torch.float32, device=dev))
+    heights = 1e3 * (np.arange(-5, 6) + 90.0)
+    pos = lgs.subaperture_positions(A12_NL, 1.0)
+    rays = torch.as_tensor(rng.normal(0, [0.02, 0.01], (A12_RAYS, 2)),
+                           dtype=torch.float32)
+    chain = [raytrace.free_space(0.3, stop_width=0.08),
+             raytrace.curved_mirror(1.0, offset=0.002, stop_width=0.05),
+             raytrace.thin_lens(0.2)]
+
+    def relay_on(d, **kw):
+        return relay.project_layers([s.to(d) for s in scr],
+                                    [1 / 47, 1 / 40], 0.5, (0.0, 8000.0),
+                                    48, **kw)
+
+    def elongate_on(d, kw_px):
+        ker = lgs.elongation_kernels(lgs.build(heights, launch=(-0.5, 0.0),
+                                               device=d), pos, 2e-7, kw_px,
+                                     1.5)
+        return lgs.elongate_spots(spots.to(d), ker)
+
+    paths = {
+        "relay off-axis": lambda d: relay_on(d, direction=(5e-5, -2e-5)),
+        "relay LGS cone": lambda d: relay_on(d, direction=(2e-5, 0.0),
+                                             source_height=A12_LGS_H),
+        "elongate_spots kw=8": lambda d: elongate_on(d, 8),
+        "elongate_spots kw=9": lambda d: elongate_on(d, 9),
+        "raytrace": lambda d: raytrace.trace(chain, rays.to(d))[0]}
+    report["card_vs_cpu"] = {}
+    for name, fn in paths.items():
+        got, want = fn(dev), fn(cpu)
+        err = float((got.cpu() - want).abs().max() / want.abs().max())
+        ms = profiling.cuda_time_ms(lambda: fn(dev), 5)
+        report["card_vs_cpu"][name] = {"err_of_peak": err, "ms": ms}
+        print(f"a12: {name} {tuple(got.shape)}: {ms:.4f} ms a call; card vs "
+              f"CPU max err {err:.3g} of the peak [{card}]")
+        if not err <= A12_RTOL:
+            fail(f"a12: {name} on the card is {err:.3g} of the peak off the "
+                 f"CPU's")
+    report["s"] = time.time() - t_phase
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "a12.json").write_text(json.dumps(report, indent=2) + "\n")
+    r = report["slopes_mmse"]
+    print("a12: " + json.dumps({
+        "demos_ok": True, "mmse_rms": w["mmse_rms"],
+        "mc_rad2": m["monte_carlo_rad2"],
+        "ms_per_batch": {k: v["ms_per_batch"] for k, v in r.items()},
+        "cg_iterations_mean": {k: v["iterations_mean"] for k, v in r.items()},
+        "phase_s": report["s"], "device": card}))
+    return report
+
+
 def modes_cfg():
     """MODES_r04.json's order-10 N=32 configuration
     (benchmarks/modes_horizon.py:98-160): reference_config(128), radial
@@ -2156,6 +2405,12 @@ def main() -> None:
     parallel_launches = parallel_phase(system, cfg, dev, card)
     population_launches = population_phase(card)
     classical_launches = classical_phase(dev, card)
+    reset_launches()
+    a12_phase(dev, card)
+    for name, wrapper, *_ in KERNELS + CHAINS:
+        if wrapper.launches:
+            fail(f"a12: the slice launched {name} {wrapper.launches} times; "
+                 f"it runs no PSF kernel")
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []

@@ -8,20 +8,29 @@ PyTorch, with the diversity-PSF measurement kernels as hand-written CUDA
 kernels for Hopper (csrc/).
 
 Layout (module and function names follow the JAX package):
-  ops/        zernike, zernike statistics, Karhunen-Loeve modes, phase
+  ops/        zernike, zernike statistics (grid propagation and the
+              spectral analytics), Karhunen-Loeve modes, phase
               statistics, phase screens, the conditional flow, partial
               DFT, PSF formation, the PSF kernel wrappers, Newton-KKT
-              solves
+              solves, block cyclic reduction; the Toeplitz-block-Toeplitz
+              operator, the relay projection (off-axis, LGS cone),
+              Fourier-AO error budget, telescope optics, paraxial ray
+              tracing, segmented pupils
   models/     VAR system ID, DM influence, estimator, MPC matrices,
               solvers, closed-loop engine, pipeline; the classical
               baseline: Shack-Hartmann and pyramid WFS, integrator,
-              detector/imager
-  parallel/   Monte-Carlo scenario batches, the scenario-sharded runner
+              detector/imager; slopes-MMSE reconstruction (NGS, zonal
+              tomography, LGS), laser guide star, modal tomography,
+              modal MCAO
+  parallel/   Monte-Carlo scenario batches, the scenario-sharded runner,
+              the tensor-parallel estimate, the horizon solve
   utils/      config, special functions, metrics, units, photometry,
-              grid tools, log book, display
+              grid tools, log book, display, profiling, checkpoints
   csrc/       CUDA sources, built with nvcc at first use
   benchmarks/ the kernel A/B, device peaks, roofline, the population,
               the classical-vs-MPC comparison
+  examples/   the JAX package's demos: closed loop, horizon sweep,
+              turbulence statistics, wavefront sensing, MCAO
   interop.py  carries the JAX package's operators across as numpy arrays
 
 Setup runs on the host in numpy float64 where precision matters; the

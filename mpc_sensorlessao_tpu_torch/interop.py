@@ -2,7 +2,9 @@
 
 The functions take the JAX ``LoopModels`` / ``FrozenFlowLayers`` /
 ``EdgeFlowModel`` / ``EdgeFlowState`` / ``SHModel`` / ``PyramidModel`` /
-``CalibrationVault`` / ``KLBasis`` fields as numpy arrays, keyed by the JAX field names -- either the JAX objects
+``CalibrationVault`` / ``KLBasis`` / ``TBTOperator`` / ``SlopesMMSE`` /
+``SlopesTomography`` / ``LGSSlopesMMSE`` / ``LGSModel`` /
+``ModalTomography`` / ``ModalMCAO`` fields as numpy arrays, keyed by the JAX field names -- either the JAX objects
 after ``jax.tree.map(np.asarray, ...)`` or plain mappings -- and return
 the port's objects on ``device``.  With them both engines can run the
 same operators, so a parity test holds the control step apart from the
@@ -17,8 +19,10 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from .models import closed_loop, estimator, integrator, mpc, pyramid, wfs
+from .models import closed_loop, estimator, integrator, lgs, mcao, mpc
+from .models import pyramid, slopes_mmse, tomography, wfs
 from .ops import edge_flow, karhunen_loeve, newton_kkt, phase_screens
+from .ops import toeplitz
 
 
 def _get(tree, name):
@@ -149,3 +153,82 @@ def kl_basis_from_numpy(kl, device) -> karhunen_loeve.KLBasis:
         to_zernike=_tensor(_get(kl, "to_zernike"), device),
         variances=_tensor(_get(kl, "variances"), device),
         stack=None if stack is None else _tensor(stack, device))
+
+
+def tbt_from_numpy(op, device) -> toeplitz.TBTOperator:
+    return toeplitz.build(tuple(int(v) for v in _get(op, "n_block")),
+                          tuple(int(v) for v in _get(op, "n_inner")),
+                          np.asarray(_get(op, "gen")), device)
+
+
+def _tbts(ops, device):
+    """Nested tuples of JAX TBTOperators -> the same tuples of the
+    port's."""
+    if isinstance(ops, (tuple, list)):
+        return tuple(_tbts(o, device) for o in ops)
+    return tbt_from_numpy(ops, device)
+
+
+def _valid_fields(model, device) -> dict:
+    valid = np.asarray(_get(model, "valid"), dtype=bool)
+    return dict(noise_var=float(np.asarray(_get(model, "noise_var"))),
+                valid=valid, n_lenslet=int(_get(model, "n_lenslet")),
+                sel=torch.as_tensor(np.flatnonzero(valid.ravel()),
+                                    device=device))
+
+
+def slopes_mmse_from_numpy(model, device) -> slopes_mmse.SlopesMMSE:
+    """SlopesMMSE from the JAX one (the valid-lenslet indices are made
+    from ``valid``)."""
+    return slopes_mmse.SlopesMMSE(
+        **{k: tbt_from_numpy(_get(model, k), device)
+           for k in ("cxx", "cyy", "cxy", "cox", "coy")},
+        **_valid_fields(model, device))
+
+
+def slopes_tomography_from_numpy(model,
+                                 device) -> slopes_mmse.SlopesTomography:
+    return slopes_mmse.SlopesTomography(
+        cxx_blocks=_tbts(_get(model, "cxx_blocks"), device),
+        cxx_blocks_t=_tbts(_get(model, "cxx_blocks_t"), device),
+        cox_blocks=_tbts(_get(model, "cox_blocks"), device),
+        n_gs=int(_get(model, "n_gs")), **_valid_fields(model, device))
+
+
+def lgs_slopes_mmse_from_numpy(model,
+                               device) -> slopes_mmse.LGSSlopesMMSE:
+    return slopes_mmse.LGSSlopesMMSE(
+        **{k: tbt_from_numpy(_get(model, k), device)
+           for k in ("cxx", "cyy", "cxy")},
+        cox_layers=_tbts(_get(model, "cox_layers"), device),
+        interp=tuple(_tensor(B, device) for B in _get(model, "interp")),
+        **_valid_fields(model, device))
+
+
+def lgs_model_from_numpy(model, device) -> lgs.LGSModel:
+    return lgs.LGSModel(
+        heights=_tensor(_get(model, "heights"), device),
+        weights=_tensor(_get(model, "weights"), device),
+        n_photon=float(np.asarray(_get(model, "n_photon"))),
+        launch=_tensor(_get(model, "launch"), device),
+        mean_altitude=float(np.asarray(_get(model, "mean_altitude"))))
+
+
+def tomography_from_numpy(model, device) -> tomography.ModalTomography:
+    return tomography.ModalTomography(
+        gain=_tensor(_get(model, "gain"), device),
+        err_cov=np.asarray(_get(model, "err_cov"), dtype=np.float64),
+        err_var_rad2=float(np.asarray(_get(model, "err_var_rad2"))),
+        strehl_marechal=float(np.asarray(_get(model, "strehl_marechal"))))
+
+
+def mcao_from_numpy(model, device) -> mcao.ModalMCAO:
+    return mcao.ModalMCAO(
+        command=_tensor(_get(model, "command"), device),
+        proj=tuple(_tensor(P, device) for P in _get(model, "proj")),
+        scao_var_rad2=float(np.asarray(_get(model, "scao_var_rad2"))),
+        mcao_var_rad2=float(np.asarray(_get(model, "mcao_var_rad2"))),
+        target_vars_rad2=np.asarray(_get(model, "target_vars_rad2"),
+                                    dtype=np.float64),
+        piston_free_var_rad2=float(np.asarray(
+            _get(model, "piston_free_var_rad2"))))

@@ -176,6 +176,11 @@ def build(cfg: DMConfig, basis: zernike.ZernikeBasis,
         coeff_a=cfg.coeff_a, coeff_b=cfg.coeff_b)
 
 
+def apply_correction(model: DMModel, u: torch.Tensor) -> torch.Tensor:
+    """Modal correction ad_cor = B u (README.md:590); batched matmul."""
+    return u @ model.influence.T
+
+
 def rad_to_volts(u: torch.Tensor, a: float, b: float,
                  rad_to_nm: float) -> torch.Tensor:
     """Inverse-quadratic voltage conversion (README.md:576-583):

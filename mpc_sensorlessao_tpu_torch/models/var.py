@@ -78,3 +78,62 @@ def stabilize(model: VARModel, max_radius: float = 0.999) -> VARModel:
     scales = torch.tensor([gamma ** j for j in range(1, model.order + 1)],
                           dtype=model.A.dtype, device=model.A.device)
     return VARModel(A=model.A * scales[:, None, None], order=model.order)
+
+
+def predict_one_step(model: VARModel, history: torch.Tensor) -> torch.Tensor:
+    """x_hat[k] from history[..., -j, :] = x[k-j]."""
+    out = 0.0
+    for j in range(1, model.order + 1):
+        out = out + history[..., -j, :] @ model.A[j - 1].T
+    return out
+
+
+def validate(model: VARModel, series: torch.Tensor):
+    """One-step-ahead predictions and per-mode RMSE / RRMSE over a window
+    (README.md:135-155); the window holds ``order`` warm-up samples at the
+    front.  Returns (pred, rmse, rrmse)."""
+    AA, BB = lag_matrix(series, model.order)
+    para = torch.cat([model.A[j - 1].T for j in range(1, model.order + 1)],
+                     dim=0)
+    pred = AA @ para
+    rmse = torch.sqrt(torch.mean((pred - BB) ** 2, dim=0))
+    spread = torch.amax(BB, dim=0) - torch.amin(BB, dim=0)
+    return pred, rmse, rmse / spread
+
+
+def _host_A(model: VARModel) -> list[np.ndarray]:
+    return [model.A[j].detach().cpu().numpy().astype(np.float64)
+            for j in range(model.order)]
+
+
+def innovation_covariance(model: VARModel, series) -> np.ndarray:
+    """(nx, nx) sample covariance of the one-step prediction residuals
+    over a series window (host float64 diagnostics)."""
+    s = np.asarray(series.detach().cpu() if torch.is_tensor(series)
+                   else series, dtype=np.float64)
+    p = model.order
+    AA = np.concatenate([s[p - j:len(s) - j] for j in range(1, p + 1)],
+                        axis=1)
+    para = np.concatenate([A.T for A in _host_A(model)], axis=0)
+    err = AA @ para - s[p:]
+    return err.T @ err / err.shape[0]
+
+
+def power_spectrum(model: VARModel, sigma_w, freqs, fs: float) -> np.ndarray:
+    """Two-sided PSD [state^2/Hz] of the VAR process at ``freqs`` [Hz],
+    sampled at ``fs``:  S(nu) = H Sigma_w H^H / fs with
+    H(nu) = (I - sum_j A_j e^{-i 2 pi nu j / fs})^{-1}.  Returns the
+    (len(freqs), nx) diagonal (host float64 diagnostics)."""
+    freqs = np.atleast_1d(np.asarray(freqs, dtype=np.float64))
+    Sw = np.asarray(sigma_w, dtype=np.float64)
+    A = _host_A(model)
+    out = np.empty((len(freqs), model.nx))
+    eye = np.eye(model.nx)
+    for i, nu in enumerate(freqs):
+        z = np.exp(-2j * np.pi * nu / fs)
+        M = eye.astype(complex)
+        for j, Aj in enumerate(A, start=1):
+            M -= Aj * z ** j
+        H = np.linalg.inv(M)
+        out[i] = np.real(np.diag(H @ Sw @ H.conj().T)) / fs
+    return out

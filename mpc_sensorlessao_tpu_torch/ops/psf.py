@@ -47,6 +47,18 @@ def psf_intensity(phase: torch.Tensor, pupil: torch.Tensor,
     return (shifted.real ** 2 + shifted.imag ** 2) * scale
 
 
+def cropped_psf_intensity_dft(phase: torch.Tensor, pupil: torch.Tensor,
+                              dft_op: torch.Tensor, scale: float,
+                              compute_dtype: str | None = None
+                              ) -> torch.Tensor:
+    """PSF crop via partial centered DFT matmuls: only the (2c+1)^2 window
+    the estimator consumes is computed.  The plain PyTorch path on any
+    device (psf_kernels.psf_crop_intensity_ref); ``compute_dtype=
+    "bfloat16"`` rounds the matmul operands as the JAX function does."""
+    return psf_kernels.psf_crop_intensity_ref(phase, pupil, dft_op, scale,
+                                              compute_dtype)
+
+
 def crop_center(im: torch.Tensor, half: int) -> torch.Tensor:
     """Central (2*half+1)^2 window around pixel R//2 (README.md:378-380)."""
     c = im.shape[-1] // 2

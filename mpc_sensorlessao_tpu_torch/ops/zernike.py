@@ -35,6 +35,10 @@ def mode_indices(radial_order: int) -> Tuple[Tuple[int, int], ...]:
     return tuple(modes)
 
 
+def n_modes(radial_order: int) -> int:
+    return (radial_order + 1) * (radial_order + 2) // 2
+
+
 @lru_cache(maxsize=None)
 def radial_coeff_table(radial_order: int) -> np.ndarray:
     """Dense (n_modes, radial_order+1) table C with
@@ -173,3 +177,11 @@ def piston_removed_phase_masked(phase: torch.Tensor, mask: torch.Tensor,
     msk = mask.to(phase.dtype)
     mean = torch.sum(phase * msk, dim=(-2, -1), keepdim=True) / mask_npix
     return (phase - mean) * msk
+
+
+def piston_removed_phase(basis: ZernikeBasis,
+                         phase: torch.Tensor) -> torch.Tensor:
+    """Mean-removed phase inside the pupil mask, zero outside
+    (stochasticWave.meanRmPhase, stochasticWave.m:132-142)."""
+    mask = basis.mask.to(phase.dtype)
+    return piston_removed_phase_masked(phase, mask, torch.sum(mask))

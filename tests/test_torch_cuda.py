@@ -1011,3 +1011,163 @@ def test_classical_row_on_card(cuda_device):
         [r["mean_rms_res"] for r in card["runs"]["integrator"]],
         [r["mean_rms_res"] for r in cpu["runs"]["integrator"]], rtol=1e-4)
     assert card["mpc"]["strehl_exact"] > 0.9
+
+
+# ------------------------------------------- ROADMAP A.12: the MCAO slice
+
+def _a12_problem(kind, dev, sigma_px, n=4):
+    """The wfs demo's problem (10x10 SH at R=80) for the NGS, 3-GS
+    tomographic (8 km layer, 10" triangle) or H=20 km LGS reconstructor
+    on ``dev``, and n numpy-seeded slope frames."""
+    from mpc_sensorlessao_tpu_torch.models import slopes_mmse, wfs
+    from mpc_sensorlessao_tpu_torch.ops import phase_screens
+    from mpc_sensorlessao_tpu_torch.utils.config import AtmosphereConfig
+    R, NL, pitch = 80, 10, 1.0 / 79
+    alt = 0.0 if kind == "ngs" else 8000.0
+    atm = AtmosphereConfig(fractional_r0=(1.0,), altitudes=(alt,),
+                           wind_speeds=(5.0,), wind_directions=(0.0,))
+    sh = wfs.build(R, NL, device="cpu")
+    nv = (sigma_px / pitch) ** 2
+    th = 10 * np.pi / 180 / 3600
+    gs = [(th, 0.0), (-th / 2, th * 0.866), (-th / 2, -th * 0.866)]
+    n_gs = 3 if kind == "tomo" else 1
+    scr = np.stack([phase_screens.synthesize_screen(s, atm, R, pitch)[:R, :R]
+                    * 0.3 for s in range(7, 7 + n * n_gs)])
+    ph = torch.as_tensor(scr - scr.mean(axis=(-2, -1), keepdims=True))
+    sl = wfs.geometric_slopes(sh, ph.float())
+    if kind == "tomo":
+        sl = sl.reshape(n, n_gs, -1)
+
+    def build(d):
+        if kind == "ngs":
+            return slopes_mmse.build(atm, 1.0, NL, sh.valid, nv, device=d)
+        if kind == "tomo":
+            return slopes_mmse.build_tomographic(atm, 1.0, NL, sh.valid, nv,
+                                                 gs, device=d)
+        return slopes_mmse.build_lgs(atm, 1.0, NL, sh.valid, nv, 20e3,
+                                     device=d)
+    rec = {"ngs": slopes_mmse.reconstruct,
+           "tomo": slopes_mmse.reconstruct_tomographic,
+           "lgs": slopes_mmse.reconstruct_lgs}[kind]
+    return build(dev), build("cpu"), sl, rec, pitch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ngs", "tomo", "lgs"])
+def test_slopes_mmse_cg_on_card_matches_cpu(cuda_device, kind):
+    """The batched CG on the card against the CPU: at a fixed depth of 4
+    iterations and on a well-conditioned batch (0.3 px noise) the maps
+    within 1e-4 of their RMS and the same iteration counts; at the demo's
+    0.02 px and tol 5e-2 (float32 CG not reproducible deeper) each
+    answer's true residual within tol, the map RMS within 5% and the
+    depth within 10% (or 2 iterations)."""
+    from mpc_sensorlessao_tpu_torch.models import slopes_mmse
+    for sigma, kw in ((0.02, dict(tol=0.0, maxit=4)), (0.3, {}),
+                      (0.02, {})):
+        card, cpu, sl, rec, pitch = _a12_problem(kind, cuda_device, sigma)
+        got, it = rec(card, sl.to(cuda_device), pitch, return_iters=True,
+                      **kw)
+        want, want_it = rec(cpu, sl, pitch, return_iters=True, **kw)
+        rms = want.pow(2).mean(dim=(-2, -1)).sqrt()
+        err = (got.cpu() - want).abs().amax(dim=(-2, -1))
+        if kw or sigma == 0.3:
+            assert torch.equal(it.cpu(), want_it)
+            assert (err <= 1e-4 * rms).all(), err / rms
+        else:
+            # the depth too is chaotic there: within 10% (or 2)
+            assert ((it.cpu() - want_it).abs()
+                    <= torch.clamp(0.1 * want_it, min=2)).all()
+            torch.testing.assert_close(got.std(dim=(-2, -1)).cpu(),
+                                       want.std(dim=(-2, -1)), rtol=0.05,
+                                       atol=0)
+            y, _ = slopes_mmse.solve(card, sl.to(cuda_device), pitch)
+            res = slopes_mmse.relative_residual(card, sl.to(cuda_device),
+                                                pitch, y)
+            assert (res <= 5e-2).all(), res
+
+
+@pytest.mark.gpu
+def test_relay_lgs_and_raytrace_on_card_match_cpu(cuda_device):
+    """project_layers (off-axis, LGS cone) on a batch of screens,
+    elongate_spots with an even and an odd kernel width, and trace on
+    1e5 rays: card against CPU, atol 1e-5 of the peak."""
+    from mpc_sensorlessao_tpu_torch.models import lgs, wfs
+    from mpc_sensorlessao_tpu_torch.ops import raytrace, relay
+    rng = np.random.default_rng(0)
+    scr = [torch.as_tensor(rng.normal(size=(4, n, n)), dtype=torch.float32)
+           for n in (192, 160)]
+    for kw in (dict(direction=(5e-5, -2e-5)),
+               dict(direction=(2e-5, 0.0), source_height=90e3)):
+        want = relay.project_layers(scr, [1 / 47, 1 / 40], 0.5,
+                                    (0.0, 8000.0), 48, **kw)
+        got = relay.project_layers([s.to(cuda_device) for s in scr],
+                                   [1 / 47, 1 / 40], 0.5, (0.0, 8000.0), 48,
+                                   **kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    heights = 1e3 * (np.arange(-5, 6) + 90.0)
+    pos = lgs.subaperture_positions(10, 1.0)
+    sh = wfs.build(80, 10, device="cpu")
+    spots = wfs.spot_frames(sh, torch.as_tensor(
+        rng.normal(0, 0.5, (2, 80, 80)), dtype=torch.float32))
+    for kw_px in (8, 9):
+        ker = [lgs.elongation_kernels(lgs.build(heights, launch=(-0.5, 0.0),
+                                                device=d), pos, 2e-7, kw_px,
+                                      1.5) for d in ("cpu", cuda_device)]
+        torch.testing.assert_close(ker[1].cpu(), ker[0], rtol=0, atol=1e-6)
+        want = lgs.elongate_spots(spots, ker[0])
+        got = lgs.elongate_spots(spots.to(cuda_device), ker[1])
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    chain = [raytrace.free_space(0.3, stop_width=0.08),
+             raytrace.curved_mirror(1.0, offset=0.002, stop_width=0.05),
+             raytrace.thin_lens(0.2)]
+    rays = torch.as_tensor(rng.normal(0, [0.02, 0.01], (100_000, 2)),
+                           dtype=torch.float32)
+    want = raytrace.trace(chain, rays)
+    got = raytrace.trace(chain, rays.to(cuda_device))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=1e-7)
+    assert torch.equal(got[1].cpu(), want[1]) and got[2:] == want[2:]
+
+
+@pytest.mark.gpu
+def test_mcao_monte_carlo_on_card_matches_cpu(cuda_device):
+    """The MCAO demo's batched Monte-Carlo (relay -> piston removal ->
+    fit -> correct -> correction_coeffs) over 8 screen pairs: card
+    against CPU, rtol 1e-4."""
+    from mpc_sensorlessao_tpu_torch.examples import mcao_demo
+    from mpc_sensorlessao_tpu_torch.models import mcao
+    from mpc_sensorlessao_tpu_torch.utils.config import AtmosphereConfig
+    atm = AtmosphereConfig(fractional_r0=(0.6, 0.4), altitudes=(0.0, 8000.0),
+                           wind_speeds=(5.0, 5.0), wind_directions=(0.0, 0.0))
+    th = 10 * np.pi / 180 / 3600
+    gs = [(th, 0.0), (-th / 2, th * 0.866), (-th / 2, -th * 0.866)]
+    sci = [(0.0, 0.0), (th, 0.0)]
+    dms = [mcao.DMLayer(0.0, 3), mcao.DMLayer(8000.0, 3, skip_modes=3)]
+    out = {}
+    for d in (cuda_device, "cpu"):
+        m = mcao.build(atm, 1.0, 4 * th, dms, 3, gs, sci, device=d)
+        out[str(d)] = mcao_demo.monte_carlo(m, atm, sci + gs, 2, 3, 8, d)
+    np.testing.assert_allclose(out[str(cuda_device)], out["cpu"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_a12_demos_on_card_match_the_jax_record(cuda_device):
+    """wfs_demo and mcao_demo on the card against the JAX demos' numbers
+    (examples/demo_reference.json), at tests/test_torch_demos.py's
+    tolerances."""
+    import json
+    from pathlib import Path
+    from mpc_sensorlessao_tpu_torch.examples import mcao_demo, wfs_demo
+    ref = json.loads((Path(wfs_demo.__file__).parent
+                      / "demo_reference.json").read_text())
+    w = wfs_demo.main(cuda_device)
+    assert w["tomography_error_rad2"] == pytest.approx(
+        ref["wfs"]["tomography_error_rad2"], rel=1e-6)
+    assert w["mmse_rms"] == pytest.approx(ref["wfs"]["mmse_rms"], rel=0.05)
+    m = mcao_demo.main(cuda_device)
+    np.testing.assert_allclose(m["two_dm"]["target_vars_rad2"],
+                               ref["mcao"]["two_dm"]["target_vars_rad2"],
+                               rtol=1e-6)
+    np.testing.assert_allclose(m["monte_carlo_rad2"],
+                               ref["mcao"]["monte_carlo_rad2"], rtol=1e-3)

@@ -38,13 +38,18 @@ from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
 from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
+from mpc_sensorlessao_tpu_torch.examples import closed_loop_demo, mcao_demo
+from mpc_sensorlessao_tpu_torch.examples import horizon_sweep_demo, wfs_demo
 from mpc_sensorlessao_tpu_torch.models import closed_loop, dm, estimator
 from mpc_sensorlessao_tpu_torch.models import imaging, mpc, pipeline
+from mpc_sensorlessao_tpu_torch.models import lgs, mcao, slopes_mmse
 from mpc_sensorlessao_tpu_torch.models import pyramid, solvers, var, wfs
+from mpc_sensorlessao_tpu_torch.models import tomography
 from mpc_sensorlessao_tpu_torch.ops import dft, edge_flow, karhunen_loeve
 from mpc_sensorlessao_tpu_torch.ops import newton_kkt
 from mpc_sensorlessao_tpu_torch.ops import phase_screens
-from mpc_sensorlessao_tpu_torch.ops import psf, psf_kernels, zernike
+from mpc_sensorlessao_tpu_torch.ops import psf, psf_kernels, toeplitz
+from mpc_sensorlessao_tpu_torch.ops import zernike
 from mpc_sensorlessao_tpu_torch.parallel import dryrun, estimator_tp
 from mpc_sensorlessao_tpu_torch.parallel import horizon, mesh, montecarlo
 from mpc_sensorlessao_tpu_torch.parallel import multihost
@@ -801,7 +806,9 @@ def test_kernel_variants_agree_on_cpu():
     "extension_operators", "scenario_mesh", "tp_mesh", "hz_mesh", "spawn",
     "dryrun_multichip", "multihost_main", "montecarlo_100k",
     "multiprocess", "wfs", "pyramid", "karhunen_loeve", "gaussian_frame",
-    "classical_row", "classical_vs_mpc"])
+    "classical_row", "classical_vs_mpc", "toeplitz", "slopes_mmse",
+    "slopes_tomography", "slopes_lgs", "lgs", "tomography", "mcao",
+    "wfs_demo", "mcao_demo", "closed_loop_demo", "horizon_sweep_demo"])
 def test_builders_default_to_the_card(builder, monkeypatch):
     """Every builder runs on the card unless the caller passes "cpu":
     without a CUDA device, a call that names no device raises."""
@@ -847,6 +854,25 @@ def test_builders_default_to_the_card(builder, monkeypatch):
             classical_vs_mpc.row_cfg(32, 5.0, 2)),
         "classical_vs_mpc": lambda: classical_vs_mpc.main(
             ["32"], {"CVM_DR0": "5", "CVM_STEPS": "2"}),
+        "toeplitz": lambda: toeplitz.build((2, 2), (2, 2), np.ones((3, 3))),
+        "slopes_mmse": lambda: slopes_mmse.build(
+            cfg.atmosphere, 1.0, 4, np.ones((4, 4), bool), 1.0, nf=64),
+        "slopes_tomography": lambda: slopes_mmse.build_tomographic(
+            cfg.atmosphere, 1.0, 4, np.ones((4, 4), bool), 1.0,
+            [(0.0, 0.0), (1e-5, 0.0)], nf=64),
+        "slopes_lgs": lambda: slopes_mmse.build_lgs(
+            cfg.atmosphere, 1.0, 4, np.ones((4, 4), bool), 1.0, 90e3,
+            nf=64),
+        "lgs": lambda: lgs.build([89e3, 90e3, 91e3]),
+        "tomography": lambda: tomography.build(cfg.atmosphere.layer(0), 1.0,
+                                               1, [(0.0, 0.0)]),
+        "mcao": lambda: mcao.build(cfg.atmosphere.layer(0), 1.0, 1e-4,
+                                   [mcao.DMLayer(0.0, 1)], 1, [(0.0, 0.0)],
+                                   resolution=16),
+        "wfs_demo": lambda: wfs_demo.main(),
+        "mcao_demo": lambda: mcao_demo.main(n_mc=2),
+        "closed_loop_demo": lambda: closed_loop_demo.main(n_test=2),
+        "horizon_sweep_demo": lambda: horizon_sweep_demo.main(n_test=2),
     }
     for var in ("MC1_DEVICE", "MP_DEVICE"):
         monkeypatch.delenv(var, raising=False)
