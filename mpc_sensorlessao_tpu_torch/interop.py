@@ -170,16 +170,14 @@ def _tbts(ops, device):
 
 
 def _valid_fields(model, device) -> dict:
-    valid = np.asarray(_get(model, "valid"), dtype=bool)
     return dict(noise_var=float(np.asarray(_get(model, "noise_var"))),
-                valid=valid, n_lenslet=int(_get(model, "n_lenslet")),
-                sel=torch.as_tensor(np.flatnonzero(valid.ravel()),
-                                    device=device))
+                n_lenslet=int(_get(model, "n_lenslet")),
+                **slopes_mmse._valid_fields(_get(model, "valid"), device))
 
 
 def slopes_mmse_from_numpy(model, device) -> slopes_mmse.SlopesMMSE:
-    """SlopesMMSE from the JAX one (the valid-lenslet indices are made
-    from ``valid``)."""
+    """SlopesMMSE from the JAX one (the valid-lenslet indices and mask
+    are made from ``valid``)."""
     return slopes_mmse.SlopesMMSE(
         **{k: tbt_from_numpy(_get(model, k), device)
            for k in ("cxx", "cyy", "cxy", "cox", "coy")},

@@ -55,7 +55,9 @@ class SlopesMMSE:
     """Precomputed TBT covariance operators (tensors on one device).
 
     sel: (n_valid,) int64 indices of the valid lenslets in the row-major
-    nl^2 lattice, made once from ``valid`` (host bool map)."""
+    nl^2 lattice and mask2: (2 nl^2,) float 0/1 valid-slope mask of the
+    stacked (x, y) lattice, both made once from ``valid`` (host bool
+    map)."""
 
     cxx: toeplitz.TBTOperator      # <s_x s_x> on the nl^2 lattice
     cyy: toeplitz.TBTOperator
@@ -66,6 +68,7 @@ class SlopesMMSE:
     valid: np.ndarray              # (nl, nl) bool valid-lenslet map
     n_lenslet: int
     sel: torch.Tensor
+    mask2: torch.Tensor
 
     @property
     def n_phase(self) -> int:
@@ -131,10 +134,14 @@ def _kernels(atm: AtmosphereConfig, d: float, n_lenslet: int,
     return cxx, cyy, cxy, kox, koy
 
 
-def _valid_index(valid, device) -> tuple[np.ndarray, torch.Tensor]:
+def _valid_fields(valid, device) -> dict:
+    """``valid``, ``sel`` and ``mask2`` of a reconstructor, from the
+    (nl, nl) valid-lenslet map."""
     valid = np.asarray(valid, dtype=bool)
-    return valid, torch.as_tensor(np.flatnonzero(valid.ravel()),
-                                  device=device)
+    m = valid.ravel().astype(np.float32)
+    return dict(valid=valid,
+                sel=torch.as_tensor(np.flatnonzero(m), device=device),
+                mask2=torch.as_tensor(np.concatenate([m, m]), device=device))
 
 
 def build(atm: AtmosphereConfig, diameter: float, n_lenslet: int,
@@ -155,21 +162,14 @@ def build(atm: AtmosphereConfig, diameter: float, n_lenslet: int,
                                        mmse_dir=tuple(mmse_dir), lag=lag)
     m2 = float(mag) ** 2
     nl = n_lenslet
-    valid, sel = _valid_index(valid, device)
     return SlopesMMSE(
         cxx=toeplitz.build((nl, nl), (nl, nl), kxx * m2, device),
         cyy=toeplitz.build((nl, nl), (nl, nl), kyy * m2, device),
         cxy=toeplitz.build((nl, nl), (nl, nl), kxy * m2, device),
         cox=toeplitz.build((nl + 1, nl), (nl + 1, nl), kox * m2, device),
         coy=toeplitz.build((nl + 1, nl), (nl + 1, nl), koy * m2, device),
-        noise_var=float(np.float32(noise_var)),
-        valid=valid, n_lenslet=nl, sel=sel)
-
-
-def _mask2(model, v: torch.Tensor) -> torch.Tensor:
-    m = torch.zeros(model.n_lenslet ** 2, dtype=v.dtype, device=v.device)
-    m[model.sel] = 1.0
-    return torch.cat([m, m])
+        noise_var=float(np.float32(noise_var)), n_lenslet=nl,
+        **_valid_fields(valid, device))
 
 
 def _apply_cxx(model, v: torch.Tensor) -> torch.Tensor:
@@ -178,7 +178,7 @@ def _apply_cxx(model, v: torch.Tensor) -> torch.Tensor:
     Invalid-lenslet entries are zeroed in and out, with the noise diagonal
     keeping those rows trivially invertible.
     """
-    mask2 = _mask2(model, v)
+    mask2 = model.mask2
     vm = v * mask2
     sx, sy = torch.chunk(vm, 2, dim=-1)
     yx = toeplitz.matvec(model.cxx, sx) + toeplitz.matvec(model.cxy, sy)
@@ -233,27 +233,21 @@ def _scatter(model, slopes: torch.Tensor, pitch: float) -> torch.Tensor:
     return full.reshape(*slopes.shape[:-1], 2 * nl2)
 
 
-def _result(phi: torch.Tensor, lead, nl: int, it, return_iters: bool):
-    phi = phi.reshape(*lead, nl + 1, nl + 1)
-    return (phi, it.reshape(lead)) if return_iters else phi
-
-
 def reconstruct(model: SlopesMMSE, slopes: torch.Tensor, pitch: float,
-                tol: float = 5e-2, maxit: int = 100,
-                return_iters: bool = False):
+                tol: float = 5e-2, maxit: int = 100) -> torch.Tensor:
     """Slopes -> (..., nl+1, nl+1) phase map [rad].
 
     ``slopes``: (..., 2 n_valid) [rad/px] from wfs.geometric_slopes (x
     block then y block), any leading batch dims; ``pitch``: phase-grid
-    pixel pitch [m] (converts to rad/m).  ``return_iters`` also returns
-    each row's CG iteration count (leading dims).
+    pixel pitch [m] (converts to rad/m).  Each row's CG iteration count
+    is ``solve(...)[1]``.
     """
     lead = slopes.shape[:-1]
-    y, it = solve(model, slopes.reshape(-1, slopes.shape[-1]), pitch, tol,
-                  maxit)
+    y, _ = solve(model, slopes.reshape(-1, slopes.shape[-1]), pitch, tol,
+                 maxit)
     yx, yy = torch.chunk(y, 2, dim=-1)
     phi = toeplitz.matvec(model.cox, yx) + toeplitz.matvec(model.coy, yy)
-    return _result(phi, lead, model.n_lenslet, it, return_iters)
+    return phi.reshape(*lead, model.n_lenslet + 1, model.n_lenslet + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -329,6 +323,7 @@ class SlopesTomography:
     n_lenslet: int
     n_gs: int
     sel: torch.Tensor
+    mask2: torch.Tensor
 
 
 def build_tomographic(atm: AtmosphereConfig, diameter: float,
@@ -362,11 +357,10 @@ def build_tomographic(atm: AtmosphereConfig, diameter: float,
         cox.append((tbt((nl + 1, nl), kox), tbt((nl + 1, nl), koy)))
     cxx_t = tuple(tuple(toeplitz.transpose(op) for op in blk)
                   for blk in cxx)
-    valid, sel = _valid_index(valid, device)
     return SlopesTomography(
         cxx_blocks=tuple(cxx), cxx_blocks_t=cxx_t, cox_blocks=tuple(cox),
-        noise_var=float(np.float32(noise_var)), valid=valid, n_lenslet=nl,
-        n_gs=n_gs, sel=sel)
+        noise_var=float(np.float32(noise_var)), n_lenslet=nl, n_gs=n_gs,
+        **_valid_fields(valid, device))
 
 
 def _pair_index(i, j, n):
@@ -394,7 +388,7 @@ def _apply_cxx_tomo(model: SlopesTomography,
     lattice."""
     nl = model.n_lenslet
     n_gs = model.n_gs
-    mask2 = _mask2(model, v)
+    mask2 = model.mask2
     V = v.reshape(*v.shape[:-1], n_gs, 2 * nl * nl)
     Vm = V * mask2
     out = []
@@ -413,12 +407,12 @@ def _apply_cxx_tomo(model: SlopesTomography,
 
 def reconstruct_tomographic(model: SlopesTomography, slopes: torch.Tensor,
                             pitch: float, tol: float = 5e-2,
-                            maxit: int = 150, return_iters: bool = False):
+                            maxit: int = 150) -> torch.Tensor:
     """(..., n_gs, 2 n_valid) stacked guide-star slopes [rad/px] ->
     (..., nl+1, nl+1) science-direction phase [rad]."""
     nl = model.n_lenslet
     lead = slopes.shape[:-2]
-    y, it = solve(model, slopes.reshape(-1, *slopes.shape[-2:]), pitch, tol,
+    y, _ = solve(model, slopes.reshape(-1, *slopes.shape[-2:]), pitch, tol,
                   maxit)
     Y = y.reshape(-1, model.n_gs, 2, nl * nl)
     phi = 0.0
@@ -426,7 +420,7 @@ def reconstruct_tomographic(model: SlopesTomography, slopes: torch.Tensor,
         ox, oy = model.cox_blocks[g]
         phi = phi + toeplitz.matvec(ox, Y[:, g, 0]) \
             + toeplitz.matvec(oy, Y[:, g, 1])
-    return _result(phi, lead, nl, it, return_iters)
+    return phi.reshape(*lead, nl + 1, nl + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +455,7 @@ class LGSSlopesMMSE:
     valid: np.ndarray
     n_lenslet: int
     sel: torch.Tensor
+    mask2: torch.Tensor
 
 
 def _cone_cox_kernels(slab, d: float, g: float, n_lenslet: int, pad: int,
@@ -531,31 +526,31 @@ def build_lgs(atm: AtmosphereConfig, diameter: float, n_lenslet: int,
         li, lj = np.meshgrid(lat_1d, lat_1d, indexing="ij")
         interps.append(torch.as_tensor(gridtools.bilinear_interp_matrix(
             cj, ci, lj, li, g * d), dtype=torch.float32, device=device))
-    valid, sel = _valid_index(valid, device)
     return LGSSlopesMMSE(
         cxx=toeplitz.build((nl, nl), (nl, nl), kxx * m2, device),
         cyy=toeplitz.build((nl, nl), (nl, nl), kyy * m2, device),
         cxy=toeplitz.build((nl, nl), (nl, nl), kxy * m2, device),
         cox_layers=tuple(cox_ops), interp=tuple(interps),
-        noise_var=float(np.float32(noise_var)), valid=valid, n_lenslet=nl,
-        sel=sel)
+        noise_var=float(np.float32(noise_var)), n_lenslet=nl,
+        **_valid_fields(valid, device))
 
 
 def reconstruct_lgs(model: LGSSlopesMMSE, slopes: torch.Tensor,
-                    pitch: float, tol: float = 5e-2, maxit: int = 100,
-                    return_iters: bool = False):
+                    pitch: float, tol: float = 5e-2,
+                    maxit: int = 100) -> torch.Tensor:
     """LGS slopes (..., 2 n_valid) [rad/px] -> (..., nl+1, nl+1) science
     pupil phase [rad]: CG on the shared (Cxx + sigma^2) operator, then
     per-layer Cox apply + bilinear interpolation sum."""
     lead = slopes.shape[:-1]
-    y, it = solve(model, slopes.reshape(-1, slopes.shape[-1]), pitch, tol,
-                  maxit)
+    y, _ = solve(model, slopes.reshape(-1, slopes.shape[-1]), pitch, tol,
+                 maxit)
     yx, yy = torch.chunk(y, 2, dim=-1)
     phi = 0.0
     for (ox, oy), B in zip(model.cox_layers, model.interp):
         phi_l = toeplitz.matvec(ox, yx) + toeplitz.matvec(oy, yy)
         phi = phi + phi_l @ B.T
-    return _result(phi, lead, model.n_lenslet, it, return_iters)
+    nl = model.n_lenslet
+    return phi.reshape(*lead, nl + 1, nl + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -579,7 +574,7 @@ def solve(model, slopes: torch.Tensor, pitch: float, tol: float = 5e-2,
 
 def _float64(v):
     if isinstance(v, toeplitz.TBTOperator):
-        return dataclasses.replace(v, gen=v.gen.double())
+        return toeplitz.of_generator(v.gen.double(), v.n_block, v.n_inner)
     if isinstance(v, tuple):
         return tuple(_float64(w) for w in v)
     return v

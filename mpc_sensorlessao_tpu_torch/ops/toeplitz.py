@@ -34,11 +34,15 @@ import torch
 @dataclass(frozen=True)
 class TBTOperator:
     """gen: (nBr+nBc-1, nR+nC-1) float32 generator tensor on the
-    operator's device; the block and inner shapes are plain ints."""
+    operator's device; the block and inner shapes are plain ints.
+    ``spec`` is the generator's rfft2 at ``fft_shape``, the size of the
+    FFT embedding, made once with the operator (``of_generator``)."""
 
     gen: torch.Tensor
     n_block: Tuple[int, int]
     n_inner: Tuple[int, int]
+    fft_shape: Tuple[int, int]
+    spec: torch.Tensor
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -49,28 +53,6 @@ class TBTOperator:
     def compression(self) -> float:
         """Dense elements per stored element."""
         return (self.shape[0] * self.shape[1]) / self.gen.numel()
-
-
-def build(n_block: Tuple[int, int], n_inner: Tuple[int, int], gen,
-          device: torch.device | str = "cuda") -> TBTOperator:
-    nBr, nBc = n_block
-    nR, nC = n_inner
-    gen = torch.as_tensor(np.array(gen, dtype=np.float32), device=device)
-    if tuple(gen.shape) != (nBr + nBc - 1, nR + nC - 1):
-        raise ValueError(f"generator shape {tuple(gen.shape)} does not "
-                         f"match blocks {n_block} x inner {n_inner}")
-    return TBTOperator(gen, (nBr, nBc), (nR, nC))
-
-
-def from_stationary(cov_fn, n: int, pitch: float,
-                    device: torch.device | str = "cuda") -> TBTOperator:
-    """Square TBT operator of a stationary 2-D kernel on an n x n grid:
-    dense[(p1),(p2)] = cov_fn(|r1 - r2|); ``cov_fn`` is a vectorized host
-    function of separation [m]."""
-    d = np.arange(-(n - 1), n)
-    dx, dy = np.meshgrid(d * pitch, d * pitch)
-    gen = np.asarray(cov_fn(np.hypot(dx, dy)), dtype=np.float32)
-    return build((n, n), (n, n), gen, device)
 
 
 def _fft_size(n: int) -> int:
@@ -86,6 +68,38 @@ def _fft_size(n: int) -> int:
         m += 1
 
 
+def of_generator(gen: torch.Tensor, n_block: Tuple[int, int],
+                 n_inner: Tuple[int, int]) -> TBTOperator:
+    """The operator of a generator tensor (any float dtype and device),
+    with its spectrum at the embedding's FFT size."""
+    s = (_fft_size(n_block[0] + n_block[1] - 1),
+         _fft_size(n_inner[0] + n_inner[1] - 1))
+    return TBTOperator(gen, tuple(n_block), tuple(n_inner), s,
+                       torch.fft.rfft2(gen, s=s))
+
+
+def build(n_block: Tuple[int, int], n_inner: Tuple[int, int], gen,
+          device: torch.device | str = "cuda") -> TBTOperator:
+    nBr, nBc = n_block
+    nR, nC = n_inner
+    gen = torch.as_tensor(np.array(gen, dtype=np.float32), device=device)
+    if tuple(gen.shape) != (nBr + nBc - 1, nR + nC - 1):
+        raise ValueError(f"generator shape {tuple(gen.shape)} does not "
+                         f"match blocks {n_block} x inner {n_inner}")
+    return of_generator(gen, (nBr, nBc), (nR, nC))
+
+
+def from_stationary(cov_fn, n: int, pitch: float,
+                    device: torch.device | str = "cuda") -> TBTOperator:
+    """Square TBT operator of a stationary 2-D kernel on an n x n grid:
+    dense[(p1),(p2)] = cov_fn(|r1 - r2|); ``cov_fn`` is a vectorized host
+    function of separation [m]."""
+    d = np.arange(-(n - 1), n)
+    dx, dy = np.meshgrid(d * pitch, d * pitch)
+    gen = np.asarray(cov_fn(np.hypot(dx, dy)), dtype=np.float32)
+    return build((n, n), (n, n), gen, device)
+
+
 def matvec(op: TBTOperator, x: torch.Tensor) -> torch.Tensor:
     """y = T x on the (block, inner) grid, by FFT embedding.
 
@@ -97,9 +111,9 @@ def matvec(op: TBTOperator, x: torch.Tensor) -> torch.Tensor:
     nBr, nBc = op.n_block
     nR, nC = op.n_inner
     lead = x.shape[:-1]
-    s = (_fft_size(nBr + nBc - 1), _fft_size(nR + nC - 1))
+    s = op.fft_shape
     X = torch.fft.rfft2(x.reshape(*lead, nBc, nC), s=s)
-    y = torch.fft.irfft2(X * torch.fft.rfft2(op.gen, s=s), s=s)
+    y = torch.fft.irfft2(X * op.spec, s=s)
     y = y[..., nBc - 1:nBc - 1 + nBr, nC - 1:nC - 1 + nR]
     return y.reshape(*lead, nBr * nR)
 
@@ -118,9 +132,9 @@ def full(op: TBTOperator) -> np.ndarray:
 
 def transpose(op: TBTOperator) -> TBTOperator:
     """T' -- the generator flipped both ways."""
-    return TBTOperator(torch.flip(op.gen, (0, 1)),
-                       (op.n_block[1], op.n_block[0]),
-                       (op.n_inner[1], op.n_inner[0]))
+    return of_generator(torch.flip(op.gen, (0, 1)),
+                        (op.n_block[1], op.n_block[0]),
+                        (op.n_inner[1], op.n_inner[0]))
 
 
 def solve(op: TBTOperator, b) -> np.ndarray:

@@ -1018,9 +1018,11 @@ def test_classical_row_on_card(cuda_device):
 def _a12_problem(kind, dev, sigma_px, n=4):
     """The wfs demo's problem (10x10 SH at R=80) for the NGS, 3-GS
     tomographic (8 km layer, 10" triangle) or H=20 km LGS reconstructor
-    on ``dev``, and n numpy-seeded slope frames."""
+    on ``dev``, and n frames of numpy-seeded screens, each seen as that
+    system sees it (projected into each guide star's direction, or onto
+    the LGS cone)."""
     from mpc_sensorlessao_tpu_torch.models import slopes_mmse, wfs
-    from mpc_sensorlessao_tpu_torch.ops import phase_screens
+    from mpc_sensorlessao_tpu_torch.ops import phase_screens, relay
     from mpc_sensorlessao_tpu_torch.utils.config import AtmosphereConfig
     R, NL, pitch = 80, 10, 1.0 / 79
     alt = 0.0 if kind == "ngs" else 8000.0
@@ -1030,13 +1032,16 @@ def _a12_problem(kind, dev, sigma_px, n=4):
     nv = (sigma_px / pitch) ** 2
     th = 10 * np.pi / 180 / 3600
     gs = [(th, 0.0), (-th / 2, th * 0.866), (-th / 2, -th * 0.866)]
-    n_gs = 3 if kind == "tomo" else 1
-    scr = np.stack([phase_screens.synthesize_screen(s, atm, R, pitch)[:R, :R]
-                    * 0.3 for s in range(7, 7 + n * n_gs)])
-    ph = torch.as_tensor(scr - scr.mean(axis=(-2, -1), keepdims=True))
-    sl = wfs.geometric_slopes(sh, ph.float())
+    scr = torch.as_tensor(np.stack([phase_screens.synthesize_screen(
+        s, atm, 192, pitch, oversample=1) * 0.3 for s in range(7, 7 + n)]))
+
+    def seen(**kw):
+        return wfs.geometric_slopes(sh, relay.project_layers(
+            [scr], [pitch], 0.5, atm.altitudes, R, **kw))
     if kind == "tomo":
-        sl = sl.reshape(n, n_gs, -1)
+        sl = torch.stack([seen(direction=g) for g in gs], dim=1)
+    else:
+        sl = seen(source_height=20e3 if kind == "lgs" else float("inf"))
 
     def build(d):
         if kind == "ngs":
@@ -1057,33 +1062,35 @@ def _a12_problem(kind, dev, sigma_px, n=4):
 def test_slopes_mmse_cg_on_card_matches_cpu(cuda_device, kind):
     """The batched CG on the card against the CPU: at a fixed depth of 4
     iterations and on a well-conditioned batch (0.3 px noise) the maps
-    within 1e-4 of their RMS and the same iteration counts; at the demo's
-    0.02 px and tol 5e-2 (float32 CG not reproducible deeper) each
-    answer's true residual within tol, the map RMS within 5% and the
-    depth within 10% (or 2 iterations)."""
+    within 1e-4 of their RMS and the same iteration counts (depth 6 read
+    1.1e-4 on the tomographic problem: rounding grows ~6x an iteration);
+    at the demo's 0.02 px and tol 5e-2, where the float32 CG is not
+    reproducible (depths 3 apart in 63 were read), the map RMS within 5%,
+    the depth within 10% (or 2 iterations) and each card answer a
+    solution of the CPU's system to 1.2 x tol in float64."""
     from mpc_sensorlessao_tpu_torch.models import slopes_mmse
-    for sigma, kw in ((0.02, dict(tol=0.0, maxit=4)), (0.3, {}),
-                      (0.02, {})):
+    maxit = 150 if kind == "tomo" else 100
+    for sigma, kw in ((0.02, dict(tol=0.0, maxit=4)),
+                      (0.3, dict(tol=5e-2, maxit=maxit)),
+                      (0.02, dict(tol=5e-2, maxit=maxit))):
         card, cpu, sl, rec, pitch = _a12_problem(kind, cuda_device, sigma)
-        got, it = rec(card, sl.to(cuda_device), pitch, return_iters=True,
-                      **kw)
-        want, want_it = rec(cpu, sl, pitch, return_iters=True, **kw)
+        got = rec(card, sl.to(cuda_device), pitch, **kw)
+        want = rec(cpu, sl, pitch, **kw)
+        y, it = slopes_mmse.solve(card, sl.to(cuda_device), pitch, **kw)
+        want_it = slopes_mmse.solve(cpu, sl, pitch, **kw)[1]
         rms = want.pow(2).mean(dim=(-2, -1)).sqrt()
         err = (got.cpu() - want).abs().amax(dim=(-2, -1))
-        if kw or sigma == 0.3:
+        if kw["tol"] == 0.0 or sigma == 0.3:
             assert torch.equal(it.cpu(), want_it)
             assert (err <= 1e-4 * rms).all(), err / rms
         else:
-            # the depth too is chaotic there: within 10% (or 2)
             assert ((it.cpu() - want_it).abs()
                     <= torch.clamp(0.1 * want_it, min=2)).all()
             torch.testing.assert_close(got.std(dim=(-2, -1)).cpu(),
                                        want.std(dim=(-2, -1)), rtol=0.05,
                                        atol=0)
-            y, _ = slopes_mmse.solve(card, sl.to(cuda_device), pitch)
-            res = slopes_mmse.relative_residual(card, sl.to(cuda_device),
-                                                pitch, y)
-            assert (res <= 5e-2).all(), res
+            res = slopes_mmse.relative_residual(cpu, sl, pitch, y.cpu())
+            assert (res <= 1.2 * 5e-2).all(), res
 
 
 @pytest.mark.gpu
@@ -1155,7 +1162,7 @@ def test_mcao_monte_carlo_on_card_matches_cpu(cuda_device):
 def test_a12_demos_on_card_match_the_jax_record(cuda_device):
     """wfs_demo and mcao_demo on the card against the JAX demos' numbers
     (examples/demo_reference.json), at tests/test_torch_demos.py's
-    tolerances."""
+    tolerances (map RMS 1%)."""
     import json
     from pathlib import Path
     from mpc_sensorlessao_tpu_torch.examples import mcao_demo, wfs_demo
@@ -1164,7 +1171,7 @@ def test_a12_demos_on_card_match_the_jax_record(cuda_device):
     w = wfs_demo.main(cuda_device)
     assert w["tomography_error_rad2"] == pytest.approx(
         ref["wfs"]["tomography_error_rad2"], rel=1e-6)
-    assert w["mmse_rms"] == pytest.approx(ref["wfs"]["mmse_rms"], rel=0.05)
+    assert w["mmse_rms"] == pytest.approx(ref["wfs"]["mmse_rms"], rel=0.01)
     m = mcao_demo.main(cuda_device)
     np.testing.assert_allclose(m["two_dm"]["target_vars_rad2"],
                                ref["mcao"]["two_dm"]["target_vars_rad2"],
