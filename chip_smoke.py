@@ -198,11 +198,51 @@ package):
    through an LGS cone, lgs.elongate_spots with kw 8 and 9,
    raytrace.trace on 10^6 rays.  Report in chiprun_out/a12.json, one
    summary line.
-16. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+16. protocol: the port's experiment protocols and timers
+   (benchmarks/protocol_sweep.py, excursion_tail.py, protocol_edge.py,
+   modes_horizon.py, montecarlo_sweep.py, full_protocol.py,
+   latency_b1.py, solver_throughput.py, long_horizon.py,
+   cholesky_paths.py) through B1, held to the JAX records; every run
+   counted (B1 exactly steps x (1 + gauss_newton_iters) a run, none in a
+   build).  (a) protocol_sweep at R=512, n_train 1000 / n_valid 50, 500
+   steps (RESULTS_r05.json): the reference rows (one build, D/r0 5, 10,
+   15, 20 as a scenario axis) -- D/r0=5 held by the 8-seed rule below,
+   D/r0 >= 10 must collapse as the JAX rows and the float64 oracle do
+   (rejection < 1.2, crop flag false) -- and the tuned rows (one build a
+   D/r0), each run on the script's own noise stream and, on the same
+   build, over 8 noise seeds in one batched run: the JAX row within the
+   seeds' [min, max] widened by 0.005 (D/r0 5, 10) or 0.02 (15, 20);
+   each tuned row finite with rejection > 1.2; its float64 VAR RMSE and
+   RRMSE printed beside the JAX float32 ones (ROADMAP C.4).
+   (b) excursion_tail at D/r0=15 (RESULTS_TAIL_r05.json): the order-10
+   arm is (a)'s tuned D/r0=15 run (the same configuration); the order-14
+   clamp arm (var_max_radius 0.85) runs, its peak device allocation
+   printed: its verdict "improved" must be the JAX one and its mean
+   Strehl within 0.02 of the JAX arm's; D/r0=20 is cut.  (c)
+   protocol_edge's tuned stage at D/r0 5 and 10 on the conditional flow
+   (RESULTS_EDGE_r05.json): the row from the build's state, and the
+   median over 4 batch_states start states, each from its own warm
+   start (two open-loop steps), held within 0.01 / 0.02 of the JAX rows;
+   its ref / mc stages are the edge phase's, its periodic stage (a)'s
+   reference rows.  (d) modes_horizon at R=128, B=64, 200 steps, orders
+   6 and 14 (order 10 is the solvers phase's), N = 2, 8, 32, fixed and
+   at N=32 general_cr, each a warm-up and a timed run, solver calls
+   counted (count_solver_calls): every N=32 cell within 0.003 of
+   MODES_r04.json, 0 diverged.  (e) montecarlo_sweep at R=512, D/r0=5,
+   4 SNRs x 64, 500 steps: each cell within 0.003 of
+   MONTECARLO512_r05.json's, 0 diverged.  (f) full_protocol at R=128,
+   B=32 (the 1000/500/500 split): within 0.003 of CLASSICAL_r05.json's
+   MPC row of the same configuration, health OK.  (g) latency_b1 at
+   R=128 and 512, 200 steps, BENCH_GN=0: CUDA-event and host-clock ms a
+   step, exactly one B1 launch a step.  (h) the solver timers at their
+   defaults (solves/s), and their solves at B=4 on the card against the
+   CPU (rtol 1e-4, atol 1e-4 of the scale).  Report in
+   chiprun_out/protocol.json and chiprun_out/latency_b1.json.
+17. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
    power limit; each kernel must launch >= k1 + k2 times, and no rate may
    exceed 105% of its published peak.
-17. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+18. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
@@ -210,7 +250,7 @@ package):
    the bf16 variants against their bound at the measured ceilings (none
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
-18. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+19. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
    psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
    (bound_ms and bound_by from measure_bound at the published peaks,
    fp32_bound_ms beside them, null for the bf16 entries; B1's launches
@@ -219,7 +259,8 @@ package):
    <run>", in the edge phase's as "launches_edge <run>", in the parallel
    and population phases' as "launches_parallel <run>" and
    "launches_population <run>", in the classical rows as
-   "launches_classical d=<D/r0>")
+   "launches_classical d=<D/r0>", in the protocol phase's runs as
+   "launches_protocol <run>")
    -- then the last line {"ok": true, "device": {...}}.
 """
 
@@ -241,11 +282,19 @@ import torch.distributed as dist
 from torch.autograd import DeviceType
 
 from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
+from mpc_sensorlessao_tpu_torch.benchmarks import _protocol, cholesky_paths
 from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
+from mpc_sensorlessao_tpu_torch.benchmarks import excursion_tail
+from mpc_sensorlessao_tpu_torch.benchmarks import full_protocol, latency_b1
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants, roofline
+from mpc_sensorlessao_tpu_torch.benchmarks import long_horizon, modes_horizon
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
+from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_sweep
 from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
+from mpc_sensorlessao_tpu_torch.benchmarks import protocol_edge
+from mpc_sensorlessao_tpu_torch.benchmarks import protocol_sweep
+from mpc_sensorlessao_tpu_torch.benchmarks import solver_throughput
 from mpc_sensorlessao_tpu_torch.examples import mcao_demo, wfs_demo
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
 from mpc_sensorlessao_tpu_torch.models import imaging, integrator, pipeline
@@ -468,6 +517,43 @@ A12_MAP_RTOL = 1e-4              # card vs CPU at the fixed depth
 A12_RESIDUAL_SLACK = 1.2         # true residual <= slack x tol (float32)
 A12_LGS_H = 90e3
 A12_RAYS = 1_000_000
+# the protocol phase: the port's experiment protocols at the JAX records'
+# sizes, held to those records (RESULTS_r05.json, RESULTS_EDGE_r05.json,
+# RESULTS_TAIL_r05.json, MODES_r04.json, MONTECARLO512_r05.json).  The
+# screens come from numpy seeds, so the turbulence is the JAX one; the
+# measurement noise (and the conditional flow's border draws) come from
+# torch generators, so a single row is held to the spread over noise seeds
+ROOT = Path(__file__).resolve().parent
+PROTO_R = 512
+PROTO_TRAIN = 1000                      # the records' split: 1000 / 50
+PROTO_STEPS = 500
+PROTO_D = (5.0, 10.0, 15.0, 20.0)
+PROTO_SEEDS = 8
+# the JAX row must lie within the card's seed range widened by this
+PROTO_WIDEN = {5.0: 0.005, 10.0: 0.005, 15.0: 0.02, 20.0: 0.02}
+PROTO_LOCK_REJECTION = 1.2
+PROTO_EDGE_D = (5.0, 10.0)
+PROTO_EDGE_STATES = 4
+PROTO_EDGE_TOL = {5.0: 0.01, 10.0: 0.02}
+PROTO_MODES_ORDERS = (6, 14)            # order 10 is the solvers phase's
+MODES_R = 128
+PROTO_MODES_TOL = 0.003
+PROTO_MC_D = 5.0
+PROTO_MC_TOL = 0.003
+PROTO_TAIL_D = 15.0
+PROTO_TAIL_TOL = 0.02
+# full_protocol's defaults: reference_config(128), the 1000/500/500
+# split, B=32.  That loop is CLASSICAL_r05.json's MPC row at D/r0=5 (the
+# same configuration, one scenario): held within CLASSICAL_STREHL_TOL of
+# it.  (The slice phase's MIN_STREHL is a floor for the 300/50 bench cut;
+# this split settles below it, in JAX too: 0.9728)
+PROTO_FULL = (128, 32)
+PROTO_LATENCY_ENV = {"LAT_RES": "128,512", "LAT_STEPS": "200",
+                     "BENCH_GN": "0"}
+# the solver timers' arguments (their defaults) and the card-vs-CPU batch
+PROTO_TIMER_ARGS = {"solver_throughput": [], "long_horizon": [],
+                    "cholesky_paths": []}
+PROTO_SOLVER_B = 4
 A12_RTOL = 1e-5                  # card vs CPU, of the peak
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
@@ -2381,21 +2467,417 @@ def a12_phase(dev, card) -> dict:
     return report
 
 
+def record(name: str) -> dict:
+    """A JAX record file of the repository root."""
+    return json.loads((ROOT / name).read_text())
+
+
+def seed_spread(system, cfg, d: float, init_u, dev) -> tuple:
+    """The build's loop over PROTO_SEEDS noise seeds as one batched run
+    (the shared test window at mag_conv(d), from ``init_u``, noise seed
+    2).  Returns (min, max) of the per-seed settled exact Strehl."""
+    S = PROTO_SEEDS
+    scen = _protocol.shared_scenarios(cfg, [mag_conv(d)] * S, [1.0] * S, 2,
+                                      dev)
+    out = run_loop(system, cfg, scen, cfg.sim.n_test, init_u)
+    if not bool(torch.isfinite(out.rms_res).all()):
+        fail(f"protocol: a seed of the D/r0={d:g} build gave a non-finite "
+             f"residual")
+    per = out.strehl_exact[:, cfg.sim.n_test // 2:].double().mean(dim=1)
+    return float(per.min()), float(per.max())
+
+
+def held_in(label: str, jax_v: float, lo: float, hi: float,
+            widen: float, card: str) -> None:
+    """The JAX row must lie within [lo - widen, hi + widen]."""
+    ok = lo - widen <= jax_v <= hi + widen
+    print(f"protocol {label}: {PROTO_SEEDS}-seed settled exact Strehl "
+          f"{lo:.5f}-{hi:.5f}; JAX {jax_v} {'inside' if ok else 'OUTSIDE'}"
+          f" the range widened by {widen} [{card}]")
+    if not ok:
+        fail(f"protocol {label}: JAX {jax_v} outside [{lo - widen:.5f}, "
+             f"{hi + widen:.5f}]")
+
+
+def state_warm_starts(system, cfg, states, dev):
+    """Each start state of ``states`` ((S, L, n, n) from batch_states)
+    advanced two open-loop steps, and its own warm-start command from
+    those two steps' coefficients (pipeline.warm_start_command over them,
+    as the build's warm start reads its last two identification steps).
+    Returns (the (S, L, n, n) states after, the (S, nu) commands)."""
+    basis = system.basis
+    npix = torch.tensor(float(basis.mask.sum()), dtype=torch.float32,
+                        device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    after, u0 = [], []
+    for phases in states.phases:
+        st, coeffs = edge_flow.rollout(
+            system.edge_model, edge_flow.EdgeFlowState(phases=phases), gen,
+            2, basis.fit_full, basis.mask, npix,
+            mag=cfg.sim.magnification)
+        after.append(st.phases)
+        u0.append(pipeline.warm_start_command(
+            dataclasses.replace(system, coeff_series=coeffs), cfg, 2))
+    return (edge_flow.EdgeFlowState(phases=torch.stack(after)),
+            torch.stack(u0))
+
+
+def build_memory(label: str, fn, card: str):
+    """fn() with the card's peak allocation reset before it; prints the
+    peak and returns fn's result."""
+    torch.cuda.reset_peak_memory_stats()
+    result = fn()
+    print(f"protocol {label}: peak device allocation "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{card}]")
+    return result
+
+
+def protocol_phase(dev, card) -> dict:
+    """The port's experiment protocols (benchmarks/protocol_sweep.py,
+    protocol_edge.py, excursion_tail.py, modes_horizon.py,
+    montecarlo_sweep.py, full_protocol.py, latency_b1.py and the solver
+    timers) through B1 on the card, held to the JAX records.  Every run
+    is counted (B1's launches exactly as the run's steps ask); returns
+    them by run."""
+    t_phase = time.time()
+    b1 = K.psf_crop_diversity_sym3
+    launches, secs, report = {}, {}, {}
+
+    def count(label, fn, want):
+        reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        launches[label] = b1.launches
+        if want is not None and b1.launches != want:
+            fail(f"protocol {label}: psf_div3_sym launched {b1.launches} "
+                 f"times, not {want}")
+        return result
+
+    # (a) protocol_sweep: reference rows (one build, D/r0 as a scenario
+    # axis) and tuned rows (one build a D/r0), RESULTS_r05.json's split
+    cfg = protocol_sweep.base_cfg(PROTO_R, {
+        "PROTO_TRAIN": str(PROTO_TRAIN), "PROTO_STEPS": str(PROTO_STEPS)})
+    n = cfg.sim.n_test
+    start = cfg.sim.n_train + cfg.sim.n_valid
+    rec = record("RESULTS_r05.json")
+    per_step = 1 + cfg.estimator.gauss_newton_iters
+    part, system, _ = count("sweep ref", lambda: build_memory(
+        f"sweep reference build R={PROTO_R}", lambda:
+        protocol_sweep.reference_rows(cfg, PROTO_D, dev), card),
+        per_step * n)
+    report["sweep"] = part
+    for d in PROTO_D:
+        key = f"d_over_r0={d:g}"
+        row, want = part["reference_rows"][key], rec["reference_rows"][key]
+        print(f"protocol sweep reference {key}: settled exact Strehl "
+              f"{row['mean_strehl']} (JAX {want['mean_strehl']}), rejection "
+              f"{row['rejection']} (JAX {want['rejection']}), residual "
+              f"{row['mean_rms_res_rad']} rad, turbulence "
+              f"{row['mean_rms_turb_rad']} rad (JAX "
+              f"{want['mean_rms_turb_rad']}), crop valid "
+              f"{row.get('strehl_exact_crop_valid', True)} [{card}]")
+        if d >= 10.0 and not (row["rejection"] < PROTO_LOCK_REJECTION
+                              and row.get("strehl_exact_crop_valid")
+                              is False):
+            fail(f"protocol sweep reference {key} does not collapse as the "
+                 f"JAX row and the float64 oracle do (rejection "
+                 f"{row['rejection']})")
+    print(f"protocol sweep reference: build {part['reference_build_s']} s, "
+          f"loop {part['reference_loop_s']} s, "
+          f"{part['reference_solves_per_s']} solves/s, VAR "
+          f"{part['reference_var']} (JAX {rec['reference_var']}) [{card}]")
+    lo, hi = count("sweep ref seeds d=5", lambda: seed_spread(
+        system, cfg, 5.0, None, dev), per_step * n)
+    held_in("sweep reference d=5", rec["reference_rows"]["d_over_r0=5"][
+        "mean_strehl"], lo, hi, PROTO_WIDEN[5.0], card)
+    del system
+    tail10 = None
+    report["sweep"]["tuned_rows"] = {}
+    for d in PROTO_D:
+        key = f"d_over_r0={d:g}"
+        cfg_t, system, build_s = build_memory(
+            f"sweep tuned build D/r0={d:g}",
+            lambda: protocol_sweep.tuned_build(cfg, d, dev), card)
+        secs[f"sweep tuned build d={d:g}"] = build_s
+        per_t = 1 + cfg_t.estimator.gauss_newton_iters
+        row, out = count(f"sweep tuned d={d:g}", lambda: protocol_sweep
+                         .tuned_row(cfg_t, system, build_s, dev), per_t * n)
+        report["sweep"]["tuned_rows"][key] = row
+        want = rec["tuned_rows"][key]
+        print(f"protocol sweep tuned {key}: settled exact Strehl "
+              f"{row['mean_strehl']} (min {row['min_strehl']}; JAX "
+              f"{want['mean_strehl']}, min {want['min_strehl']}), rejection "
+              f"{row['rejection']}, p95 residual {row['p95_rms_res_rad']} "
+              f"rad (JAX {want['p95_rms_res_rad']}); C.4 VAR RMSE "
+              f"{row['var_rmse_mean']} / RRMSE {row['var_rrmse_mean']} "
+              f"(JAX float32 {want['var_rmse_mean']} / "
+              f"{want['var_rrmse_mean']}); build {row['build_s']} s, loop "
+              f"{row['loop_s']} s [{card}]")
+        if not row["finite"] or not row["rejection"] > PROTO_LOCK_REJECTION:
+            fail(f"protocol sweep tuned {key}: finite {row['finite']}, "
+                 f"rejection {row['rejection']}")
+        init_u = pipeline.warm_start_command(system, cfg_t, start)
+        lo, hi = count(f"sweep tuned seeds d={d:g}", lambda: seed_spread(
+            system, cfg_t, d, init_u, dev), per_t * n)
+        held_in(f"sweep tuned {key}", want["mean_strehl"], lo, hi,
+                PROTO_WIDEN[d], card)
+        if d == PROTO_TAIL_D:
+            tail10 = _protocol.tail_row(out)
+        del system, out
+
+    # (b) excursion_tail at D/r0=15: the order-10 arm is the tuned d=15
+    # row above (the same configuration at the records' split); the
+    # clamped order-14 arm runs here
+    tails = record("RESULTS_TAIL_r05.json")
+    xt0 = excursion_tail.base_cfg(PROTO_R, {
+        "XT_TRAIN": str(PROTO_TRAIN), "XT_STEPS": str(PROTO_STEPS)})
+    d = PROTO_TAIL_D
+    if dataclasses.asdict(xt0) != dataclasses.asdict(cfg):
+        fail("protocol: the excursion order-10 arm is not the sweep's tuned "
+             "row")
+    row14 = count(f"excursion order14_clamp d={d:g}", lambda: build_memory(
+        f"excursion order-14 build D/r0={d:g}",
+        lambda: excursion_tail.arm_row(xt0, d, 14, 0.85, dev), card),
+        n * (1 + xt0.estimator.gauss_newton_iters))
+    verdict = excursion_tail.verdict(tail10, row14)
+    want = tails[f"d={d:g}_tail_verdict"]
+    report["excursion"] = {f"d={d:g}_order10": tail10,
+                           f"d={d:g}_order14_clamp": row14,
+                           f"d={d:g}_tail_verdict": verdict}
+    for arm, row in (("order10", tail10), ("order14_clamp", row14)):
+        jrow = tails["rows"][f"d={d:g}_{arm}"]
+        print(f"protocol excursion d={d:g} {arm}: mean / min / p5 exact "
+              f"Strehl {row['mean_strehl']} / {row['min_strehl']} / "
+              f"{row['p5_strehl']} (JAX {jrow['mean_strehl']} / "
+              f"{jrow['min_strehl']} / {jrow['p5_strehl']}), p95 residual "
+              f"{row['p95_rms_res_rad']} rad, steps under 0.5 "
+              f"{row['frac_steps_strehl_below_0.5']} [{card}]")
+    print(f"protocol excursion d={d:g} verdict {verdict} (JAX {want}); "
+          f"order-14 build {row14['build_s']} s [{card}]")
+    jmean = tails["rows"][f"d={d:g}_order14_clamp"]["mean_strehl"]
+    if verdict["improved"] != want["improved"] or \
+            abs(row14["mean_strehl"] - jmean) > PROTO_TAIL_TOL:
+        fail(f"protocol excursion d={d:g}: improved {verdict['improved']} "
+             f"(JAX {want['improved']}), order-14 mean Strehl "
+             f"{row14['mean_strehl']} (JAX {jmean} +- {PROTO_TAIL_TOL})")
+
+    # (c) protocol_edge stage tuned: rows from the build's state, and the
+    # median over PROTO_EDGE_STATES batch_states start states, each from
+    # its own warm start
+    erec = record("RESULTS_EDGE_r05.json")["tuned_rows"]
+    ecfg = protocol_edge.sim_cfg(PROTO_R, PROTO_STEPS, PROTO_TRAIN,
+                                 "conditional")
+    report["edge"] = {}
+    for d in PROTO_EDGE_D:
+        key = f"d_over_r0={d:g}"
+        cfg_t, system, build_s = build_memory(
+            f"edge tuned build D/r0={d:g}",
+            lambda: protocol_sweep.tuned_build(ecfg, d, dev), card)
+        secs[f"edge tuned build d={d:g}"] = build_s
+        per_t = 1 + cfg_t.estimator.gauss_newton_iters
+        row, _ = count(f"edge tuned d={d:g}", lambda: protocol_sweep
+                       .tuned_row(cfg_t, system, build_s, dev), per_t * n)
+        S = PROTO_EDGE_STATES
+        tel = dataclasses.replace(cfg_t.telescope, resolution=PROTO_R)
+        states, init_u = state_warm_starts(
+            system, cfg_t, edge_flow.batch_states(
+                int(cfg_t.sim.seed) + 1, cfg_t.atmosphere, tel, S,
+                device=dev), dev)
+        scen = _protocol.shared_scenarios(
+            cfg_t, [cfg_t.sim.magnification] * S, [1.0] * S, 3, dev)
+        out = count(f"edge states d={d:g}", lambda: montecarlo.run_batch(
+            system.loop, None, cfg_t, scen, n, init_u=init_u,
+            edge_model=system.edge_model, edge_state=states), per_t * n)
+        del system
+        per = out.strehl_exact[:, n // 2:].double().mean(dim=1).cpu()
+        med = float(np.median(per.numpy()))
+        report["edge"][key] = dict(row, states_strehl=per.tolist(),
+                                   states_median=med)
+        want = erec[key]["mean_strehl"]
+        print(f"protocol edge tuned {key}: from the build's state settled "
+              f"exact Strehl {row['mean_strehl']} (rejection "
+              f"{row['rejection']}; C.4 VAR {row['var_rmse_mean']} / "
+              f"{row['var_rrmse_mean']}, JAX {erec[key]['var_rmse_mean']} / "
+              f"{erec[key]['var_rrmse_mean']}); over {S} batch_states "
+              f"start states median {med:.5f} (min {float(per.min()):.5f}, "
+              f"max {float(per.max()):.5f}); JAX {want}, limit +-"
+              f"{PROTO_EDGE_TOL[d]}; build {row['build_s']} s, loop "
+              f"{row['loop_s']} s, states run "
+              f"{secs[f'edge states d={d:g}']:.2f} s [{card}]")
+        if abs(med - want) > PROTO_EDGE_TOL[d]:
+            fail(f"protocol edge tuned {key}: median {med:.5f} not within "
+                 f"{PROTO_EDGE_TOL[d]} of {want}")
+
+    # (d) modes_horizon, orders 6 and 14: every horizon, B=64, 200 steps
+    mrec = record("MODES_r04.json")["cells"]
+    base = modes_horizon.base_cfg(MODES_R, MODES_STEPS)
+    report["modes"] = {}
+    for order in PROTO_MODES_ORDERS:
+        cfg_o = modes_horizon.order_cfg(base, order)
+        sys_o, secs[f"modes build order={order}"] = build_timed(
+            f"protocol modes order={order}", cfg_o, dev)
+        gn = cfg_o.estimator.gauss_newton_iters
+        m = cfg_o.sim.n_test
+        for N in (2, 8, 32):
+            for tag, newton_steps in modes_horizon.variants(N):
+                c = modes_horizon.cell_cfg(cfg_o, N, newton_steps)
+                sys_n = pipeline.with_horizon(sys_o, c)
+                key = f"order={order}_N={N}_{tag}"
+                # a warm-up and a timed run
+                want = ({"solve_fixed": 2 * m} if newton_steps == 1 else
+                        {"solve": 2 * m, "banded_solve": 2 * m * newton_steps})
+                with count_solver_calls() as calls:
+                    row, out = count(f"modes {key}", lambda: modes_horizon
+                                     .run_cell(sys_n, c, MODES_BATCH, dev),
+                                     2 * m * (1 + gn))
+                got = {k: v for k, v in calls.items() if v}
+                report["modes"][key] = row
+                div = settled(out)["diverged"]
+                print(f"protocol modes {key}: settled exact Strehl "
+                      f"{row['mean_strehl']} (JAX {mrec[key]['mean_strehl']})"
+                      f", rejection {row['rejection']}, {div} diverged, "
+                      f"{row['solves_per_s']} solves/s (timed run "
+                      f"{row['loop_s']} s), solver calls {got} [{card}]")
+                if got != want:
+                    fail(f"protocol modes {key}: solver calls {got}, not "
+                         f"{want}")
+                if N == 32 and (div or not row["finite"] or abs(
+                        row["mean_strehl"] - mrec[key]["mean_strehl"])
+                        > PROTO_MODES_TOL):
+                    fail(f"protocol modes {key} misses its quality target")
+        del sys_o, sys_n
+
+    # (e) montecarlo_sweep at D/r0=5: MONTECARLO512_r05.json's d=5 block
+    crec = record("MONTECARLO512_r05.json")["cells"]
+    cells, dt, _ = count("montecarlo d=5", lambda: montecarlo_sweep.sweep_d(
+        PROTO_R, PROTO_MC_D, STRONG_SNRS, STRONG_REPS, n, dev),
+        2 * per_step * n)
+    report["montecarlo"] = cells
+    B = STRONG_REPS * len(STRONG_SNRS)
+    for key, cell in cells.items():
+        want = crec[key]
+        print(f"protocol montecarlo {key}: settled exact Strehl "
+              f"{cell['mean_strehl']} (p10 {cell['p10_strehl']}; JAX "
+              f"{want['mean_strehl']}), {cell['n_diverged']} diverged "
+              f"[{card}]")
+        if cell["n_diverged"] or abs(cell["mean_strehl"]
+                                     - want["mean_strehl"]) > PROTO_MC_TOL:
+            fail(f"protocol montecarlo {key} misses its record")
+    print(f"protocol montecarlo d=5: B={B} x {n} steps timed run {dt:.4f} s "
+          f"({B * n / dt:.1f} solves/s) [{card}]")
+
+    # (f) full_protocol at its defaults
+    res, batch = PROTO_FULL
+    fp = count("full_protocol", lambda: full_protocol.main(
+        [str(res), str(batch)], {"FP_DEVICE": dev.type}),
+        reference_config().sim.n_test * per_step)
+    report["full_protocol"] = fp
+    want = json.loads(CLASSICAL_REF.read_text())["rows"]["d_over_r0=5"][
+        "mpc"]["strehl_exact"]
+    print(f"protocol full_protocol R={res} B={batch}: settled exact Strehl "
+          f"{fp['mean_strehl_exact']} (JAX, CLASSICAL_r05.json's MPC row of "
+          f"this configuration: {want}, limit +-{CLASSICAL_STREHL_TOL}), "
+          f"health {fp['health']}, build {fp['build_s']} s, loop "
+          f"{fp['loop_s']} s, {fp['solves_per_s']} solves/s [{card}]")
+    if abs(fp["mean_strehl_exact"] - want) > CLASSICAL_STREHL_TOL or \
+            fp["health"] != "OK":
+        fail(f"protocol full_protocol: Strehl {fp['mean_strehl_exact']} "
+             f"(JAX {want}), health {fp['health']}")
+
+    # (g) latency_b1 at R=128 and 512
+    OUT_DIR.mkdir(exist_ok=True)
+    lat = count("latency", lambda: latency_b1.main(
+        [str(OUT_DIR / "latency_b1.json")],
+        dict(PROTO_LATENCY_ENV, LAT_DEVICE=dev.type)), None)
+    report["latency"] = lat
+    for key, row in lat["rows"].items():
+        print(f"protocol latency {key} B=1: {row['ms_per_step_b1']} ms a step"
+              f" by CUDA events (IQR {row['iqr_ms']}), "
+              f"{row['host_ms_per_step_b1']} ms by the host clock (IQR "
+              f"{row['host_iqr_ms']}), meets 200 Hz {row['meets_200hz']}; "
+              f"psf_div3_sym launches a step "
+              f"{row.get('b1_launches_per_step')} [{card}]")
+        if dev.type == "cuda" and row["b1_launches_per_step"] != 1:
+            fail(f"protocol latency {key}: {row['b1_launches_per_step']} B1 "
+                 f"launches a step at BENCH_GN=0")
+
+    # (h) the solver timers at their defaults, and card against CPU at B=4
+    report["solvers"] = {
+        name: module.main(PROTO_TIMER_ARGS[name], {knob: dev.type})
+        for name, module, knob in (
+            ("solver_throughput", solver_throughput, "ST_DEVICE"),
+            ("long_horizon", long_horizon, "LH_DEVICE"),
+            ("cholesky_paths", cholesky_paths, "CP_DEVICE"))}
+    for name, rows in report["solvers"].items():
+        print(f"protocol {name}: " + ", ".join(
+            f"{k} {v.get('solves_per_s', v.get('per_s')):,.0f}/s"
+            for k, v in rows.items()) + f" [{card}]")
+    protocol_solver_check(dev, card)
+
+    report["launches"] = launches
+    report["s"] = secs["phase"] = time.time() - t_phase
+    (OUT_DIR / "protocol.json").write_text(json.dumps(report, indent=2)
+                                           + "\n")
+    print("protocol: phase in " + f"{secs['phase']:.2f} s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items() if k != "phase")
+        + f" [{card}]")
+    return launches
+
+
+def protocol_solver_check(dev, card) -> None:
+    """The solver timers' solves at B=4 on the card against the CPU
+    (tests/test_torch_solvers.py's rtol 1e-4, atol 1e-4 of the scale):
+    solver_throughput's two paths, long_horizon's two Schur backends at
+    T=32, cholesky_paths' four."""
+    cpu = torch.device("cpu")
+    B = PROTO_SOLVER_B
+
+    def throughput(d):
+        rng = np.random.default_rng(0)
+        prob = solver_throughput.problem(rng, 27, d)
+        return {k: f() for k, f in solver_throughput.paths(
+            prob, 2, *solver_throughput.states(rng, B, 27, 2, d)).items()}
+
+    def horizon(d):
+        rng = np.random.default_rng(0)
+        prob = solver_throughput.problem(rng, 27, d)
+        args = solver_throughput.states(rng, B, 27, 32, d)
+        out = {}
+        for name, thr in long_horizon.BACKENDS:
+            with long_horizon.cr_from(thr):
+                out[name] = long_horizon.solve(prob, 32, *args)
+        return out
+
+    def chol(d):
+        return {k: f() for k, f in cholesky_paths.paths(
+            np.random.default_rng(0), B, 27, 2, d).items()}
+    for name, fn in (("solver_throughput", throughput),
+                     ("long_horizon T=32", horizon),
+                     ("cholesky_paths", chol)):
+        got, want = fn(dev), fn(cpu)
+        for k, w in want.items():
+            g = got[k].cpu()
+            err = float((g - w).abs().max() / w.abs().max())
+            ok = torch.allclose(g, w, rtol=1e-4,
+                                atol=1e-4 * float(w.abs().max()))
+            print(f"protocol {name} {k} B={B}: card vs CPU max err {err:.3g}"
+                  f" of the scale [{card}]")
+            if not ok:
+                fail(f"protocol {name} {k}: the card's solve disagrees with "
+                     f"the CPU's")
+
+
 def modes_cfg():
-    """MODES_r04.json's order-10 N=32 configuration
-    (benchmarks/modes_horizon.py:98-160): reference_config(128), radial
-    order 10 (66 modes, 65 states), var_ridge 1e-2, warm start, r_weight
-    30, var_max_radius 0.85, mmse estimator with prior_scale 0.1, the sim
-    defaults (n_train 1000, n_valid 500), 200 steps, horizon 32."""
-    cfg = reference_config(resolution=128)
-    return cfg.replace(
-        zernike=dataclasses.replace(cfg.zernike, radial_order=10),
-        mpc=dataclasses.replace(cfg.mpc, var_ridge=1e-2, warm_start=True,
-                                r_weight=30.0, var_max_radius=0.85,
-                                horizon=32),
-        estimator=dataclasses.replace(cfg.estimator, method="mmse",
-                                      prior_scale=0.1),
-        sim=dataclasses.replace(cfg.sim, n_test=MODES_STEPS))
+    """MODES_r04.json's order-10 N=32 configuration, from the port's
+    benchmarks/modes_horizon.py: reference_config(128), radial order 10
+    (66 modes, 65 states), the tuned recipe at D/r0=5 (mmse prior scale
+    0.1) with var_max_radius 0.85, the sim defaults (n_train 1000, n_valid
+    500), 200 steps, horizon 32."""
+    return modes_horizon.cell_cfg(modes_horizon.order_cfg(
+        modes_horizon.base_cfg(MODES_R, MODES_STEPS), 10), 32, 1)
 
 
 def main() -> None:
@@ -2444,6 +2926,7 @@ def main() -> None:
         if wrapper.launches:
             fail(f"a12: the slice launched {name} {wrapper.launches} times; "
                  f"it runs no PSF kernel")
+    protocol_launches = protocol_phase(dev, card)
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []
@@ -2462,6 +2945,8 @@ def main() -> None:
                           for k, v in population_launches.items()})
             paths.update({f"launches_classical {k}": v
                           for k, v in classical_launches.items()})
+            paths.update({f"launches_protocol {k}": v
+                          for k, v in protocol_launches.items()})
         else:
             paths = {}
         kernels.append({**paths,

@@ -25,7 +25,6 @@ Env:   MC1_DR0=5,10,15,20  MC1_SNR=5,10,20,40  MC1_REPS=6400
 
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import sys
@@ -36,23 +35,18 @@ import torch
 
 from ..models import closed_loop, pipeline
 from ..utils import checkpoint, profiling
-from ..utils.config import SystemConfig, mag_conv, reference_config
+from ..utils.config import SystemConfig, mag_conv
+from . import _protocol
 
 STOPPED = 3        # exit code of a run stopped by MC1_STOP_AFTER
 
 
 def tuned_cfg(resolution: int, d: float, n_steps: int) -> SystemConfig:
-    """The per-D/r0 tuned build of the population."""
-    cfg = reference_config(resolution=resolution)
-    return cfg.replace(
-        zernike=dataclasses.replace(cfg.zernike, radial_order=10),
-        mpc=dataclasses.replace(cfg.mpc, warm_start=True, var_ridge=1e-2,
-                                r_weight=30.0),
-        estimator=dataclasses.replace(cfg.estimator, method="mmse",
-                                      prior_scale=min(0.15, 0.5 / d)),
-        sim=dataclasses.replace(cfg.sim, d_over_r0=d, n_train=300,
-                                n_valid=50, n_test=n_steps),
-    )
+    """The per-D/r0 tuned build of the population (the protocols' tuned
+    recipe on the 300/50 split)."""
+    return _protocol.tuned_cfg(
+        _protocol.protocol_cfg(resolution, n_steps, n_train=300, n_valid=50),
+        d)
 
 
 def chunk_seed(chunk: int) -> int:

@@ -82,24 +82,29 @@ def card() -> str:
     return nvidia_smi("name", "power.limit")
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Median over ``TIME_REPEATS`` of the ms per call of ``fn``, each
-    repeat timed with CUDA events around ``reps`` calls, after one warm-up
-    call.  ``fn`` launches on the current stream of the current CUDA
-    device."""
+def cuda_times_ms(fn, reps: int, repeats: int = TIME_REPEATS) -> list:
+    """The ms per call of ``fn`` in each of ``repeats`` repeats, each
+    timed with CUDA events around ``reps`` calls, after one warm-up call.
+    ``fn`` launches on the current stream of the current CUDA device."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     times = []
-    for _ in range(TIME_REPEATS):
+    for _ in range(repeats):
         start.record()
         for _ in range(reps):
             fn()
         stop.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / reps)
-    return statistics.median(times)
+    return times
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """Median over ``TIME_REPEATS`` of the ms per call of ``fn``
+    (cuda_times_ms)."""
+    return statistics.median(cuda_times_ms(fn, reps))
 
 
 # aten ops by the packet name (in-place forms drop their trailing "_")

@@ -1178,3 +1178,81 @@ def test_a12_demos_on_card_match_the_jax_record(cuda_device):
                                rtol=1e-6)
     np.testing.assert_allclose(m["monte_carlo_rad2"],
                                ref["mcao"]["monte_carlo_rad2"], rtol=1e-3)
+
+
+# --------------------------------------- the experiment protocols, timers
+
+@pytest.mark.gpu
+def test_protocol_rows_on_card_match_cpu(cuda_device):
+    """protocol_sweep's reference build at R=64 (300/50 split, 16 steps)
+    on the card, its D/r0 grid 5/10/15/20 as 4 shared-window scenarios
+    with injected noise, against the same operators on the CPU (plain
+    versions): B1 launches 16 x (1 + gauss_newton_iters), residual RMS
+    rtol 0.01 / atol 5e-3, u atol 0.02 max|u|, and the settled rows'
+    residual and Strehl to the same tolerances."""
+    from mpc_sensorlessao_tpu_torch.benchmarks import _protocol as P
+    from mpc_sensorlessao_tpu_torch.benchmarks import protocol_sweep as ps
+    cfg = ps.base_cfg(64, {"PROTO_TRAIN": "300", "PROTO_STEPS": "16"})
+    sys_ = pipeline.build(cfg, cuda_device)
+    n, d_grid = cfg.sim.n_test, (5.0, 10.0, 15.0, 20.0)
+    scen = ps.reference_scenarios(cfg, d_grid, cuda_device)
+    noise = torch.as_tensor((float(sys_.est.noise_std)
+                             * np.random.default_rng(6).standard_normal(
+                                 (4, n, sys_.est.n_pixels))
+                             ).astype(np.float32))
+    kw = dict(n_steps=n, start_step=cfg.sim.n_train + cfg.sim.n_valid)
+    b1 = psf_kernels.psf_crop_diversity_sym3
+    before = b1.launches
+    got = closed_loop.simulate(sys_.loop, sys_.layers, cfg, None,
+                               mag=scen.mag, noise_seq=noise.to(cuda_device),
+                               **kw)
+    torch.cuda.synchronize()
+    assert b1.launches - before == n * (1 + cfg.estimator.gauss_newton_iters)
+    want = closed_loop.simulate(
+        tree.cast(sys_.loop, device="cpu"),
+        tree.cast(sys_.layers, device="cpu"), cfg, None,
+        mag=scen.mag.cpu(), noise_seq=noise, **kw)
+    torch.testing.assert_close(got.rms_res.cpu(), want.rms_res, rtol=0.01,
+                               atol=5e-3)
+    torch.testing.assert_close(got.u.cpu(), want.u, rtol=0,
+                               atol=0.02 * float(want.u.abs().max()))
+    for i in range(4):
+        a, b = P.settled_row(got, i), P.settled_row(want, i)
+        assert a["finite"] and b["finite"]
+        np.testing.assert_allclose(a["mean_rms_res_rad"],
+                                   b["mean_rms_res_rad"], rtol=0.01,
+                                   atol=5e-3)
+        np.testing.assert_allclose(a["mean_strehl"], b["mean_strehl"],
+                                   atol=5e-3)
+
+
+@pytest.mark.gpu
+def test_latency_step_on_card_matches_cpu(cuda_device):
+    """latency_b1's B=1 step at R=64 (BENCH_GN=0), 20 steps with injected
+    noise: B1 launches exactly once a step on the card, and the run
+    agrees with the CPU's on the same operators (residual RMS rtol 0.01
+    / atol 5e-3, u atol 0.02 max|u|); the entry point's card row counts
+    1 launch a step and gives both timings."""
+    from mpc_sensorlessao_tpu_torch.benchmarks import latency_b1 as lb
+    cfg = lb.latency_cfg(64, 0)
+    sys_ = pipeline.build(cfg, cuda_device)
+    n = 20
+    noise = torch.as_tensor((float(sys_.est.noise_std)
+                             * np.random.default_rng(7).standard_normal(
+                                 (n, sys_.est.n_pixels))).astype(np.float32))
+    b1 = psf_kernels.psf_crop_diversity_sym3
+    before = b1.launches
+    got = lb.step_run(sys_, cfg, n, noise_seq=noise.to(cuda_device))
+    torch.cuda.synchronize()
+    assert b1.launches - before == n
+    cpu = dataclasses.replace(sys_, loop=tree.cast(sys_.loop, device="cpu"),
+                              layers=tree.cast(sys_.layers, device="cpu"))
+    want = lb.step_run(cpu, cfg, n, noise_seq=noise)
+    assert got.rms_res.shape == (n,)
+    torch.testing.assert_close(got.rms_res.cpu(), want.rms_res, rtol=0.01,
+                               atol=5e-3)
+    torch.testing.assert_close(got.u.cpu(), want.u, rtol=0,
+                               atol=0.02 * float(want.u.abs().max()))
+    row = lb.row(64, 10, 3, 0, cuda_device)
+    assert row["b1_launches_per_step"] == 1
+    assert row["ms_per_step_b1"] > 0 and row["host_ms_per_step_b1"] > 0

@@ -34,10 +34,18 @@ from mpc_sensorlessao_tpu.ops import zernike as jz
 from mpc_sensorlessao_tpu.utils import config as jconfig
 from mpc_sensorlessao_tpu.utils import metrics as jmetrics
 from mpc_sensorlessao_tpu_torch import reference_config
+from mpc_sensorlessao_tpu_torch.benchmarks import cholesky_paths
 from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc
+from mpc_sensorlessao_tpu_torch.benchmarks import excursion_tail
+from mpc_sensorlessao_tpu_torch.benchmarks import full_protocol, latency_b1
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
+from mpc_sensorlessao_tpu_torch.benchmarks import long_horizon, modes_horizon
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
+from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_sweep
 from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
+from mpc_sensorlessao_tpu_torch.benchmarks import protocol_edge
+from mpc_sensorlessao_tpu_torch.benchmarks import protocol_sweep
+from mpc_sensorlessao_tpu_torch.benchmarks import solver_throughput
 from mpc_sensorlessao_tpu_torch.examples import closed_loop_demo, mcao_demo
 from mpc_sensorlessao_tpu_torch.examples import horizon_sweep_demo, wfs_demo
 from mpc_sensorlessao_tpu_torch.models import closed_loop, dm, estimator
@@ -808,7 +816,10 @@ def test_kernel_variants_agree_on_cpu():
     "multiprocess", "wfs", "pyramid", "karhunen_loeve", "gaussian_frame",
     "classical_row", "classical_vs_mpc", "toeplitz", "slopes_mmse",
     "slopes_tomography", "slopes_lgs", "lgs", "tomography", "mcao",
-    "wfs_demo", "mcao_demo", "closed_loop_demo", "horizon_sweep_demo"])
+    "wfs_demo", "mcao_demo", "closed_loop_demo", "horizon_sweep_demo",
+    "full_protocol", "protocol_sweep", "montecarlo_sweep", "modes_horizon",
+    "protocol_edge", "excursion_tail", "latency_b1", "solver_throughput",
+    "long_horizon", "cholesky_paths"])
 def test_builders_default_to_the_card(builder, monkeypatch):
     """Every builder runs on the card unless the caller passes "cpu":
     without a CUDA device, a call that names no device raises."""
@@ -873,6 +884,16 @@ def test_builders_default_to_the_card(builder, monkeypatch):
         "mcao_demo": lambda: mcao_demo.main(n_mc=2),
         "closed_loop_demo": lambda: closed_loop_demo.main(n_test=2),
         "horizon_sweep_demo": lambda: horizon_sweep_demo.main(n_test=2),
+        "full_protocol": lambda: full_protocol.main(["32", "2"], {}),
+        "protocol_sweep": lambda: protocol_sweep.main(["32"], {}),
+        "montecarlo_sweep": lambda: montecarlo_sweep.main(["32"], {}),
+        "modes_horizon": lambda: modes_horizon.main([], {}),
+        "protocol_edge": lambda: protocol_edge.main(["32"], {}),
+        "excursion_tail": lambda: excursion_tail.main(["32"], {}),
+        "latency_b1": lambda: latency_b1.main([], {}),
+        "solver_throughput": lambda: solver_throughput.main(["4"], {}),
+        "long_horizon": lambda: long_horizon.main(["4"], {}),
+        "cholesky_paths": lambda: cholesky_paths.main(["4"], {}),
     }
     for var in ("MC1_DEVICE", "MP_DEVICE"):
         monkeypatch.delenv(var, raising=False)
