@@ -238,11 +238,35 @@ package):
    defaults (solves/s), and their solves at B=4 on the card against the
    CPU (rtol 1e-4, atol 1e-4 of the scale).  Report in
    chiprun_out/protocol.json and chiprun_out/latency_b1.json.
-17. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
+17. tools: the port's bench, step and flow timers, scaling report and
+   float64 oracle rows through their main(argv, env), B1 launches counted
+   exactly a run (none in a build).  (a) benchmarks/bench.py at its
+   defaults (R=128, B=4096, 25 steps, 3 timed runs): its one stdout line,
+   reprinted as "bench: <line>"; settled exact Strehl >= 0.975 and within
+   0.001 of the slice phase's float32 B1 run (the same configuration,
+   build and scenarios); B1 exactly 25 x (1 + 3) launches.  (b)
+   step_breakdown.py and step_knockouts.py at R=512, B=256, 25 steps:
+   the four stages, the whole step, the sum of parts and all eleven
+   knockout variants in us a step a scenario (CUDA events).  (c)
+   edge_flow_cost.py at R=128, 500 steps: both flows, each settled at
+   exact Strehl >= 0.9.  (d) edge_flow_breakdown.py at R=128: the
+   advance breakdown rows and the closed loop at B=1 and 64 by CUDA
+   events and the host clock, the JAX rows not ported.  (e) scaling.py
+   with worlds of 1 and 2 gloo ranks sharing cuda:0 (cross_card false):
+   B1 launches exactly steps x (1 + gauss_newton_iters) in each rank.
+   (f) oracle_reference_rows.py cut to R=64, 20 steps: finite rows,
+   D/r0=5 not collapsed.  (g) The whole step (run_batch) and the
+   knockouts' replica of it (telemetry "stacked") at R=512, B=256 in
+   turns, then one traced run of each (busy, idle, top kernels, kernel
+   launches and host CPU time), and one traced 25-step run of the flow's
+   advance and of its integer-lattice part (no_frac) at R=128.  Reports
+   in chiprun_out/tools.json,
+   edge_flow_breakdown.json, scaling.json and oracle_r64.json.
+18. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
    power limit; each kernel must launch >= k1 + k2 times, and no rate may
    exceed 105% of its published peak.
-18. roofline: rows of the roofline entry point (benchmarks/roofline.py)
+19. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
    N=2 B=1024 -- each as a share of the published and of the measured
@@ -250,7 +274,7 @@ package):
    the bf16 variants against their bound at the measured ceilings (none
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
-19. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
+20. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
    psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
    (bound_ms and bound_by from measure_bound at the published peaks,
    fp32_bound_ms beside them, null for the bf16 entries; B1's launches
@@ -260,13 +284,15 @@ package):
    and population phases' as "launches_parallel <run>" and
    "launches_population <run>", in the classical rows as
    "launches_classical d=<D/r0>", in the protocol phase's runs as
-   "launches_protocol <run>")
+   "launches_protocol <run>", in the tools phase's as "launches_tools
+   <run>")
    -- then the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -282,9 +308,12 @@ import torch.distributed as dist
 from torch.autograd import DeviceType
 
 from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
-from mpc_sensorlessao_tpu_torch.benchmarks import _protocol, cholesky_paths
+from mpc_sensorlessao_tpu_torch.benchmarks import _protocol, bench
+from mpc_sensorlessao_tpu_torch.benchmarks import cholesky_paths
 from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
+from mpc_sensorlessao_tpu_torch.benchmarks import edge_flow_breakdown
+from mpc_sensorlessao_tpu_torch.benchmarks import edge_flow_cost
 from mpc_sensorlessao_tpu_torch.benchmarks import excursion_tail
 from mpc_sensorlessao_tpu_torch.benchmarks import full_protocol, latency_b1
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants, roofline
@@ -292,9 +321,12 @@ from mpc_sensorlessao_tpu_torch.benchmarks import long_horizon, modes_horizon
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_sweep
 from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
+from mpc_sensorlessao_tpu_torch.benchmarks import oracle_reference_rows
 from mpc_sensorlessao_tpu_torch.benchmarks import protocol_edge
-from mpc_sensorlessao_tpu_torch.benchmarks import protocol_sweep
+from mpc_sensorlessao_tpu_torch.benchmarks import protocol_sweep, scaling
 from mpc_sensorlessao_tpu_torch.benchmarks import solver_throughput
+from mpc_sensorlessao_tpu_torch.benchmarks import step_breakdown
+from mpc_sensorlessao_tpu_torch.benchmarks import step_knockouts
 from mpc_sensorlessao_tpu_torch.examples import mcao_demo, wfs_demo
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator
 from mpc_sensorlessao_tpu_torch.models import imaging, integrator, pipeline
@@ -555,6 +587,14 @@ PROTO_TIMER_ARGS = {"solver_throughput": [], "long_horizon": [],
                     "cholesky_paths": []}
 PROTO_SOLVER_B = 4
 A12_RTOL = 1e-5                  # card vs CPU, of the peak
+# the tools phase (the port's bench, step and flow timers, scaling and the
+# float64 oracle rows)
+BENCH_REPEATS = 3                # bench.py's default
+BENCH_STREHL_TOL = 0.001         # the bench vs the slice phase's B1 run
+TOOLS_EDGE_R = 128
+SCALING_ENV = {"SCALING_DEVICE": "cuda:0", "SCALING_RANKS": "2"}
+ORACLE_ENV = {"ORACLE_RES": "64", "ORACLE_STEPS": "20",
+              "ORACLE_TRAIN": "300"}
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
 
@@ -1151,6 +1191,10 @@ def trace_run(label: str, run, untraced_s: float, card: str,
           f"{secs['trace_start']:.2f} s, traced run {traced_s:.2f} s, stop "
           f"and export {secs['trace_stop_export']:.2f} s ({mib:.1f} MiB "
           f"trace.json), key_averages {secs['trace_key_averages']:.2f} s")
+    launches = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
+    print(f"trace host: {label}: {launches} kernel launches, host self CPU "
+          f"{sum(e.self_cpu_time_total for e in avg) / 1e3:.3f} ms in the "
+          f"traced run")
     kernels = sorted((e for e in avg if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -2870,6 +2914,208 @@ def protocol_solver_check(dev, card) -> None:
                      f"the CPU's")
 
 
+def tools_phase(dev, card, strehl_b1: float) -> dict:
+    """The port's bench, step and flow timers, scaling report and float64
+    oracle rows (benchmarks/bench.py, step_breakdown.py,
+    step_knockouts.py, edge_flow_cost.py, edge_flow_breakdown.py,
+    scaling.py, oracle_reference_rows.py), each through its main(argv,
+    env) on the card, B1 launches counted exactly a run.  The bench at its
+    defaults prints one stdout line, reprinted here as "bench: <line>",
+    and settles at exact Strehl >= MIN_STREHL, within BENCH_STREHL_TOL of
+    ``strehl_b1`` (the slice phase's float32 B1 run: the same
+    configuration, build and scenarios).  Returns B1's launches by run."""
+    t_phase = time.time()
+    b1 = K.psf_crop_diversity_sym3
+    gn = reference_config().estimator.gauss_newton_iters
+    runs = profiling.TIME_REPEATS + 1      # a warm-up and the timed runs
+    launches, secs, report = {}, {}, {}
+    OUT_DIR.mkdir(exist_ok=True)
+
+    def count(label, fn, want):
+        reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        launches[label] = b1.launches
+        if b1.launches != want:
+            fail(f"tools {label}: psf_div3_sym launched {b1.launches} times, "
+                 f"not {want}")
+        return result
+
+    # (a) the bench at its defaults: a first run and BENCH_REPEATS timed
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line, meta = count("bench", lambda: bench.main([], {}),
+                           STEPS * (1 + BENCH_REPEATS))
+    lines = buf.getvalue().splitlines()
+    if (len(lines) != 1 or json.loads(lines[0]) != line
+            or set(line) != {"metric", "value", "unit", "vs_baseline"}):
+        fail(f"tools bench: stdout {lines!r} is not one line of bench.py's "
+             f"four keys")
+    print(f"bench: {lines[0]}")
+    report["bench"] = {"line": line, "meta": meta}
+    print(f"tools bench: R={meta['resolution']} B={meta['batch']} "
+          f"{meta['steps']} steps, best of {BENCH_REPEATS} runs "
+          f"{meta['run_s']} s, first run {meta['compile_s']} s, build "
+          f"{meta['build_s']} s; settled exact Strehl "
+          f"{meta['mean_strehl']:.5f} (the slice phase's B1 run "
+          f"{strehl_b1:.5f}, limit +-{BENCH_STREHL_TOL}, floor {MIN_STREHL}),"
+          f" Marechal {meta['mean_strehl_marechal']:.5f}, residual "
+          f"{meta['mean_rms_res']:.5f} rad; B1 launches {launches['bench']} "
+          f"[{meta['device']}]")
+    if not (meta["mean_strehl"] >= MIN_STREHL and abs(
+            meta["mean_strehl"] - strehl_b1) <= BENCH_STREHL_TOL):
+        fail(f"tools bench: settled exact Strehl {meta['mean_strehl']:.5f} "
+             f"(slice B1 run {strehl_b1:.5f})")
+
+    # (b) step_breakdown and step_knockouts at their defaults (R=512, B=256,
+    # 25 steps): B1 in the measure stage, in each Gauss-Newton pass and in
+    # the whole step; in every knockout variant, once a pass
+    sb = count("step_breakdown", lambda: step_breakdown.main([], {}),
+               runs * STEPS * (2 + 2 * gn))
+    report["step_breakdown"] = sb
+    print(f"tools step_breakdown R={sb['R']} B={sb['B']} {sb['steps']} "
+          f"steps, us a step a scenario: " + ", ".join(
+              f"{k[:-3]} {v}" for k, v in sb.items() if k.endswith("_us"))
+          + f" [{card}]")
+    ko = count("step_knockouts", lambda: step_knockouts.main([], {}),
+               runs * STEPS * sum(1 + kw.get("gn", gn) for kw in
+                                  step_knockouts.VARIANTS.values()))
+    report["step_knockouts"] = ko
+    print(f"tools step_knockouts R={ko['R']} B={ko['B']} {ko['steps']} "
+          f"steps, us a step a scenario: " + ", ".join(
+              f"{k[:-3]} {v}" for k, v in ko.items() if k.endswith("_us"))
+          + f"; full / step_breakdown's full step "
+          f"{ko['full_us'] / sb['full_step_us']:.3f} [{card}]")
+    if set(ko) != {"R", "B", "steps", "device"} | {
+            f"{k}_us" for k in step_knockouts.VARIANTS}:
+        fail(f"tools step_knockouts: keys {sorted(ko)}")
+
+    # (c) edge_flow_cost at R=128: both flows, 500 steps, 1 + 3 runs each
+    efc = count("edge_flow_cost", lambda: edge_flow_cost.main(
+        [str(TOOLS_EDGE_R)], {}),
+        len(edge_flow_cost.FLOWS) * 4 * 500 * (1 + gn))
+    report["edge_flow_cost"] = efc
+    for flow in edge_flow_cost.FLOWS:
+        r = efc[flow]
+        print(f"tools edge_flow_cost R={efc['resolution']} {flow}: "
+              f"{r['us_per_step']} us a step (best of 3 {r['loop_s']} s), "
+              f"settled exact Strehl {r['mean_strehl']} [{card}]")
+        if not r["mean_strehl"] >= LOCK_STREHL:
+            fail(f"tools edge_flow_cost {flow}: settled exact Strehl "
+                 f"{r['mean_strehl']}")
+    print(f"tools edge_flow_cost: conditional overhead "
+          f"{efc['conditional_overhead_us_per_step']} us a step [{card}]")
+
+    # (d) edge_flow_breakdown at R=128: its rows, then the closed loop at
+    # B=1 and 64 (a warm-up, the event-timed and the host-timed runs)
+    out = OUT_DIR / "edge_flow_breakdown.json"
+    out.unlink(missing_ok=True)
+    efb = count("edge_flow_breakdown", lambda: edge_flow_breakdown.main(
+        [str(out)], {"EFB_RES": str(TOOLS_EDGE_R)}),
+        4 * (1 + 2 * edge_flow_breakdown.REPEATS)
+        * edge_flow_breakdown.STEPS * (1 + gn))
+    report["edge_flow_breakdown"] = efb
+    print(f"tools edge_flow_breakdown R={efb['resolution']}, us a step "
+          f"(median, IQR): " + ", ".join(
+              f"{k} {v['us_per_step']} {v['iqr_us']}"
+              for k, v in efb["advance_breakdown"].items()) + f" [{card}]")
+    for b, row in efb["closed_loop"].items():
+        print(f"tools edge_flow_breakdown {b}: " + ", ".join(
+            f"{f} {row[f]['us_per_step']} us a step by events (IQR "
+            f"{row[f]['iqr_us']}), {row[f]['host_us_per_step']} by the host "
+            f"clock" for f in ("periodic", "conditional"))
+            + f"; conditional overhead "
+            f"{row['conditional_overhead_us_per_step']} us [{card}]")
+    print(f"tools edge_flow_breakdown: not ported "
+          f"{sorted(efb['not_ported'])}")
+
+    # (e) scaling: worlds of 1 and 2 gloo ranks sharing cuda:0
+    sc = count("scaling", lambda: scaling.main(
+        ["8", "20", str(OUT_DIR / "scaling.json")], SCALING_ENV), 0)
+    report["scaling"] = sc
+    want = {str(k): [20 * (1 + gn)] * k for k in (1, 2)}
+    launches["scaling ranks"] = sum(sum(v) for v in sc["b1_launches"].values())
+    print(f"tools scaling (gloo ranks on cuda:0, cross_card "
+          f"{sc['cross_card']}): solves/s {sc['solves_per_s']}, efficiency "
+          f"{sc['efficiency']}; B1 launches a rank {sc['b1_launches']} "
+          f"[{card}]")
+    if sc["b1_launches"] != want or sc["cross_card"]:
+        fail(f"tools scaling: B1 launches {sc['b1_launches']}, not {want}; "
+             f"cross_card {sc['cross_card']}")
+
+    # (f) the float64 oracle rows on the card's build, cut to R=64 and 20
+    # steps (the R=512 rows of ORACLE_REFROWS_r04.json take minutes of
+    # host time: run the script itself for them)
+    orr = count("oracle", lambda: oracle_reference_rows.main(
+        [str(OUT_DIR / "oracle_r64.json")], ORACLE_ENV), 0)
+    report["oracle"] = orr
+    for key, row in orr["rows"].items():
+        print(f"tools oracle R={orr['resolution']} {orr['n_steps']} steps "
+              f"{key}: residual {row['mean_rms_res_rad']} rad, turbulence "
+              f"{row['mean_rms_turb_rad']} rad, rejection {row['rejection']},"
+              f" collapsed {row['collapsed']} (oracle {row['oracle_s']} s)")
+        if not np.isfinite(row["mean_rms_res_rad"]) or (
+                key.startswith("d_over_r0=5_") and row["collapsed"]):
+            fail(f"tools oracle {key}: {row}")
+
+    # (g) the whole step (run_batch) against the knockouts' replica of it
+    # (telemetry "stacked": simulate's StepOutputs) at R=512, B=256, in
+    # turns, then each traced; the conditional flow's advance against its
+    # integer-lattice part (no_frac) at R=128, traced
+    cfg5 = step_breakdown.step_cfg(512, STEPS)
+    sys5 = pipeline.build(cfg5, dev)
+    B5 = 256
+    scen5 = montecarlo.make_scenarios(cfg5, torch.Generator().manual_seed(1),
+                                      B5, device=dev)
+    pair = {
+        "run_batch": lambda: montecarlo.run_batch(
+            sys5.loop, sys5.layers, cfg5, scen5, STEPS,
+            shared_window="verified"),
+        "replica": lambda: step_knockouts.run_variant(
+            sys5.loop, sys5.layers, cfg5, scen5.mag, scen5.noise_scale,
+            STEPS, cfg5.sim.n_train + cfg5.sim.n_valid,
+            _protocol.generator(dev, 7), telemetry="stacked"),
+    }
+
+    def turns():
+        got = {k: [] for k in pair}
+        for k in ("run_batch", "replica", "replica", "run_batch"):
+            got[k].append(round(step_breakdown.us_per_step(
+                pair[k], dev, STEPS, B5), 2))
+        for k, fn in pair.items():
+            trace_window(f"tools {k} R=512 B={B5}", fn, card, f"tools_{k}")
+        return got
+    got = count("step trace", turns, 28 * STEPS * (1 + gn))
+    report["step_turns_us"] = got
+    print(f"tools whole step vs replica R=512 B={B5}, us a step a scenario "
+          f"in turns (each the median of {profiling.TIME_REPEATS} runs): "
+          f"{got} [{card}]")
+    tel = dataclasses.replace(cfg5.telescope, resolution=TOOLS_EDGE_R)
+    model, state0 = edge_flow.build(0, cfg5.atmosphere, tel, device=dev)
+    for name, step in edge_flow_breakdown.breakdown_steps(
+            model, model, _protocol.generator(dev, 3)).items():
+        if name not in ("no_frac", "full_new"):
+            continue
+
+        def advance_run(step=step):
+            phases = state0.phases[None]
+            for idx in range(STEPS):
+                phases, _ = step(phases, idx)
+        count(f"flow trace {name}", lambda: trace_window(
+            f"tools advance {name} R={TOOLS_EDGE_R}", advance_run, card,
+            f"tools_{name}"), 0)
+
+    report["launches"] = launches
+    report["s"] = secs["phase"] = time.time() - t_phase
+    (OUT_DIR / "tools.json").write_text(json.dumps(report, indent=2) + "\n")
+    print("tools: phase in " + f"{secs['phase']:.2f} s: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items() if k != "phase")
+        + f" [{card}]")
+    return launches
+
+
 def modes_cfg():
     """MODES_r04.json's order-10 N=32 configuration, from the port's
     benchmarks/modes_horizon.py: reference_config(128), radial order 10
@@ -2927,6 +3173,7 @@ def main() -> None:
             fail(f"a12: the slice launched {name} {wrapper.launches} times; "
                  f"it runs no PSF kernel")
     protocol_launches = protocol_phase(dev, card)
+    tools_launches = tools_phase(dev, card, fixed["strehl"])
     report, chain_launches, chain_line = peaks_phase(card)
     roofline_phase(system, cfg, report["peaks"], times, card)
     kernels = []
@@ -2947,6 +3194,8 @@ def main() -> None:
                           for k, v in classical_launches.items()})
             paths.update({f"launches_protocol {k}": v
                           for k, v in protocol_launches.items()})
+            paths.update({f"launches_tools {k}": v
+                          for k, v in tools_launches.items()})
         else:
             paths = {}
         kernels.append({**paths,

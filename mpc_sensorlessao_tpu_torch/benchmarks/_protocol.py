@@ -15,7 +15,10 @@ protocol scripts repeats.
   recipe (order, ridge VAR, mmse prior, warm start, r_weight 30);
 * ``load_report`` / ``save_report``  the staged-JSON merge and save
   (protocol_sweep.py:129-140): a report is written only to a path the
-  caller names.
+  caller names;
+* ``times_ms`` / ``host_times_ms``  a run's ms on the card's clock
+  (profiling.cuda_times_ms: CUDA events) and on the host clock after a
+  device synchronize -- the two clocks of every port timer.
 
 Each row keeps the JAX script's keys and rounding; the numbers are
 computed in host float64 numpy from the run's float32 outputs, as the
@@ -27,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -60,6 +64,29 @@ def sync(dev: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def times_ms(fn, dev: torch.device, repeats: int) -> list:
+    """The ms of each of ``repeats`` runs of ``fn`` after one warm-up run:
+    CUDA events around each run on the card (profiling.cuda_times_ms),
+    the host clock on the CPU (no device time exists there)."""
+    if dev.type == "cuda":
+        return profiling.cuda_times_ms(fn, 1, repeats)
+    fn()
+    return host_times_ms(fn, dev, repeats)
+
+
+def host_times_ms(fn, dev: torch.device, repeats: int) -> list:
+    """The ms of each of ``repeats`` runs of ``fn`` on the host clock,
+    each ended by a device synchronize (call it after a warm-up run)."""
+    out = []
+    for _ in range(repeats):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
 
 
 def generator(dev: torch.device, seed: int) -> torch.Generator:

@@ -32,7 +32,6 @@ import json
 import os
 import statistics
 import sys
-import time
 
 import numpy as np
 
@@ -90,12 +89,7 @@ def row(resolution: int, steps: int, repeats: int, gn: int, dev) -> dict:
         out["iqr_ms"] = _iqr(ev)
     else:
         out["ms_per_step_b1"] = out["iqr_ms"] = None
-    host = []
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        run()
-        P.sync(dev)
-        host.append(1e3 * (time.perf_counter() - t0) / steps)
+    host = [t / steps for t in P.host_times_ms(run, dev, repeats)]
     ms = statistics.median(host)
     out.update({
         "host_ms_per_step_b1": round(ms, 4),

@@ -249,6 +249,14 @@ def schedule(model: EdgeFlowModel, idx):
     return out
 
 
+def shift_rounds(sched) -> int:
+    """The shift rounds a step of ``sched`` (schedule) takes: its largest
+    whole-pixel shift; rounds past every layer's shift count never touch
+    the state."""
+    return max((int(np.abs(k).max()) for ky, kx, *_ in sched
+                for k in (ky, kx)), default=0)
+
+
 def _apply(op: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """op (L, m, k) applied to v (S, L, k) -> (S, L, m) float32.  A
     bfloat16 op takes bfloat16 v and accumulates in float32 (the JAX
@@ -379,9 +387,7 @@ def advance(model: EdgeFlowModel, state: EdgeFlowState, idx,
         return torch.randn((S_all, L, model.n_border), generator=generator,
                            device=phases.device, dtype=phases.dtype)[keep]
 
-    # rounds past every layer's shift count never touch the state
-    rounds = max((int(np.abs(k).max()) for ky, kx, *_ in sched
-                  for k in (ky, kx)), default=0)
+    rounds = shift_rounds(sched)
     if rows is not None:
         sched = [(ky[rows], kx[rows], sgn, fy[rows], fx[rows])
                  for ky, kx, sgn, fy, fx in sched]

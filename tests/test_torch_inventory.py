@@ -54,16 +54,9 @@ EXEMPT_NAMES = {
     "jax.Array from process-local shards; torch ranks keep local tensors "
     "and reduce with collectives (montecarlo.run_sharded)",
 }
-# root scripts still to port -> their ROADMAP item
-STILL_TO_PORT = {
-    "bench.py": "A.6, the torch bench",
-    "benchmarks/scaling.py": "A.12",
-    "benchmarks/edge_flow_cost.py": "A.12",
-    "benchmarks/edge_flow_breakdown.py": "A.12",
-    "benchmarks/step_breakdown.py": "A.12",
-    "benchmarks/step_knockouts.py": "A.12",
-    "benchmarks/oracle_reference_rows.py": "A.12 (the float64 NumPy oracle)",
-}
+# root scripts still to port -> their ROADMAP item (none: every script
+# has its counterpart)
+STILL_TO_PORT = {}
 # root scripts not to port -> reason
 DO_NOT_PORT_SCRIPTS = {
     "benchmarks/_timing.py": "the differenced scan (runs of L and 2L steps) "

@@ -255,6 +255,37 @@ def test_own_build_matches_jax_settled_residual(jax_system, port_system):
                                atol=1e-4 * np.abs(want).max())
 
 
+def test_own_build_matches_jax_settled_exact_strehl(jax_system, port_system):
+    """(b) ROADMAP C.9: the port's own build + loop vs the JAX build +
+    loop on the settled exact Strehl (mean over the last half of 20
+    steps), each run on the same injected measurement noise, noise_std
+    z with z from np.random.default_rng(100 + k), k = 0..5.  Measured
+    at R=64 on these six streams: the port sits 2.1e-5 to 3.4e-5 below
+    JAX (the float64 against the float32 VAR fit and MPC operators);
+    the limit, 1e-4, fails a shift of 0.0005 -- the size of the TPU
+    records' offset from both builds on the CPU -- which the settled
+    residual test above would pass."""
+    jcfg, jsys = jax_system
+    cfg, sys_ = port_system
+    n_steps = 20
+    std = float(sys_.est.noise_std)
+    assert std == pytest.approx(float(jsys.loop.est.noise_std), rel=1e-6)
+    for k in range(6):
+        z = np.random.default_rng(100 + k).standard_normal(
+            (n_steps, sys_.est.n_pixels))
+        seq = (std * z).astype(np.float32)
+        ref = jcl.simulate(jsys.loop, jsys.layers, jcfg,
+                           jax.random.PRNGKey(9), n_steps=n_steps,
+                           start_step=START, noise_scale=1.0,
+                           noise_seq=jnp.asarray(seq))
+        out = closed_loop.simulate(sys_.loop, sys_.layers, cfg, None,
+                                   n_steps=n_steps, start_step=START,
+                                   noise_seq=torch.as_tensor(seq))
+        got = float(out.strehl_exact[n_steps // 2:].mean())
+        want = float(np.asarray(ref.strehl_exact)[n_steps // 2:].mean())
+        assert abs(got - want) <= 1e-4, (k, got, want)
+
+
 def test_run_closed_loop_and_summary(port_system):
     """pipeline.run_closed_loop with seeded noise locks the loop (healthy
     per the JAX package's drive: rejection > 1.5, Strehl > 0.9 at D/r0=5,

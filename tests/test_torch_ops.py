@@ -34,8 +34,10 @@ from mpc_sensorlessao_tpu.ops import zernike as jz
 from mpc_sensorlessao_tpu.utils import config as jconfig
 from mpc_sensorlessao_tpu.utils import metrics as jmetrics
 from mpc_sensorlessao_tpu_torch import reference_config
-from mpc_sensorlessao_tpu_torch.benchmarks import cholesky_paths
+from mpc_sensorlessao_tpu_torch.benchmarks import bench, cholesky_paths
 from mpc_sensorlessao_tpu_torch.benchmarks import classical_vs_mpc
+from mpc_sensorlessao_tpu_torch.benchmarks import edge_flow_breakdown
+from mpc_sensorlessao_tpu_torch.benchmarks import edge_flow_cost
 from mpc_sensorlessao_tpu_torch.benchmarks import excursion_tail
 from mpc_sensorlessao_tpu_torch.benchmarks import full_protocol, latency_b1
 from mpc_sensorlessao_tpu_torch.benchmarks import kernel_variants
@@ -43,9 +45,12 @@ from mpc_sensorlessao_tpu_torch.benchmarks import long_horizon, modes_horizon
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_100k
 from mpc_sensorlessao_tpu_torch.benchmarks import montecarlo_sweep
 from mpc_sensorlessao_tpu_torch.benchmarks import multiprocess
+from mpc_sensorlessao_tpu_torch.benchmarks import oracle_reference_rows
 from mpc_sensorlessao_tpu_torch.benchmarks import protocol_edge
-from mpc_sensorlessao_tpu_torch.benchmarks import protocol_sweep
+from mpc_sensorlessao_tpu_torch.benchmarks import protocol_sweep, scaling
 from mpc_sensorlessao_tpu_torch.benchmarks import solver_throughput
+from mpc_sensorlessao_tpu_torch.benchmarks import step_breakdown
+from mpc_sensorlessao_tpu_torch.benchmarks import step_knockouts
 from mpc_sensorlessao_tpu_torch.examples import closed_loop_demo, mcao_demo
 from mpc_sensorlessao_tpu_torch.examples import horizon_sweep_demo, wfs_demo
 from mpc_sensorlessao_tpu_torch.models import closed_loop, dm, estimator
@@ -819,7 +824,9 @@ def test_kernel_variants_agree_on_cpu():
     "wfs_demo", "mcao_demo", "closed_loop_demo", "horizon_sweep_demo",
     "full_protocol", "protocol_sweep", "montecarlo_sweep", "modes_horizon",
     "protocol_edge", "excursion_tail", "latency_b1", "solver_throughput",
-    "long_horizon", "cholesky_paths"])
+    "long_horizon", "cholesky_paths", "bench", "step_breakdown",
+    "step_knockouts", "edge_flow_cost", "edge_flow_breakdown", "scaling",
+    "oracle_reference_rows"])
 def test_builders_default_to_the_card(builder, monkeypatch):
     """Every builder runs on the card unless the caller passes "cpu":
     without a CUDA device, a call that names no device raises."""
@@ -894,6 +901,15 @@ def test_builders_default_to_the_card(builder, monkeypatch):
         "solver_throughput": lambda: solver_throughput.main(["4"], {}),
         "long_horizon": lambda: long_horizon.main(["4"], {}),
         "cholesky_paths": lambda: cholesky_paths.main(["4"], {}),
+        "bench": lambda: bench.main([], {"BENCH_RES": "32"}),
+        "step_breakdown": lambda: step_breakdown.main(["32", "2", "2"], {}),
+        "step_knockouts": lambda: step_knockouts.main(["32", "2", "2"], {}),
+        "edge_flow_cost": lambda: edge_flow_cost.main(["32", "2"], {}),
+        "edge_flow_breakdown": lambda: edge_flow_breakdown.main(
+            [], {"EFB_RES": "32"}),
+        "scaling": lambda: scaling.main(["2", "2"], {}),
+        "oracle_reference_rows": lambda: oracle_reference_rows.main(
+            [], {"ORACLE_RES": "32"}),
     }
     for var in ("MC1_DEVICE", "MP_DEVICE"):
         monkeypatch.delenv(var, raising=False)

@@ -19,9 +19,7 @@ the repository's JAX scripts (benchmarks/*.py), on the CPU.
   given, and a staged or resumed second run merges into that file.
 """
 
-import contextlib
 import dataclasses
-import importlib.util
 import json
 import sys
 import types
@@ -50,6 +48,7 @@ from mpc_sensorlessao_tpu_torch.benchmarks import protocol_edge as pe
 from mpc_sensorlessao_tpu_torch.benchmarks import protocol_sweep as ps
 from mpc_sensorlessao_tpu_torch.models import closed_loop, pipeline, var
 from mpc_sensorlessao_tpu_torch.utils.config import mag_conv
+from torch_script_support import _captured_cfg, _jax_script, _same
 
 torch.backends.cuda.matmul.allow_tf32 = False
 # one intra-op thread a worker: the suite runs one file per worker
@@ -57,56 +56,6 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 Out = namedtuple("Out", "rms_res rms_turb strehl_exact strehl")
-
-
-@contextlib.contextmanager
-def _restored_jax_state():
-    """The JAX scripts set a persistent compilation cache under /tmp and
-    put their directory on sys.path when imported: undo both."""
-    path = list(sys.path)
-    cache = (jax.config.jax_compilation_cache_dir,
-             jax.config.jax_persistent_cache_min_compile_time_secs)
-    try:
-        yield
-    finally:
-        sys.path[:] = path
-        jax.config.update("jax_compilation_cache_dir", cache[0])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          cache[1])
-
-
-def _jax_script(name: str) -> types.ModuleType:
-    """The repository's benchmarks/<name>.py, imported by path."""
-    spec = importlib.util.spec_from_file_location(
-        f"jax_bench_{name}", ROOT / "benchmarks" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    with _restored_jax_state():
-        spec.loader.exec_module(mod)
-    return mod
-
-
-class _Captured(Exception):
-    pass
-
-
-def _captured_cfg(monkeypatch, name, argv, env):
-    """The config of the JAX script's first pipeline.build call under
-    ``argv`` and ``env``."""
-    mod = _jax_script(name)
-
-    def build(cfg, key):
-        raise _Captured(cfg)
-    monkeypatch.setattr(jpipeline, "build", build)
-    monkeypatch.setattr(sys, "argv", [name] + list(argv))
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    with pytest.raises(_Captured) as got:
-        mod.main()
-    return got.value.args[0]
-
-
-def _same(jax_cfg, port_cfg):
-    assert dataclasses.asdict(jax_cfg) == dataclasses.asdict(port_cfg)
 
 
 # ------------------------------------------------------- configurations
