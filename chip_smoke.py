@@ -12,11 +12,13 @@ package):
    with nvcc for sm_90a, one nvcc each, all started together; print each
    build's seconds and ptxas registers, shared memory and spills.  B1,
    B2, B3 and B4 (3xTF32 on the tensor cores, csrc/psf_mma.cuh), and
-   their bf16 entries (one bf16 pass on the same engine) in the same
-   libraries: each kernel's registers, dynamic shared memory, spills and
-   the HMMA (tensor-core) instructions in its SASS; a spill, a float32
-   kernel without HMMA or with bf16 ones, or a bf16 kernel without
-   HMMA.16816.F32.BF16, fails.
+   their bf16 entries in the same libraries (one bf16 pass: B2-B4's on
+   the same engine, B1's on the wgmma engine csrc/psf_wgmma.cuh): each
+   kernel's registers, dynamic shared memory, spills and the
+   tensor-core instructions in its SASS; a spill, a float32 kernel
+   without HMMA or with bf16 ones, a bf16 mma.sync kernel without
+   HMMA.16816.F32.BF16, or B1's bf16 kernel without bf16 HGMMA
+   (HGMMA.64xNx16.F32.BF16) or with any HMMA, fails.
 3. kernel: each kernel against its plain PyTorch version on the card.
    B1-B4 at R=128, B=4096 (the main path's shapes; B3 at N=12,288) with
    31-px crops and with 41- and 63-px ones (two crop bands of the
@@ -34,7 +36,8 @@ package):
    function).  The 4e-5 must catch a B1 kernel that rounds its +- fields
    instead of its four products: B2's bf16 plain version on the triple
    rounds those fields, and at R=128 (31 px) it must miss B1's by more.
-   B5a/B5b at (4096, 4096) and at the ragged (1000, 1000), k = 8 and 32,
+   B1's bf16 entry also at R=98, B=256, whose rows (392 bytes) its
+   engine copies in 4 bytes, not by TMA.  B5a/B5b at (4096, 4096) and at the ragged (1000, 1000), k = 8 and 32,
    on the JAX script's inputs (all 0.7) and on seeded U(-3, 3) (atol
    1e-6: both chains contract, so rounding does not grow with k).
 4. variants: the kernel A/B entry point (benchmarks/kernel_variants.py)
@@ -374,6 +377,11 @@ BF16_KERNELS = (
 )
 BF16 = "bfloat16"
 BF16_HMMA = "HMMA.16816.F32.BF16"
+# the bf16 warpgroup products (wgmma) of B1's bf16 entry, any N
+BF16_HGMMA = re.compile(r"\bHGMMA\.64x\d+x16\.F32\.BF16\b")
+# bf16 entries on the wgmma engine csrc/psf_wgmma.cuh (the others run
+# csrc/psf_mma.cuh's bf16 mma.sync)
+WGMMA_ENTRIES = ("psf_div3_sym_bf16",)
 # bf16 entry against bf16 plain, of the peak: the tensor cores' stage-1
 # sums (rounded toward zero, not to nearest) flip the bf16 rounding of a
 # stage-1 element now and then.  At R=128, B=4096 that moves a pixel by
@@ -415,6 +423,9 @@ WIDE_CROPS = (41, 63)
 KERNEL_SHAPES = ((128, BATCH, CROP_HALF),
                  *((128, BATCH, (w - 1) // 2) for w in WIDE_CROPS),
                  (512, 256, CROP_HALF))
+# (R, B) of B1's bf16 entry at a ragged R: rows of 392 bytes, not a
+# multiple of 16, which its engine copies in 4 bytes, not by TMA
+RAGGED_BF16 = (98, 256)
 # (R, B) of the R=512 loop through B1 and B2 (ROADMAP C.3)
 LOOP_512 = (512, 256)
 MIN_STREHL = 0.975
@@ -643,8 +654,9 @@ def mma_resources(label: str, lib: str, log: str) -> None:
     """Registers, stack and spills (ptxas) of a tensor-core library's
     kernels, and of its float32 and bf16 kernel the dynamic shared memory
     and HMMA count (their SASS); fails on a spill, on a float32 kernel
-    without HMMA or with bf16 ones, or on a bf16 kernel without bf16
-    HMMA."""
+    without HMMA or with bf16 ones, on a bf16 mma.sync kernel without bf16
+    HMMA, or on a bf16 kernel of WGMMA_ENTRIES without bf16 HGMMA or with
+    any HMMA."""
     res = cuda_build.ptxas_resources(log or cuda_build.ptxas_report(lib))
     funcs = device_peaks.sass_functions(device_peaks.sass(lib))
     for fn, r in res.items():
@@ -658,6 +670,15 @@ def mma_resources(label: str, lib: str, log: str) -> None:
         hmma = len(re.findall(r"\bHMMA\.", sass))
         bf16 = sass.count(BF16_HMMA)
         smem = getattr(cuda_build.load(lib), f"{entry}_smem_bytes")()
+        if entry in WGMMA_ENTRIES:
+            hgmma = len(BF16_HGMMA.findall(sass))
+            print(f"build: {label} {entry}_kernel: {smem} B dynamic shared "
+                  f"memory a block at R=128; {hgmma} bf16 HGMMA (wgmma) "
+                  f"and {hmma} HMMA instructions in its SASS")
+            if hgmma == 0 or hmma:
+                fail(f"{label}'s {entry}_kernel shows {hgmma} bf16 HGMMA, "
+                     f"{hmma} HMMA; ptxas {res}")
+            continue
         print(f"build: {label} {entry}_kernel: {smem} B dynamic shared "
               f"memory a block; {hmma} HMMA (tensor-core) instructions in "
               f"its SASS, {bf16} of them {BF16_HMMA}")
@@ -786,6 +807,13 @@ def kernel_phase(dev) -> dict:
         if crop_half == CROP_HALF:
             misrounded_b1_check(bf16_plain["B1"], bf16_plain["B2 (3 maps)"],
                                 R, B)
+    R, B = RAGGED_BF16
+    args = b1_args(R, B, dev)
+    err, _ = bf16_check("B1", "psf_div3_sym_bf16", K.psf_crop_diversity_sym3,
+                        K.psf_crop_diversity_sym3_ref, args,
+                        K.psf_crop_diversity_sym3_ref(*args), BF16_ATOL, R,
+                        B)
+    max_err["psf_div3_sym_bf16"] = max(max_err["psf_div3_sym_bf16"], err)
     rng = np.random.default_rng(2)
     for shape in CHAIN_SHAPES:
         inputs = (("0.7", torch.full(shape, 0.7, device=dev)),

@@ -26,11 +26,12 @@
 // pcd, psd) and takes one full-precision sincosf per pixel -- the
 // diversity alone reaches +-3 rad.
 //
-// psf_div3_sym_bf16 is the TPU kernel's compute_dtype="bfloat16" branch on
-// the same engine (Precision::kBf16: one bf16 pass, f32 sums), rounding
-// where the TPU kernel rounds: the operator, the four products and F_0,
-// and each field's stage-1 rows, which it forms from the products' rows in
-// float32 first.
+// psf_div3_sym_bf16 is the TPU kernel's compute_dtype="bfloat16" branch
+// on the Hopper engine psf_wgmma.cuh (wgmma on the TPU kernel's stacked
+// (2w, R) operator, fields stored once in bf16, persistent blocks with a
+// producer warp), rounding where the TPU kernel rounds: the operator, the
+// four products and F_0, and each field's stage-1 rows, which it forms
+// from the products' rows in float32 first.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
@@ -39,6 +40,7 @@
 
 #include "psf_mma.cuh"
 #include "psf_sym3.cuh"
+#include "psf_wgmma.cuh"
 
 namespace {
 
@@ -56,11 +58,10 @@ psf_div3_sym_kernel(Sym3Fields<Precision::kTf32x3> fields,
   psf_mma::crop_block<Precision::kTf32x3>(fields, band, R, w, scale, vec16);
 }
 
-__global__ void __launch_bounds__(psf_mma::kThreads, 2)
-psf_div3_sym_bf16_kernel(Sym3Fields<Precision::kBf16> fields,
-                         psf_mma::Band band, int R, int w,
-                         float scale, int vec16) {
-  psf_mma::crop_block<Precision::kBf16>(fields, band, R, w, scale, vec16);
+__global__ void __launch_bounds__(psf_wgmma::kThreads, 1)
+psf_div3_sym_bf16_kernel(const __grid_constant__ psf_wgmma::Maps maps,
+                         const psf_wgmma::Args args) {
+  psf_wgmma::sym3_block(maps, args);
 }
 
 }  // namespace
@@ -81,22 +82,30 @@ int psf_div3_sym(const float* phase, const float* pupil, const float* pcd,
 }
 
 // As psf_div3_sym, with the DFT stages' operands in bf16: the
-// compute_dtype="bfloat16" branch of the TPU kernel.
+// compute_dtype="bfloat16" branch of the TPU kernel, on psf_wgmma.cuh.
+// `work` takes the operator's bf16 image, ceil(w / 32) * 64 * 64 *
+// ceil(R / 64) * 2 bytes (within psf_div3_sym's scratch).
 int psf_div3_sym_bf16(const float* phase, const float* pupil,
                       const float* pcd, const float* psd, const float* are,
                       const float* aim, float* work, float* out, int batch,
                       int R, int w, float scale, int device, void* stream) {
-  return psf_sym3::launch(psf_div3_sym_bf16_kernel, phase, pupil, pcd, psd,
-                          are, aim, work, out, batch, R, w, scale, device,
-                          stream);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch <= 0) return 0;
+  return static_cast<int>(psf_wgmma::launch(
+      psf_div3_sym_bf16_kernel, phase, pupil, pcd, psd, are, aim, work, out,
+      batch, R, w, scale, static_cast<cudaStream_t>(stream)));
 }
 
-// Dynamic shared memory a block of either kernel takes, in bytes.
+// Dynamic shared memory a block of either kernel takes, in bytes: for
+// the bf16 kernel at the main path's R=128 and a crop of one band (it
+// grows with R and the crop's bands).
 int psf_div3_sym_smem_bytes() {
   return static_cast<int>(psf_sym3::smem_bytes(Precision::kTf32x3));
 }
 int psf_div3_sym_bf16_smem_bytes() {
-  return static_cast<int>(psf_sym3::smem_bytes(Precision::kBf16));
+  return static_cast<int>(
+      psf_wgmma::smem_bytes(128, 1, psf_wgmma::kMaxStages));
 }
 
 const char* psf_div3_sym_error_string(int err) {

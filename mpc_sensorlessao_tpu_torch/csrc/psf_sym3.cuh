@@ -13,12 +13,13 @@
 // t3 = s pcd, t4 = c psd and F_0 = pupil (c, s):
 //   F_-a = (t1 + t2, t3 - t4),   F_+a = (t1 - t2, t3 + t4).
 // The two kernels differ in where the +- is taken.  B1 in float32 forms
-// F_-a, F_0, F_+a at every pixel.  B4 (both precisions), and B1's bf16
-// entry, form the pseudo-fields P = t1 + i t3, F_0 and Q = t2 - i t4, and
-// recombine their float32 stage-1 rows into the fields', G_-a = G_P + G_Q
-// and G_+a = G_P - G_Q, before G is stored (and, for kBf16, rounded): the
+// F_-a, F_0, F_+a at every pixel.  B4 (both precisions) forms the
+// pseudo-fields P = t1 + i t3, F_0 and Q = t2 - i t4, and recombines
+// their float32 stage-1 rows into the fields', G_-a = G_P + G_Q and
+// G_+a = G_P - G_Q, before G is stored (and, for kBf16, rounded): the
 // TPU kernels' thin-row recombination (pallas_kernels.py:161-171 for B1's
-// bf16 branch, :178-234 for B4).
+// bf16 branch, :178-234 for B4).  B1's bf16 entry forms and recombines
+// the same pseudo-fields on its own engine, psf_wgmma.cuh.
 
 #pragma once
 

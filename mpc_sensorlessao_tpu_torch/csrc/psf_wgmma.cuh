@@ -1,0 +1,727 @@
+// The Hopper engine of kernel B1's bf16 entry (psf_div3_sym.cu,
+// psf_div3_sym_bf16): the TPU kernel mpc_sensorlessao_tpu/ops/
+// pallas_kernels.py `_psf_div3_sym_kernel` with compute_dtype="bfloat16"
+// (:115-175, pallas_call :309), on warpgroup matrix products (wgmma),
+// asynchronous copies completing on mbarriers, and persistent blocks.
+// For every scenario b it computes the symmetric diversity triple
+// (-a, 0, +a),
+//
+//   out[b, d] = |A F_d A^T|^2 * scale,     F_d = pupil e^{i (phase_b + d Z4)}
+//
+// with A the (w, R) partial centered DFT, rounding where the TPU kernel
+// rounds: the operator, the four products t1 = c pcd, t2 = s psd,
+// t3 = s pcd, t4 = c psd and F_0 = pupil (c, s) (c, s = cos, sin of the
+// phase, one full-precision sincosf a pixel), and each field's stage-1
+// rows G = [rr; ri] once; every sum in float32.
+//
+// What bounds it.  At R=128, B=4096, w=31 the two DFT stages are 62.0
+// GFLOP (0.063 ms at the card's published 989 TFLOP/s bf16), the bytes
+// 0.094 ms, the 67 M sincosf about 0.07 ms: a kernel that overlaps its
+// parts is bound by its bytes and its field forming.  The mma.sync design
+// it replaces (psf_mma.cuh, Precision::kBf16, still B2-B4's bf16 entries)
+// took 0.66 ms, 14% of that bound: it re-read and re-rounded the
+// operator at every use, kept the fields and G in shared memory as
+// float32, ended each of its 20 steps a block in a full barrier, and sent
+// the result through shared memory every strip.
+//
+// The design follows the TPU kernel's algebra, S1 = A2 [fr | fi] with the
+// stacked operator A2 = [are; aim] (2w, R), not the old engine's tiling:
+//   * A2 is the wgmma A operand of stage 1: M = 64 rows, one crop band of
+//     32 rows u (a wider crop is cut into bands of 32 rows and columns,
+//     one launch a band pair, as psf_mma.cuh does).  Its rows are
+//     permuted: in each 16-row slice (one warp's rows of the accumulator)
+//     rows 0-7 are are[u..u+7] and rows 8-15 aim[u..u+7], so that the
+//     thread holding S1[are_u][.] also holds S1[aim_u][.] (accumulator
+//     rows g and g + 8).  The crop's rr = S1[are] fr - S1[aim] fi,
+//     ri = S1[are] fi + S1[aim] fr, which in the TPU kernel pairs row u
+//     with row w + u, then needs no shared memory.  A small kernel
+//     (operator_image) rounds A2 to bf16 once a call into the K-major
+//     layout wgmma reads with its 128-byte swizzle (K padded with zeros
+//     to whole 64-row stages); each persistent block loads it into shared
+//     memory once, with one bulk copy;
+//   * T, the B operand of stage 1, holds the pseudo-fields P = (t1, t3),
+//     F_0 and Q = (t2, -t4) of a 16-column strip of the field as
+//     [re | im] column blocks: N = 96, K = 64 field rows a stage.  The
+//     consumer threads form it from the maps (8 pixels of one column a
+//     thread, 4 at a time for the sincosf chains to overlap), round it to
+//     bf16 once and store it once, 16 bytes a store, in the same
+//     swizzled layout (no bank conflict);
+//   * each thread recombines P's and Q's float32 stage-1 sums at the same
+//     position before anything is rounded, F_-a = P + Q, F_+a = P - Q
+//     (pallas_kernels.py:161-171, the TPU kernel's own grouping: its
+//     U +- W), forms rr and ri, and rounds them to bf16 in registers;
+//   * those registers are, as they stand, the wgmma A fragments of stage
+//     2, O_d += G_d A2_strip^T (M = 64 rows rr_u, ri_u; N = 64 columns
+//     are_v, aim_v in the same permuted order, read from the same
+//     shared-memory copy of A2, which is K-major for B too; K = the
+//     strip's 16 columns).  O stays in the accumulator registers for the
+//     whole scenario, and the epilogue forms orr = rr are' - ri aim',
+//     oi = rr aim' + ri are' and (orr^2 + oi^2) scale in the thread that
+//     holds all four, writing the (3, w, w) crops with no atomics;
+//   * a block is a producer warpgroup, one warp of which issues every
+//     copy, and two consumer warpgroups, one scenario each, persistent
+//     (one block an SM, walking scenario pairs).  The producer keeps a
+//     ring of up to 4 stages in flight, each a 64-row x 16-column tile of
+//     pupil, pcd, psd (shared by both scenarios: half the constant maps'
+//     L2 traffic) and of the two phases: by TMA where the maps' row pitch
+//     is a multiple of 16 bytes and the maps 16-byte aligned, by 4-byte
+//     cp.async otherwise (R=98, say), both completing on the stage's
+//     mbarrier.  A consumer warpgroup forms stage k + 1's T (its sincosf
+//     and products) while stage k's wgmma group is in flight (two T
+//     buffers, wgmma.wait_group 1), and frees a stage to the producer as
+//     soon as T is formed.  The second consumer starts a stage behind the
+//     first, so that one's waits at the end of a strip (for its last
+//     stage-1 group, then for stage 2) fall in the other's forming;
+//   * registers: a block of three warpgroups at one block an SM starts at
+//     168 registers a thread; the producer warpgroup gives its back
+//     (setmaxnreg 40) and the consumers take 232, room for O's 96
+//     accumulators, stage 1's 48 and the 12 fragment registers without a
+//     spill.  The roles are warp-uniform values, so that each warpgroup's
+//     branch holds its wgmma whole and none is serialized.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; benchmarks/bf16_knockouts.py,
+// PERF.md): 0.35 ms at R=128, B=4096, w=31, against the mma.sync
+// design's 0.64 in the same call.  Knock-out builds split it: the field
+// forming costs 0.19 ms (sincosf 0.09 of it), stage 1's wgmma 0.04, the
+// TMA loads 0.01; with forming and loads both out 0.15 ms remain, the
+// products and the waits at each strip's end.  Keeping the next strip's
+// forming in front of those waits spilled at 232 registers.
+// The wgmma sums are not IEEE round to nearest, as mma.sync's were not;
+// stage 1 accumulates over K = R on the tensor cores as the old engine
+// did, and the P +- Q and rr / ri sums are float32 in the TPU kernel's
+// order.  Where the operator does not fit in shared memory beside the
+// ring (R > 1088 for a crop of one band, R > 512 for a wider one) the
+// launch returns cudaErrorInvalidValue.
+//
+// Fragment layouts (PTX ISA, wgmma .m64nNk16, warp i of the warpgroup
+// holds rows 16 i..16 i + 15; g = lane / 4, t = lane % 4):
+//   accumulator: d[4 j + e + 2 r] at row 16 i + g + 8 r, column 8 j + 2 t + e
+//   A (registers, bf16): a0 (g, 2t 2t+1), a1 (g + 8, 2t 2t+1),
+//                        a2 (g, 2t+8 2t+9), a3 (g + 8, 2t+8 2t+9)
+// -- the accumulator of two 8-column blocks is the A fragment of one
+// k16 slice.
+
+#pragma once
+
+#include <cuda.h>          // CUtensorMap and its enums; no libcuda is linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace psf_wgmma {
+
+constexpr int kConsumers = 2;          // consumer warpgroups: a scenario each
+constexpr int kThreads = 128 * (kConsumers + 1);       // + the producer's
+constexpr int kConsumerRegs = 232;     // setmaxnreg: 2 x 128 x 232 +
+constexpr int kProducerRegs = 40;      //   128 x 40 <= 65536
+constexpr int kRows = 64;              // stage 1's M: one band's A2 rows
+constexpr int kBand = 32;              // crop rows (columns) a band
+constexpr int kStrip = 16;             // field columns a strip: stage 2's K
+constexpr int kChunk = 64;             // field rows a stage: stage 1's K
+constexpr int kParts = 6;              // P, F_0, Q as re, im
+constexpr int kN1 = kParts * kStrip;   // stage 1's N
+constexpr int kMaps = 5;               // a stage: pupil, pcd, psd, 2 phases
+constexpr int kMapTile = kChunk * kStrip;              // floats
+constexpr int kStageBytes = kMaps * kMapTile * 4;      // 20480
+constexpr int kTBytes = kChunk * kN1 * 2;              // 12288
+constexpr int kMaxStages = 4;
+constexpr int kAlign = 1024;           // slack to align the dynamic smem
+constexpr int kAtom = 64;              // K columns of a 128-byte swizzle atom
+constexpr int kAtomBytes = kAtom * 2 * 8;              // its 8-row pattern
+constexpr int kIlp = 4;                // pixels a thread forms at once
+
+// Padded K extent of the operator (field rows and columns: whole stages,
+// so that every stage runs the same four k16 products), and the bytes of
+// one band of its image.
+__host__ __device__ constexpr int padded(int R) {
+  return (R + kChunk - 1) / kChunk * kChunk;
+}
+__host__ __device__ constexpr int image_bytes(int R) {
+  return kRows * padded(R) * 2;
+}
+
+// Dynamic shared memory of a launch whose operator copy holds `images`
+// bands, with `stages` ring stages.
+constexpr size_t smem_bytes(int R, int images, int stages) {
+  return kAlign + static_cast<size_t>(stages) * kStageBytes +
+         2 * kConsumers * kTBytes +
+         static_cast<size_t>(images) * image_bytes(R);
+}
+
+// TMA descriptors of the maps (unused where the launch copies by cp.async)
+struct Maps {
+  CUtensorMap phase;                   // (B, R, R), box 1 x 64 x 16
+  CUtensorMap pupil, pcd, psd;         // (R, R), box 64 x 16
+};
+
+struct Args {
+  const float* phase;                  // (B, R, R)
+  const float* pupil;                  // (R, R)
+  const float* pcd;
+  const float* psd;
+  const uint16_t* rows;                // stage 1's band of the image
+  const uint16_t* cols;                // stage 2's band
+  float* out;                          // (B, 3, w, w)
+  int batch, R, w, u0, v0, stages, tma;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -------------------------------------------------------------- barriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(smem_addr(b)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(b)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, unsigned parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(b)), "r"(parity) : "memory");
+  } while (!done);
+}
+// the 128 threads of consumer warpgroup `wg` (named barrier 1 + wg)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+// ----------------------------------------------------------------- copies
+
+// `bytes` (a multiple of 16) of global src into shared dst, completing on b
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
+      "r"(smem_addr(b)) : "memory");
+}
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(b)) : "memory");
+}
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, uint64_t* b) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(b)) : "memory");
+}
+// copies `bytes` (4 or 0) of src and zero-fills the rest of the 4
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          unsigned bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+// ------------------------------------------------------------------ wgmma
+
+// Descriptor of a K-major operand at p (1024-byte aligned) in the 128-byte
+// swizzle: 128-byte rows of 64 K values, 8-row groups kAtomBytes apart
+// (the leading offset is unused for this layout: 16 bytes by convention).
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(16 >> 4) << 16 |
+         static_cast<uint64_t>(kAtomBytes >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Orders the compiler's accesses to accumulator registers after a
+// wgmma.wait_group (and before an issue): the asynchronous products write
+// them behind its back.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define PSF_F8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 96) (+)= A (64 x 16, shared) B (16 x 96, shared); acc = 0: d = A B
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : PSF_F8(d, 0), PSF_F8(d, 8), PSF_F8(d, 16), PSF_F8(d, 24),
+        PSF_F8(d, 32), PSF_F8(d, 40)
+      : "l"(a), "l"(b), "r"(acc)
+      : "memory");
+}
+
+// d (64 x 64) (+)= A (64 x 16, registers) B (16 x 64, shared)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : PSF_F8(d, 0), PSF_F8(d, 8), PSF_F8(d, 16), PSF_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)
+      : "memory");
+}
+
+#undef PSF_F8
+
+// lo and hi rounded to bf16 (to nearest, ties to even), lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// ------------------------------------------------------------- operator
+
+// The image of band `band` of A2: element (m, x) of its kRows x padded(R)
+// K-major matrix, m = 16 k + 8 p + i the operator row u = 32 band + 8 k +
+// i of are (p = 0) or aim (p = 1), rounded to bf16; zero for u >= w or
+// x >= R.  wgmma's 128-byte swizzle: kAtom-column atoms, in each a
+// 128-byte row per m, whose 16-byte chunk c sits at c ^ (m % 8).
+__global__ void operator_image(const float* __restrict__ are,
+                               const float* __restrict__ aim,
+                               uint16_t* __restrict__ image, int R, int w,
+                               int bands) {
+  const int Rp = padded(R);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= bands * kRows * Rp) return;
+  const int band = e / (kRows * Rp), m = e / Rp % kRows, x = e % Rp;
+  const int u = band * kBand + 8 * (m / 16) + m % 8;
+  const float* src = (m / 8) % 2 ? aim : are;
+  const float v = u < w && x < R ? src[static_cast<size_t>(u) * R + x] : 0.f;
+  const size_t at = static_cast<size_t>(band) * kRows * Rp +
+                    static_cast<size_t>(x / kAtom) * kRows * kAtom +
+                    m * kAtom + ((x % kAtom / 8) ^ (m % 8)) * 8 + x % 8;
+  image[at] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// -------------------------------------------------------------- the block
+
+// T of one stage: the pseudo-fields at field rows x = 8 xg..8 xg + 7 of
+// column y of the stage's maps `st` (pupil, pcd, psd) and phase `ph`,
+// rounded to bf16 as psf_sym3::Fields<kBf16, true>::form rounds them,
+// into the B operand's swizzled K-major layout: a 128-byte row per
+// n = 16 part + y for the parts (P re, P im, F_0 re, F_0 im, Q re, Q im),
+// one 16-byte store a part (the chunk xg of row n, at xg ^ (n % 8)).
+__device__ __forceinline__ void form(const float* st, const float* ph,
+                                     unsigned char* tb, int y, int xg) {
+  uint32_t pk[kParts][4];
+#pragma unroll
+  for (int i = 0; i < 8; i += kIlp) {
+    float v[kIlp][kParts];
+#pragma unroll
+    for (int h = 0; h < kIlp; ++h) {
+      const int e = (8 * xg + i + h) * kStrip + y;
+      const float p = st[e], pc = st[kMapTile + e], ps = st[2 * kMapTile + e];
+      float s, c;
+      sincosf(ph[e], &s, &c);
+      const float t1 = c * pc, t2 = s * ps, t3 = s * pc, t4 = c * ps;
+      v[h][0] = t1;
+      v[h][1] = t3;
+      v[h][2] = p * c;
+      v[h][3] = p * s;
+      v[h][4] = t2;
+      v[h][5] = -t4;
+    }
+#pragma unroll
+    for (int h = 0; h < kIlp; h += 2) {
+#pragma unroll
+      for (int q = 0; q < kParts; ++q) {
+        pk[q][(i + h) / 2] = bf16x2(v[h][q], v[h + 1][q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kParts; ++q) {
+    const int n = kStrip * q + y;
+    *reinterpret_cast<uint4*>(tb + n * 128 + (xg ^ (n % 8)) * 16) =
+        make_uint4(pk[q][0], pk[q][1], pk[q][2], pk[q][3]);
+  }
+}
+
+// The stage-1 sums S of a strip (one thread's 48) -> the A fragments of
+// the three fields' G = [rr; ri] rows for stage 2, rounded to bf16.
+__device__ __forceinline__ void crop_rows(const float (&S)[48],
+                                          uint32_t (&fr)[3][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float rr[3][2], ri[3][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      // part q's sum at row are_u (r = 0) or aim_u (r = 1), column h, e
+      auto at = [&](int q, int r) { return S[4 * (2 * q + h) + e + 2 * r]; };
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        float re[2], im[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (d == 1) {
+            re[r] = at(2, r);
+            im[r] = at(3, r);
+          } else if (d == 0) {           // F_-a = P + Q
+            re[r] = at(0, r) + at(4, r);
+            im[r] = at(1, r) + at(5, r);
+          } else {                       // F_+a = P - Q
+            re[r] = at(0, r) - at(4, r);
+            im[r] = at(1, r) - at(5, r);
+          }
+        }
+        rr[d][e] = re[0] - im[1];        // are fr - aim fi
+        ri[d][e] = im[0] + re[1];        // are fi + aim fr
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      fr[d][2 * h] = bf16x2(rr[d][0], rr[d][1]);
+      fr[d][2 * h + 1] = bf16x2(ri[d][0], ri[d][1]);
+    }
+  }
+}
+
+// One persistent block: called by every thread of a kThreads block
+// launched with smem_bytes(R, images, a.stages) of dynamic shared memory.
+__device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kMaxStages], empty[kMaxStages], op_bar, skew;
+  // aligned by an offset from the shared array itself, so that the
+  // compiler keeps every access below in shared memory (LDS/STS, not
+  // generic loads)
+  unsigned char* const base =
+      smem_raw + (kAlign - smem_addr(smem_raw) % kAlign) % kAlign;
+  float* const ring = reinterpret_cast<float*>(base);
+  unsigned char* const tbuf = base + a.stages * kStageBytes;
+  unsigned char* const img1 = tbuf + 2 * kConsumers * kTBytes;
+  const int R = a.R, Rp = padded(R);
+  const unsigned img_bytes = image_bytes(R);
+  const bool one_band = a.rows == a.cols;
+  unsigned char* const img2 = one_band ? img1 : img1 + img_bytes;
+  const int strips = (R + kStrip - 1) / kStrip, chunks = Rp / kChunk;
+  const int pairs = (a.batch + 1) / 2;
+  // warp-uniform roles (shuffled from lane 0), so that the compiler sees
+  // each warpgroup take one branch whole
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], a.tma ? 1 : 32);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(&op_bar, 1);
+    mbar_init(&skew, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (__shfl_sync(0xffffffffu, threadIdx.x / 32 % 4, 0) != 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(&op_bar, (one_band ? 1 : 2) * img_bytes);
+      bulk_copy(img1, a.rows, img_bytes, &op_bar);
+      if (!one_band) bulk_copy(img2, a.cols, img_bytes, &op_bar);
+    }
+    int stage = 0;
+    unsigned phase = 0;
+    for (int q = blockIdx.x; q < pairs; q += gridDim.x) {
+      const int b0 = 2 * q, b1 = min(2 * q + 1, a.batch - 1);
+      for (int s = 0; s < strips; ++s) {
+        for (int kc = 0; kc < chunks; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          float* const dst = ring + stage * kMaps * kMapTile;
+          const int y0 = s * kStrip, x0 = kc * kChunk;
+          if (a.tma) {
+            if (lane == 0) {
+              mbar_expect_tx(&full[stage], kStageBytes);
+              tma_2d(dst, &maps.pupil, y0, x0, &full[stage]);
+              tma_2d(dst + kMapTile, &maps.pcd, y0, x0, &full[stage]);
+              tma_2d(dst + 2 * kMapTile, &maps.psd, y0, x0, &full[stage]);
+              tma_3d(dst + 3 * kMapTile, &maps.phase, y0, x0, b0,
+                     &full[stage]);
+              tma_3d(dst + 4 * kMapTile, &maps.phase, y0, x0, b1,
+                     &full[stage]);
+            }
+          } else {
+            // rows not 16-byte aligned: 4-byte copies, zero outside R x R
+#pragma unroll 1
+            for (int m = 0; m < kMaps; ++m) {
+              const float* src =
+                  m == 0 ? a.pupil
+                  : m == 1 ? a.pcd
+                  : m == 2 ? a.psd
+                  : a.phase + static_cast<size_t>(m == 3 ? b0 : b1) * R * R;
+#pragma unroll 4
+              for (int i = 0; i < kMapTile / 32; ++i) {
+                const int e = lane + 32 * i;
+                const int x = x0 + e / kStrip, y = y0 + e % kStrip;
+                const bool ok = x < R && y < R;
+                cp_async4(dst + m * kMapTile + e,
+                          src + (ok ? static_cast<size_t>(x) * R + y : 0),
+                          ok ? 4u : 0u);
+              }
+            }
+            asm volatile(
+                "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                    smem_addr(&full[stage])) : "memory");
+          }
+          if (++stage == a.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x % 128, wi = tid / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int fy = tid % kStrip, fxg = tid / kStrip;   // forming role
+    unsigned char* const my_t = tbuf + wg * 2 * kTBytes;
+    const uint64_t a1 = desc(img1), b2 = desc(img2);
+    // descriptor offset of k16 slice i of the image: 32 bytes a slice
+    // within an atom, kRows 128-byte rows an atom
+    auto slice = [](int i) -> uint64_t {
+      return (i / 4 * kRows * 128 + i % 4 * 32) >> 4;
+    };
+    constexpr uint64_t kStep = 32 >> 4;                // T's k16 slice
+    float S[48] = {}, O[3][32] = {};
+    uint32_t fr[3][4];
+    int stage = 0, tile = 0;
+    unsigned phase = 0;
+    mbar_wait(&op_bar, 0);
+    // the second warpgroup runs a stage behind the first, so that one's
+    // waits at the end of a strip overlap the other's forming
+    if (wg == 1) mbar_wait(&skew, 0);
+    for (int q = blockIdx.x; q < pairs; q += gridDim.x) {
+      const int b = 2 * q + wg;
+      for (int s = 0; s < strips; ++s) {
+        for (int kc = 0; kc < chunks; ++kc, ++tile) {
+          mbar_wait(&full[stage], phase);
+          const float* st = ring + stage * kMaps * kMapTile;
+          unsigned char* const tb = my_t + (tile & 1) * kTBytes;
+          form(st, st + (3 + wg) * kMapTile, tb, fy, fxg);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          warpgroup_sync(wg);
+          if (tid == 0) {
+            mbar_arrive(&empty[stage]);
+            if (wg == 0 && tile == 0) mbar_arrive(&skew);
+          }
+          if (++stage == a.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+          const uint64_t bt = desc(tb);
+          fence_regs(S);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < kChunk / kStrip; ++j) {
+            wgmma_n96(S, a1 + slice(4 * kc + j), bt + j * kStep,
+                      kc > 0 || j > 0);
+          }
+          wgmma_commit();
+          // the previous stage's products are done: its T buffer is free
+          wgmma_wait<1>();
+        }
+        // stage 2 of the strip: the crop's rows from S, their products
+        // into O
+        wgmma_wait<0>();
+        fence_regs(S);
+#pragma unroll
+        for (int d = 0; d < 3; ++d) fence_regs(O[d]);
+        crop_rows(S, fr);
+        wgmma_fence();
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          wgmma_rs_n64(O[d], fr[d], b2 + slice(s), s > 0);
+        }
+        wgmma_commit();
+        // the fragment registers are free again before the next forming
+        wgmma_wait<0>();
+      }
+#pragma unroll
+      for (int d = 0; d < 3; ++d) fence_regs(O[d]);
+      if (b < a.batch) {
+        float* const o = a.out + static_cast<size_t>(b) * 3 * a.w * a.w;
+        const int u = a.u0 + 8 * wi + g;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = a.v0 + 8 * k + 2 * t + e;
+            if (u < a.w && v < a.w) {
+#pragma unroll
+              for (int d = 0; d < 3; ++d) {
+                // rows rr_u (+0), ri_u (+2); columns are_v (2k), aim_v (2k+1)
+                const float orr = O[d][4 * (2 * k) + e] -
+                                  O[d][4 * (2 * k + 1) + e + 2];
+                const float oi = O[d][4 * (2 * k + 1) + e] +
+                                 O[d][4 * (2 * k) + e + 2];
+                o[(d * a.w + u) * a.w + v] = (orr * orr + oi * oi) * a.scale;
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query: nothing links libcuda
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A float32 map of `rank` dims (innermost first) whose boxes are
+// 16 columns x 64 rows (x 1); zeros outside it.
+inline bool encode(CUtensorMap* map, const float* p, int rank,
+                   const cuuint64_t* dims) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t strides[2] = {dims[0] * 4, dims[0] * dims[1] * 4};
+  const cuuint32_t box[3] = {kStrip, kChunk, 1}, elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+            const_cast<float*>(p), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Lays the operator's bf16 image out in `work` (bands(w) * image_bytes(R)
+// bytes, 16-byte aligned, allocated by the caller) and launches `kernel`
+// (maps, args) once per band pair of the crop, persistent: one block an
+// SM, at most one a scenario pair.  On `stream` of the current device;
+// returns the first error.
+template <class Kernel>
+cudaError_t launch(Kernel kernel, const float* phase, const float* pupil,
+                   const float* pcd, const float* psd, const float* are,
+                   const float* aim, void* work, float* out, int batch,
+                   int R, int w, float scale, cudaStream_t stream) {
+  if (R <= 0 || w <= 0) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return err;
+  const int nb = (w + kBand - 1) / kBand;
+  const int Rp = padded(R);
+  uint16_t* const image = static_cast<uint16_t*>(work);
+  const int elems = nb * kRows * Rp;
+  operator_image<<<(elems + 255) / 256, 256, 0, stream>>>(are, aim, image, R,
+                                                          w, nb);
+  Maps maps{};
+  const int tma = R % 4 == 0 && aligned16(phase) && aligned16(pupil) &&
+                  aligned16(pcd) && aligned16(psd);
+  if (tma) {
+    const cuuint64_t plane[2] = {static_cast<cuuint64_t>(R),
+                                 static_cast<cuuint64_t>(R)};
+    const cuuint64_t cube[3] = {static_cast<cuuint64_t>(R),
+                                static_cast<cuuint64_t>(R),
+                                static_cast<cuuint64_t>(batch)};
+    if (!encode(&maps.phase, phase, 3, cube) ||
+        !encode(&maps.pupil, pupil, 2, plane) ||
+        !encode(&maps.pcd, pcd, 2, plane) ||
+        !encode(&maps.psd, psd, 2, plane)) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  const int pairs = (batch + 1) / 2;
+  const size_t band_elems = static_cast<size_t>(kRows) * Rp;
+  for (int i = 0; i < nb; ++i) {
+    for (int j = 0; j < nb; ++j) {
+      const int images = i == j ? 1 : 2;
+      // the static barriers take the last 128 bytes of the opt-in limit
+      const long room = static_cast<long>(optin) - 128 -
+                        static_cast<long>(smem_bytes(R, images, 0));
+      const int stages = static_cast<int>(
+          room < 0 ? 0 : (room / kStageBytes < kMaxStages
+                              ? room / kStageBytes : kMaxStages));
+      if (stages < 2) return cudaErrorInvalidValue;
+      const size_t smem = smem_bytes(R, images, stages);
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      const Args args{phase, pupil, pcd, psd, image + i * band_elems,
+                      image + j * band_elems, out, batch, R, w, kBand * i,
+                      kBand * j, stages, tma, scale};
+      kernel<<<pairs < sms ? pairs : sms, kThreads, smem, stream>>>(maps,
+                                                                   args);
+    }
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace psf_wgmma
