@@ -12,12 +12,12 @@ package):
    with nvcc for sm_90a, one nvcc each, all started together; print each
    build's seconds and ptxas registers, shared memory and spills.  B1,
    B2, B3 and B4 (3xTF32 on the tensor cores, csrc/psf_mma.cuh), and
-   their bf16 entries in the same libraries (one bf16 pass: B2-B4's on
-   the same engine, B1's on the wgmma engine csrc/psf_wgmma.cuh): each
+   their bf16 entries in the same libraries (one bf16 pass: B4's on the
+   same engine, B1-B3's on the wgmma engine csrc/psf_wgmma.cuh): each
    kernel's registers, dynamic shared memory, spills and the
    tensor-core instructions in its SASS; a spill, a float32 kernel
    without HMMA or with bf16 ones, a bf16 mma.sync kernel without
-   HMMA.16816.F32.BF16, or B1's bf16 kernel without bf16 HGMMA
+   HMMA.16816.F32.BF16, or a bf16 wgmma kernel without bf16 HGMMA
    (HGMMA.64xNx16.F32.BF16) or with any HMMA, fails.
 3. kernel: each kernel against its plain PyTorch version on the card.
    B1-B4 at R=128, B=4096 (the main path's shapes; B3 at N=12,288) with
@@ -36,8 +36,9 @@ package):
    function).  The 4e-5 must catch a B1 kernel that rounds its +- fields
    instead of its four products: B2's bf16 plain version on the triple
    rounds those fields, and at R=128 (31 px) it must miss B1's by more.
-   B1's bf16 entry also at R=98, B=256, whose rows (392 bytes) its
-   engine copies in 4 bytes, not by TMA.  B5a/B5b at (4096, 4096) and at the ragged (1000, 1000), k = 8 and 32,
+   B1-B3's bf16 entries also at R=98, B=256 (B2 on the triple and on
+   the 5 random maps), whose rows (392 bytes) their engine copies in 4
+   bytes, not by TMA.  B5a/B5b at (4096, 4096) and at the ragged (1000, 1000), k = 8 and 32,
    on the JAX script's inputs (all 0.7) and on seeded U(-3, 3) (atol
    1e-6: both chains contract, so rounding does not grow with k).
 4. variants: the kernel A/B entry point (benchmarks/kernel_variants.py)
@@ -86,7 +87,7 @@ package):
    250:) exact Strehl, its p10 and the diverged count (non-finite, or a
    residual over 10x the turbulence RMS), beside the JAX target
    0.9334-0.9338; each must reach 0.92 with 0 diverged, and B1 must
-   launch >= 2 times a step.  A 50-step window of the run (the same
+   launch >= 2 times a step.  A 10-step window of the run (the same
    build, untraced and then traced once, trace_run) gives B1's share of
    device busy beside the 500-step trace's 60.3% (PERF.md §5), and
    the B=4 card-vs-CPU check of the slice phase passes on it.  Then the
@@ -133,7 +134,7 @@ package):
    20 steps; B1 launches exactly 1 + gauss_newton_iters times a step in
    every run; the operator stream (24 border draws a step, CUDA events,
    against the floor of their bytes at the published HBM rate) and a
-   whole advance; a 50-step window traced (B1's, the GEMM/GEMV kernels'
+   whole advance; a 10-step window traced (B1's, the GEMM/GEMV kernels'
    and the copy kernels' shares of busy); the B=4 card-vs-CPU check
    with injected border normals.
 12. parallel: the scenario-sharded runner (ROADMAP A.10) through B1 on
@@ -211,10 +212,11 @@ package):
    steps (RESULTS_r05.json): the reference rows (one build, D/r0 5, 10,
    15, 20 as a scenario axis) -- D/r0=5 held by the 8-seed rule below,
    D/r0 >= 10 must collapse as the JAX rows and the float64 oracle do
-   (rejection < 1.2, crop flag false) -- and the tuned rows (one build a
-   D/r0), each run on the script's own noise stream and, on the same
-   build, over 8 noise seeds in one batched run: the JAX row within the
-   seeds' [min, max] widened by 0.005 (D/r0 5, 10) or 0.02 (15, 20);
+   (rejection < 1.2, crop flag false) -- and the tuned rows at D/r0 5
+   and 15 (one build a D/r0; 10 and 20 are cut for time), each run on
+   the script's own noise stream and, on the same build, over 8 noise
+   seeds in one batched run: the JAX row within the seeds' [min, max]
+   widened by 0.005 (D/r0 5) or 0.02 (15);
    each tuned row finite with rejection > 1.2; its float64 VAR RMSE and
    RRMSE printed beside the JAX float32 ones (ROADMAP C.4).
    (b) excursion_tail at D/r0=15 (RESULTS_TAIL_r05.json): the order-10
@@ -222,10 +224,11 @@ package):
    clamp arm (var_max_radius 0.85) runs, its peak device allocation
    printed: its verdict "improved" must be the JAX one and its mean
    Strehl within 0.02 of the JAX arm's; D/r0=20 is cut.  (c)
-   protocol_edge's tuned stage at D/r0 5 and 10 on the conditional flow
+   protocol_edge's tuned stage at D/r0 10 (5 is cut for time; the edge
+   phase holds D/r0=5 on this flow) on the conditional flow
    (RESULTS_EDGE_r05.json): the row from the build's state, and the
    median over 4 batch_states start states, each from its own warm
-   start (two open-loop steps), held within 0.01 / 0.02 of the JAX rows;
+   start (two open-loop steps), held within 0.02 of the JAX row;
    its ref / mc stages are the edge phase's, its periodic stage (a)'s
    reference rows.  (d) modes_horizon at R=128, B=64, 200 steps, orders
    6 and 14 (order 10 is the solvers phase's), N = 2, 8, 32, fixed and
@@ -236,8 +239,9 @@ package):
    MONTECARLO512_r05.json's, 0 diverged.  (f) full_protocol at R=128,
    B=32 (the 1000/500/500 split): within 0.003 of CLASSICAL_r05.json's
    MPC row of the same configuration, health OK.  (g) latency_b1 at
-   R=128 and 512, 200 steps, BENCH_GN=0: CUDA-event and host-clock ms a
-   step, exactly one B1 launch a step.  (h) the solver timers at their
+   R=128 and 512, 200 steps, 3 timed runs (the script's default is 9),
+   BENCH_GN=0: CUDA-event and host-clock ms a step, exactly one B1
+   launch a step.  (h) the solver timers at their
    defaults (solves/s), and their solves at B=4 on the card against the
    CPU (rtol 1e-4, atol 1e-4 of the scale).  Report in
    chiprun_out/protocol.json and chiprun_out/latency_b1.json.
@@ -251,8 +255,9 @@ package):
    step_breakdown.py and step_knockouts.py at R=512, B=256, 25 steps:
    the four stages, the whole step, the sum of parts and all eleven
    knockout variants in us a step a scenario (CUDA events).  (c)
-   edge_flow_cost.py at R=128, 500 steps: both flows, each settled at
-   exact Strehl >= 0.9.  (d) edge_flow_breakdown.py at R=128: the
+   edge_flow_cost.py at R=128, 200 steps (its default 500): both flows,
+   each settled at exact Strehl >= 0.9.  (d) edge_flow_breakdown.py at
+   R=128, 3 timed runs a row (its default 9): the
    advance breakdown rows and the closed loop at B=1 and 64 by CUDA
    events and the host clock, the JAX rows not ported.  (e) scaling.py
    with worlds of 1 and 2 gloo ranks sharing cuda:0 (cross_card false):
@@ -377,11 +382,11 @@ BF16_KERNELS = (
 )
 BF16 = "bfloat16"
 BF16_HMMA = "HMMA.16816.F32.BF16"
-# the bf16 warpgroup products (wgmma) of B1's bf16 entry, any N
+# the bf16 warpgroup products (wgmma) of the wgmma engine's entries, any N
 BF16_HGMMA = re.compile(r"\bHGMMA\.64x\d+x16\.F32\.BF16\b")
-# bf16 entries on the wgmma engine csrc/psf_wgmma.cuh (the others run
+# bf16 entries on the wgmma engine csrc/psf_wgmma.cuh (B4's runs
 # csrc/psf_mma.cuh's bf16 mma.sync)
-WGMMA_ENTRIES = ("psf_div3_sym_bf16",)
+WGMMA_ENTRIES = ("psf_div3_sym_bf16", "psf_div_bf16", "psf_crop_bf16")
 # bf16 entry against bf16 plain, of the peak: the tensor cores' stage-1
 # sums (rounded toward zero, not to nearest) flip the bf16 rounding of a
 # stage-1 element now and then.  At R=128, B=4096 that moves a pixel by
@@ -423,8 +428,9 @@ WIDE_CROPS = (41, 63)
 KERNEL_SHAPES = ((128, BATCH, CROP_HALF),
                  *((128, BATCH, (w - 1) // 2) for w in WIDE_CROPS),
                  (512, 256, CROP_HALF))
-# (R, B) of B1's bf16 entry at a ragged R: rows of 392 bytes, not a
-# multiple of 16, which its engine copies in 4 bytes, not by TMA
+# (R, B) of the wgmma engine's bf16 entries at a ragged R: rows of 392
+# bytes, not a multiple of 16, which the engine copies in 4 bytes, not by
+# TMA
 RAGGED_BF16 = (98, 256)
 # (R, B) of the R=512 loop through B1 and B2 (ROADMAP C.3)
 LOOP_512 = (512, 256)
@@ -444,7 +450,7 @@ STRONG_SNRS = (5.0, 10.0, 20.0, 40.0)
 STRONG_MIN_STREHL = 0.92
 # the strong run's trace: a window of its first steps, and B1's share of
 # device busy in the whole 500-step trace (PERF.md §5)
-STRONG_TRACE_STEPS = 50
+STRONG_TRACE_STEPS = 10
 B1_SHARE_500 = 60.3
 JAX_STRONG = (0.9334, 0.9338)
 # the solvers phase (ROADMAP A.8): ADMM's limits against the fixed step
@@ -498,7 +504,7 @@ EDGE_MC_MIN_STREHL = 0.975
 # turbulence in every one
 EDGE_REALIZATIONS = 8
 EDGE_PS_LAST = 20
-EDGE_TRACE_STEPS = 50
+EDGE_TRACE_STEPS = 10
 EDGE_REF_STEPS = 3
 EDGE_STREAM_STEPS = 20      # advances timed for the operator stream
 # name patterns of device kernels, for the shares of the edge trace
@@ -571,11 +577,14 @@ PROTO_R = 512
 PROTO_TRAIN = 1000                      # the records' split: 1000 / 50
 PROTO_STEPS = 500
 PROTO_D = (5.0, 10.0, 15.0, 20.0)
+# the tuned rows, one R=512 build each: the ends of the lock range the
+# records hold them to (D/r0=15 is also the excursion's order-10 arm)
+PROTO_TUNED_D = (5.0, 15.0)
 PROTO_SEEDS = 8
 # the JAX row must lie within the card's seed range widened by this
 PROTO_WIDEN = {5.0: 0.005, 10.0: 0.005, 15.0: 0.02, 20.0: 0.02}
 PROTO_LOCK_REJECTION = 1.2
-PROTO_EDGE_D = (5.0, 10.0)
+PROTO_EDGE_D = (10.0,)                  # lock depends on the start state
 PROTO_EDGE_STATES = 4
 PROTO_EDGE_TOL = {5.0: 0.01, 10.0: 0.02}
 PROTO_MODES_ORDERS = (6, 14)            # order 10 is the solvers phase's
@@ -592,7 +601,7 @@ PROTO_TAIL_TOL = 0.02
 # this split settles below it, in JAX too: 0.9728)
 PROTO_FULL = (128, 32)
 PROTO_LATENCY_ENV = {"LAT_RES": "128,512", "LAT_STEPS": "200",
-                     "BENCH_GN": "0"}
+                     "LAT_REPEATS": "3", "BENCH_GN": "0"}
 # the solver timers' arguments (their defaults) and the card-vs-CPU batch
 PROTO_TIMER_ARGS = {"solver_throughput": [], "long_horizon": [],
                     "cholesky_paths": []}
@@ -603,6 +612,8 @@ A12_RTOL = 1e-5                  # card vs CPU, of the peak
 BENCH_REPEATS = 3                # bench.py's default
 BENCH_STREHL_TOL = 0.001         # the bench vs the slice phase's B1 run
 TOOLS_EDGE_R = 128
+TOOLS_EFC_STEPS = 200            # edge_flow_cost's loop steps (its default 500)
+TOOLS_EFB_REPEATS = 3            # edge_flow_breakdown's timed runs a row
 SCALING_ENV = {"SCALING_DEVICE": "cuda:0", "SCALING_RANKS": "2"}
 ORACLE_ENV = {"ORACLE_RES": "64", "ORACLE_STEPS": "20",
               "ORACLE_TRAIN": "300"}
@@ -808,12 +819,14 @@ def kernel_phase(dev) -> dict:
             misrounded_b1_check(bf16_plain["B1"], bf16_plain["B2 (3 maps)"],
                                 R, B)
     R, B = RAGGED_BF16
-    args = b1_args(R, B, dev)
-    err, _ = bf16_check("B1", "psf_div3_sym_bf16", K.psf_crop_diversity_sym3,
-                        K.psf_crop_diversity_sym3_ref, args,
-                        K.psf_crop_diversity_sym3_ref(*args), BF16_ATOL, R,
-                        B)
-    max_err["psf_div3_sym_bf16"] = max(max_err["psf_div3_sym_bf16"], err)
+    for label, lib, args, bf16_atol in kernel_cases(R, B, dev):
+        name = bf16_of[lib]
+        if name not in WGMMA_ENTRIES:
+            continue
+        wrapper, plain = funcs[lib]
+        err, _ = bf16_check(label, name, wrapper, plain, args, plain(*args),
+                            bf16_atol, R, B)
+        max_err[name] = max(max_err[name], err)
     rng = np.random.default_rng(2)
     for shape in CHAIN_SHAPES:
         inputs = (("0.7", torch.full(shape, 0.7, device=dev)),
@@ -1540,7 +1553,7 @@ def edge_phase(dev, card) -> dict:
     the JAX protocol (benchmarks/protocol_edge.py:150-200): one build,
     timed by part; the reference rows from the build's state (shared
     turbulence over the D/r0 grid, 500 steps; D/r0=5 held), timed warm
-    and traced over a 50-step window; the B=32 Monte-Carlo at D/r0=5;
+    and traced over a 10-step window; the B=32 Monte-Carlo at D/r0=5;
     per-scenario turbulence from EDGE_REALIZATIONS batch_states start
     states at every D/r0 of the grid (the median held to
     EDGE_MIN_STREHL); the operator stream; the B=4 card-vs-CPU check
@@ -2308,18 +2321,22 @@ def a12_frames(atm, pitch, gs, dev):
     """The SH model and the (B, ...) geometric slopes [rad/px] of
     A12_BATCH frames as each reconstructor's system measures them: one
     window of A12_WINDOW px a frame (numpy-seeded FFT screens of twice
-    that, no subharmonics, cut 2 x 2), seen on axis (NGS), projected at
-    8 km into the guide stars' directions ``gs`` (tomographic) and onto
-    the cone of the LGS at A12_LGS_H."""
+    that, no subharmonics, cut 2 x 2, made in host threads), seen on axis
+    (NGS), projected at 8 km into the guide stars' directions ``gs``
+    (tomographic) and onto the cone of the LGS at A12_LGS_H."""
     sh = wfs.build(A12_R, n_lenslet=A12_NL, device=dev)
     w = A12_WINDOW
-    wins = []
-    for s in range(A12_BATCH // 4):
+
+    def windows(s):
         scr = phase_screens.synthesize_screen(s, atm, 2 * w, pitch,
                                               oversample=1,
                                               subharmonic_levels=0)
-        wins.append(scr.reshape(2, w, 2, w).transpose(0, 2, 1, 3)
-                    .reshape(4, w, w))
+        return (scr.reshape(2, w, 2, w).transpose(0, 2, 1, 3)
+                .reshape(4, w, w))
+    # host threads: each screen is the same function of its seed
+    with concurrent.futures.ThreadPoolExecutor(
+            phase_screens.SCREEN_THREADS) as pool:
+        wins = list(pool.map(windows, range(A12_BATCH // 4)))
     win = torch.as_tensor(np.concatenate(wins) * 0.3, device=dev)
 
     def seen(alt, **kw):
@@ -2668,7 +2685,7 @@ def protocol_phase(dev, card) -> dict:
     del system
     tail10 = None
     report["sweep"]["tuned_rows"] = {}
-    for d in PROTO_D:
+    for d in PROTO_TUNED_D:
         key = f"d_over_r0={d:g}"
         cfg_t, system, build_s = build_memory(
             f"sweep tuned build D/r0={d:g}",
@@ -3020,10 +3037,11 @@ def tools_phase(dev, card, strehl_b1: float) -> dict:
             f"{k}_us" for k in step_knockouts.VARIANTS}:
         fail(f"tools step_knockouts: keys {sorted(ko)}")
 
-    # (c) edge_flow_cost at R=128: both flows, 500 steps, 1 + 3 runs each
+    # (c) edge_flow_cost at R=128: both flows, TOOLS_EFC_STEPS steps, 1 + 3
+    # runs each
     efc = count("edge_flow_cost", lambda: edge_flow_cost.main(
-        [str(TOOLS_EDGE_R)], {}),
-        len(edge_flow_cost.FLOWS) * 4 * 500 * (1 + gn))
+        [str(TOOLS_EDGE_R), str(TOOLS_EFC_STEPS)], {}),
+        len(edge_flow_cost.FLOWS) * 4 * TOOLS_EFC_STEPS * (1 + gn))
     report["edge_flow_cost"] = efc
     for flow in edge_flow_cost.FLOWS:
         r = efc[flow]
@@ -3041,8 +3059,9 @@ def tools_phase(dev, card, strehl_b1: float) -> dict:
     out = OUT_DIR / "edge_flow_breakdown.json"
     out.unlink(missing_ok=True)
     efb = count("edge_flow_breakdown", lambda: edge_flow_breakdown.main(
-        [str(out)], {"EFB_RES": str(TOOLS_EDGE_R)}),
-        4 * (1 + 2 * edge_flow_breakdown.REPEATS)
+        [str(out)], {"EFB_RES": str(TOOLS_EDGE_R),
+                     "EFB_REPEATS": str(TOOLS_EFB_REPEATS)}),
+        4 * (1 + 2 * TOOLS_EFB_REPEATS)
         * edge_flow_breakdown.STEPS * (1 + gn))
     report["edge_flow_breakdown"] = efb
     print(f"tools edge_flow_breakdown R={efb['resolution']}, us a step "

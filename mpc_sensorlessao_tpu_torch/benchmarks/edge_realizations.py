@@ -38,7 +38,7 @@ import torch
 
 from .. import reference_config
 from ..models import pipeline
-from ..ops import edge_flow, phase_stats
+from ..ops import edge_flow, phase_screens, phase_stats
 from ..parallel import montecarlo
 from ..utils import profiling
 from ..utils.config import mag_conv
@@ -139,9 +139,11 @@ def measure(dev, resolution: int = RESOLUTION) -> dict:
 
 def screens(threads: int, n_sets: int = 8) -> float:
     """Seconds to synthesize n_sets x L initial screens at RESOLUTION px
-    in ``threads`` host threads."""
+    in ``threads`` host threads (screens at once, and bands of a screen's
+    subharmonics)."""
     cfg = edge_cfg()
-    saved, edge_flow.SCREEN_THREADS = edge_flow.SCREEN_THREADS, threads
+    saved = edge_flow.SCREEN_THREADS, phase_screens.SCREEN_THREADS
+    edge_flow.SCREEN_THREADS = phase_screens.SCREEN_THREADS = threads
     try:
         t0 = time.time()
         edge_flow._initial_phases(list(range(n_sets)), cfg.atmosphere,
@@ -149,7 +151,7 @@ def screens(threads: int, n_sets: int = 8) -> float:
                                   / (RESOLUTION - 1))
         return time.time() - t0
     finally:
-        edge_flow.SCREEN_THREADS = saved
+        edge_flow.SCREEN_THREADS, phase_screens.SCREEN_THREADS = saved
 
 
 def main() -> None:

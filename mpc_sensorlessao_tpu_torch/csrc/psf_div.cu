@@ -30,10 +30,12 @@
 // warp layout, since the engine's warp roles are cut for three fields,
 // and the loop's route (n_div = 3) has no such group.
 //
-// psf_div_bf16 is the TPU kernel's compute_dtype="bfloat16" branch on the
-// same engine and policy (Precision::kBf16: one bf16 pass, f32 sums): the
-// fields formed in float32, the operator and the stage-1 rows are each
-// rounded to bf16 as the stages load them (pallas_kernels.py:85-107).
+// psf_div_bf16 is the TPU kernel's compute_dtype="bfloat16" branch
+// (pallas_kernels.py:85-87, :99-100, :106-107) on the Hopper engine
+// psf_wgmma.cuh, as its div policy (DivBf16 below): wgmma on the stacked
+// (2w, R) operator, the fields formed in float32 and stored once in bf16,
+// the stage-1 rows rounded in registers, persistent blocks with a
+// producer warp.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
@@ -41,6 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "psf_mma.cuh"
+#include "psf_wgmma.cuh"
 
 namespace {
 
@@ -49,7 +52,6 @@ using psf_mma::kTilePixels;
 using psf_mma::Precision;
 
 // Block (b, k): scenario b, diversities 3 k, 3 k + 1, 3 k + 2 of the n_div.
-template <Precision P>
 struct DiversityFields {
   // phase, then (pcd, psd) of each diversity of the group
   static constexpr int kMaps = 1 + 2 * kFields;
@@ -83,58 +85,77 @@ struct DiversityFields {
     for (int j = 0; j < kFields; ++j) {
       const float pc = m[(1 + 2 * j) * kTilePixels],
                   ps = m[(2 + 2 * j) * kTilePixels];
-      if constexpr (P == Precision::kBf16) {
-        // each product rounded, then their sum, as the TPU kernel forms
-        // the field it rounds to bf16: nvcc's fused multiply-add rounds
-        // once and flips that rounding now and then, which moved a crop
-        // pixel by 1.2e-4 of the peak on random diversity maps
-        f[j] = make_float2(__fmul_rn(c, pc) - __fmul_rn(s, ps),
-                           __fmul_rn(s, pc) + __fmul_rn(c, ps));
-      } else {
-        f[j] = make_float2(c * pc - s * ps, s * pc + c * ps);
-      }
+      f[j] = make_float2(c * pc - s * ps, s * pc + c * ps);
     }
   }
 };
 
-// Dynamic shared memory a block of the kernel of precision P takes.
-constexpr size_t smem_bytes(Precision p) {
-  return psf_mma::smem_bytes(DiversityFields<Precision::kTf32x3>::kMaps, p);
-}
+// psf_wgmma.cuh's div policy.  Pair q is group k = q / h of up to three
+// diversities (3 k, 3 k + 1, 3 k + 2 of the n_div) and scenarios 2 (q %
+// h) and 2 (q % h) + 1, h = ceil(B / 2) pairs a group (the last scenario
+// repeated where B is odd); a stage holds the group's pcd_d, psd_d and
+// the two scenarios' phases.  T holds each field's (re, im): each product
+// rounded, then their sum, as the TPU kernel forms the field it rounds to
+// bf16 -- nvcc's fused multiply-add rounds once and flips that rounding
+// now and then, which moved a crop pixel by 1.2e-4 of the peak on random
+// diversity maps.  An absent diversity of the last group reads the last
+// one's maps and stores nothing.
+struct DivBf16 {
+  static constexpr int kInputs = 3;    // pcd, psd (n_div, R, R); phase
+  static constexpr int kShared = 2 * kFields, kOwn = 1, kIlp = 4;
+  static constexpr bool kRecombine = false;
+  float* out;                          // (B, n_div, w, w)
+  int batch, n_div;
+
+  __host__ __device__ static constexpr int input(int m) {
+    return m < kShared ? m % 2 : 2;
+  }
+  __host__ __device__ int half() const { return (batch + 1) / 2; }
+  __host__ __device__ int pairs() const {
+    return (n_div + kFields - 1) / kFields * half();
+  }
+  __device__ int plane(int m, int q) const {
+    return m < kShared ? min(kFields * (q / half()) + m / 2, n_div - 1)
+                       : min(2 * (q % half()) + m - kShared, batch - 1);
+  }
+  __device__ float* crop(int q, int wg, int d, int w) const {
+    const int b = 2 * (q % half()) + wg, j = kFields * (q / half()) + d;
+    return b < batch && j < n_div
+               ? out + (static_cast<size_t>(b) * n_div + j) * w * w
+               : nullptr;
+  }
+  __device__ static void form(const float* st, const float* ph,
+                              unsigned char* tb, int y, int xg) {
+    using psf_wgmma::kMapTile;
+    psf_wgmma::form_t<kIlp>(tb, y, xg, [&](int e, float (&v)[6]) {
+      float s, c;
+      sincosf(ph[e], &s, &c);
+#pragma unroll
+      for (int d = 0; d < kFields; ++d) {
+        const float pc = st[2 * d * kMapTile + e],
+                    ps = st[(2 * d + 1) * kMapTile + e];
+        v[2 * d] = __fmul_rn(c, pc) - __fmul_rn(s, ps);
+        v[2 * d + 1] = __fmul_rn(s, pc) + __fmul_rn(c, ps);
+      }
+    });
+  }
+};
+
+// Dynamic shared memory a block of the float32 kernel takes.
+constexpr size_t kSmemBytes =
+    psf_mma::smem_bytes(DiversityFields::kMaps, Precision::kTf32x3);
 
 __global__ void __launch_bounds__(psf_mma::kThreads, 2)
-psf_div_kernel(DiversityFields<Precision::kTf32x3> fields,
-               psf_mma::Band band, int R, int w, float scale, int vec16) {
+psf_div_kernel(DiversityFields fields, psf_mma::Band band, int R, int w,
+               float scale, int vec16) {
   psf_mma::crop_block<Precision::kTf32x3>(fields, band, R, w, scale, vec16);
 }
 
-__global__ void __launch_bounds__(psf_mma::kThreads, 2)
-psf_div_bf16_kernel(DiversityFields<Precision::kBf16> fields,
-                    psf_mma::Band band, int R, int w, float scale,
-                    int vec16) {
-  psf_mma::crop_block<Precision::kBf16>(fields, band, R, w, scale, vec16);
-}
-
-// Lays the operator out in `work` and launches `kernel` (of precision P,
-// psf_mma::launch) on `stream` of CUDA device `device`; the first error.
-template <Precision P>
-int launch(void (*kernel)(DiversityFields<P>, psf_mma::Band, int, int,
-                          float, int),
-           const float* phase, const float* pcd, const float* psd,
-           const float* are, const float* aim, float* work, float* out,
-           int batch, int n_div, int R, int w, float scale, int device,
-           void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch <= 0 || n_div <= 0) return 0;
-  using psf_mma::aligned16;
-  const int vec16 =
-      R % 4 == 0 && aligned16(phase) && aligned16(pcd) && aligned16(psd);
-  const dim3 grid(batch, (n_div + kFields - 1) / kFields);
-  return static_cast<int>(psf_mma::launch(
-      kernel, grid, smem_bytes(P),
-      DiversityFields<P>{phase, pcd, psd, out, n_div}, are, aim, work, R, w,
-      scale, vec16, static_cast<cudaStream_t>(stream)));
+__global__ void __launch_bounds__(psf_wgmma::kThreads, 1)
+psf_div_bf16_kernel(
+    const __grid_constant__ psf_wgmma::Inputs<DivBf16> in,
+    const DivBf16 pol, const psf_wgmma::Args a) {
+  psf_wgmma::block(in, pol, a);
 }
 
 }  // namespace
@@ -150,26 +171,43 @@ int psf_div(const float* phase, const float* pcd, const float* psd,
             const float* are, const float* aim, float* work, float* out,
             int batch, int n_div, int R, int w, float scale, int device,
             void* stream) {
-  return launch(psf_div_kernel, phase, pcd, psd, are, aim, work, out, batch,
-                n_div, R, w, scale, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch <= 0 || n_div <= 0) return 0;
+  using psf_mma::aligned16;
+  const int vec16 =
+      R % 4 == 0 && aligned16(phase) && aligned16(pcd) && aligned16(psd);
+  const dim3 grid(batch, (n_div + kFields - 1) / kFields);
+  return static_cast<int>(psf_mma::launch(
+      psf_div_kernel, grid, kSmemBytes,
+      DiversityFields{phase, pcd, psd, out, n_div}, are, aim, work, R, w,
+      scale, vec16, static_cast<cudaStream_t>(stream)));
 }
 
 // As psf_div, with the DFT stages' operands in bf16: the
-// compute_dtype="bfloat16" branch of the TPU kernel.
+// compute_dtype="bfloat16" branch of the TPU kernel, on psf_wgmma.cuh.
+// `work` takes the operator's bf16 image, ceil(w / 32) * 64 * 64 *
+// ceil(R / 64) * 2 bytes (within psf_div's scratch).
 int psf_div_bf16(const float* phase, const float* pcd, const float* psd,
                  const float* are, const float* aim, float* work, float* out,
                  int batch, int n_div, int R, int w, float scale, int device,
                  void* stream) {
-  return launch(psf_div_bf16_kernel, phase, pcd, psd, are, aim, work, out,
-                batch, n_div, R, w, scale, device, stream);
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch <= 0 || n_div <= 0) return 0;
+  return static_cast<int>(psf_wgmma::launch(
+      psf_div_bf16_kernel, DivBf16{out, batch, n_div}, {pcd, psd, phase},
+      {n_div, n_div, batch}, are, aim, work, R, w, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
-// Dynamic shared memory a block of either kernel takes, in bytes.
-int psf_div_smem_bytes() {
-  return static_cast<int>(smem_bytes(Precision::kTf32x3));
-}
+// Dynamic shared memory a block of either kernel takes, in bytes: for
+// the bf16 kernel at the main path's R=128 and a crop of one band (it
+// grows with R and the crop's bands).
+int psf_div_smem_bytes() { return static_cast<int>(kSmemBytes); }
 int psf_div_bf16_smem_bytes() {
-  return static_cast<int>(smem_bytes(Precision::kBf16));
+  return static_cast<int>(
+      psf_wgmma::smem_bytes<DivBf16>(128, 1, psf_wgmma::kMaxStages));
 }
 
 const char* psf_div_error_string(int err) {

@@ -29,9 +29,9 @@
 // psf_div3_sym_bf16 is the TPU kernel's compute_dtype="bfloat16" branch
 // on the Hopper engine psf_wgmma.cuh (wgmma on the TPU kernel's stacked
 // (2w, R) operator, fields stored once in bf16, persistent blocks with a
-// producer warp), rounding where the TPU kernel rounds: the operator, the
-// four products and F_0, and each field's stage-1 rows, which it forms
-// from the products' rows in float32 first.
+// producer warp) as its sym3 policy, rounding where the TPU kernel
+// rounds: the operator, the four products and F_0, and each field's
+// stage-1 rows, which it forms from the products' rows in float32 first.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
@@ -58,10 +58,54 @@ psf_div3_sym_kernel(Sym3Fields<Precision::kTf32x3> fields,
   psf_mma::crop_block<Precision::kTf32x3>(fields, band, R, w, scale, vec16);
 }
 
+// psf_wgmma.cuh's sym3 policy: pair q is scenarios 2 q and 2 q + 1 (the
+// last repeated where B is odd); a stage holds pupil, pcd, psd and the
+// two scenarios' phases.  T holds the pseudo-fields P = (t1, t3), F_0 and
+// Q = (t2, -t4), rounded as psf_sym3::Fields<kBf16, true>::form rounds
+// them, and their stage-1 sums are recombined into the triple's fields.
+struct Sym3Bf16 {
+  static constexpr int kInputs = 4;    // pupil, pcd, psd; phase (B, R, R)
+  static constexpr int kShared = 3, kOwn = 1, kIlp = 4;
+  static constexpr bool kRecombine = true;
+  float* out;                          // (B, 3, w, w)
+  int batch;
+
+  __host__ __device__ static constexpr int input(int m) {
+    return m < kShared ? m : kShared;
+  }
+  __host__ __device__ int pairs() const { return (batch + 1) / 2; }
+  __device__ int plane(int m, int q) const {
+    return m < kShared ? 0 : min(2 * q + m - kShared, batch - 1);
+  }
+  __device__ float* crop(int q, int wg, int d, int w) const {
+    const int b = 2 * q + wg;
+    return b < batch ? out + (static_cast<size_t>(b) * 3 + d) * w * w
+                     : nullptr;
+  }
+  __device__ static void form(const float* st, const float* ph,
+                              unsigned char* tb, int y, int xg) {
+    using psf_wgmma::kMapTile;
+    psf_wgmma::form_t<kIlp>(tb, y, xg, [&](int e, float (&v)[6]) {
+      const float p = st[e], pc = st[kMapTile + e],
+                  ps = st[2 * kMapTile + e];
+      float s, c;
+      sincosf(ph[e], &s, &c);
+      const float t1 = c * pc, t2 = s * ps, t3 = s * pc, t4 = c * ps;
+      v[0] = t1;
+      v[1] = t3;
+      v[2] = p * c;
+      v[3] = p * s;
+      v[4] = t2;
+      v[5] = -t4;
+    });
+  }
+};
+
 __global__ void __launch_bounds__(psf_wgmma::kThreads, 1)
-psf_div3_sym_bf16_kernel(const __grid_constant__ psf_wgmma::Maps maps,
-                         const psf_wgmma::Args args) {
-  psf_wgmma::sym3_block(maps, args);
+psf_div3_sym_bf16_kernel(
+    const __grid_constant__ psf_wgmma::Inputs<Sym3Bf16> in,
+    const Sym3Bf16 pol, const psf_wgmma::Args a) {
+  psf_wgmma::block(in, pol, a);
 }
 
 }  // namespace
@@ -93,8 +137,9 @@ int psf_div3_sym_bf16(const float* phase, const float* pupil,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0) return 0;
   return static_cast<int>(psf_wgmma::launch(
-      psf_div3_sym_bf16_kernel, phase, pupil, pcd, psd, are, aim, work, out,
-      batch, R, w, scale, static_cast<cudaStream_t>(stream)));
+      psf_div3_sym_bf16_kernel, Sym3Bf16{out, batch},
+      {pupil, pcd, psd, phase}, {1, 1, 1, batch}, are, aim, work, R, w,
+      scale, static_cast<cudaStream_t>(stream)));
 }
 
 // Dynamic shared memory a block of either kernel takes, in bytes: for
@@ -105,7 +150,7 @@ int psf_div3_sym_smem_bytes() {
 }
 int psf_div3_sym_bf16_smem_bytes() {
   return static_cast<int>(
-      psf_wgmma::smem_bytes(128, 1, psf_wgmma::kMaxStages));
+      psf_wgmma::smem_bytes<Sym3Bf16>(128, 1, psf_wgmma::kMaxStages));
 }
 
 const char* psf_div3_sym_error_string(int err) {

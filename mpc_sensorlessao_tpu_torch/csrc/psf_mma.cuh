@@ -1,6 +1,6 @@
 // The tensor-core DFT engine of the PSF-measurement kernels B1
 // (psf_div3_sym.cu), B2 (psf_div.cu), B3 (psf_crop.cu) and B4
-// (psf_div3_sym_thin.cu), and of B2-B4's bf16 entries (B1's runs on
+// (psf_div3_sym_thin.cu), and of B4's bf16 entry (B1-B3's run on
 // psf_wgmma.cuh).  For the three complex fields F_d (R x R) of
 // one block it computes
 //

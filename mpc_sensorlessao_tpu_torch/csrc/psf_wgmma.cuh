@@ -1,31 +1,66 @@
-// The Hopper engine of kernel B1's bf16 entry (psf_div3_sym.cu,
-// psf_div3_sym_bf16): the TPU kernel mpc_sensorlessao_tpu/ops/
-// pallas_kernels.py `_psf_div3_sym_kernel` with compute_dtype="bfloat16"
-// (:115-175, pallas_call :309), on warpgroup matrix products (wgmma),
-// asynchronous copies completing on mbarriers, and persistent blocks.
-// For every scenario b it computes the symmetric diversity triple
-// (-a, 0, +a),
+// The Hopper engine of the PSF kernels' bf16 entries: B1's
+// psf_div3_sym_bf16 (psf_div3_sym.cu), B2's psf_div_bf16 (psf_div.cu) and
+// B3's psf_crop_bf16 (psf_crop.cu), the compute_dtype="bfloat16" branches
+// of the TPU kernels mpc_sensorlessao_tpu/ops/pallas_kernels.py
+// `_psf_div3_sym_kernel` (:115-175, pallas_call :309), `_psf_div_kernel`
+// (:65-112, pallas_call :365) and `_psf_kernel` (:26-62, pallas_call
+// :408), on warpgroup matrix products (wgmma), asynchronous copies
+// completing on mbarriers, and persistent blocks.  For the three fields
+// F_d of every work item it computes
 //
-//   out[b, d] = |A F_d A^T|^2 * scale,     F_d = pupil e^{i (phase_b + d Z4)}
+//   out[item, d] = |A F_d A^T|^2 * scale,
 //
 // with A the (w, R) partial centered DFT, rounding where the TPU kernel
-// rounds: the operator, the four products t1 = c pcd, t2 = s psd,
-// t3 = s pcd, t4 = c psd and F_0 = pupil (c, s) (c, s = cos, sin of the
-// phase, one full-precision sincosf a pixel), and each field's stage-1
-// rows G = [rr; ri] once; every sum in float32.
+// rounds: the operator, the six bf16 parts a field policy forms a pixel,
+// and each field's stage-1 rows G = [rr; ri] once; every sum in float32.
 //
-// What bounds it.  At R=128, B=4096, w=31 the two DFT stages are 62.0
-// GFLOP (0.063 ms at the card's published 989 TFLOP/s bf16), the bytes
-// 0.094 ms, the 67 M sincosf about 0.07 ms: a kernel that overlaps its
-// parts is bound by its bytes and its field forming.  The mma.sync design
-// it replaces (psf_mma.cuh, Precision::kBf16, still B2-B4's bf16 entries)
-// took 0.66 ms, 14% of that bound: it re-read and re-rounded the
-// operator at every use, kept the fields and G in shared memory as
-// float32, ended each of its 20 steps a block in a full barrier, and sent
-// the result through shared memory every strip.
+// The policies (a struct beside each entry; what the engine asks of one
+// is listed above `block`).  Each says which maps a pipeline stage holds,
+// how a work item maps to its phase planes and output crops, how the six
+// parts of T are formed, and whether P +- Q is recombined:
+//   * sym3 (B1): an item is a scenario; a stage holds pupil, pcd, psd
+//     (shared by both consumers) and each consumer's phase, 5 maps.  The
+//     parts are the pseudo-fields P = (t1, t3), F_0 and Q = (t2, -t4),
+//     t1 = c pcd, t2 = s psd, t3 = s pcd, t4 = c psd and F_0 = pupil (c,
+//     s) (c, s = cos, sin of the phase, one sincosf a pixel), each
+//     rounded; the stage-1 sums are recombined, F_-a = P + Q, F_+a = P - Q
+//     (pallas_kernels.py:161-171, the TPU kernel's U +- W);
+//   * div (B2): an item is a scenario and a group of up to three of the
+//     n_div diversities, the two consumers of a block on two scenarios of
+//     one group; a stage holds the group's pcd_d and psd_d (pupil cos and
+//     sin of diversity d, formed by the wrapper) and each consumer's
+//     phase, 8 maps.  The parts are (re, im) of F_d = (c pcd_d - s psd_d,
+//     s pcd_d + c psd_d), each product rounded (__fmul_rn: a fused
+//     multiply-add rounds once and flips bf16 roundings), their sum in
+//     float32, then rounded once, as pup (cp cd - sp sd) in the TPU kernel
+//     (exact: the pupil is a 0/1 mask).  No recombination.  A ragged last
+//     group reads a present diversity in place of an absent one and
+//     stores nothing for it;
+//   * crop (B3): an item is three consecutive planes of the (N, R, R)
+//     total phases (on the loop's route one scenario's diversities); a
+//     stage holds the pupil (shared) and each consumer's three phases, 7
+//     maps.  The parts are pupil (cos, sin) of each phase, three sincosf
+//     a pixel, rounded once, formed one field at a time (form_field):
+//     all three at once, 12 sincosf chains beside O and S, took 0.78 ms
+//     where this takes 0.61.  No recombination.  Planes at or past N
+//     read a present plane and store nothing.
 //
-// The design follows the TPU kernel's algebra, S1 = A2 [fr | fi] with the
-// stacked operator A2 = [are; aim] (2w, R), not the old engine's tiling:
+// What bounds them.  At R=128, B=4096, w=31 the two DFT stages are 62.0
+// GFLOP a kernel (0.063 ms at the card's published 989 TFLOP/s bf16).
+// B1 and B2 move 0.094 ms of bytes (the (B, R, R) phase, the crops) and
+// take 67 M sincosf (about 0.07 ms); B3 reads the 3B total-phase planes,
+// 805 MB, 0.2545 ms, and takes 201 M sincosf, about as long: each is
+// bound by its bytes and its field forming, which the design overlaps.
+// The mma.sync design they replace (psf_mma.cuh, Precision::kBf16, still
+// B4's bf16 entry) re-read and re-rounded the operator at every use, kept
+// the fields and G in shared memory as float32, ended each of its 20
+// steps a block in a full barrier, and sent the result through shared
+// memory every strip.
+//
+// The design follows the TPU kernels' algebra, S1 = A2 [fr | fi] with the
+// stacked operator A2 = [are; aim] (2w, R), written so in `_psf_div_kernel`
+// and as separate are / aim dots in `_psf_kernel`, whose rr = are fr - aim
+// fi is S1[are][fr] - S1[aim][fi] all the same:
 //   * A2 is the wgmma A operand of stage 1: M = 64 rows, one crop band of
 //     32 rows u (a wider crop is cut into bands of 32 rows and columns,
 //     one launch a band pair, as psf_mma.cuh does).  Its rows are
@@ -39,58 +74,65 @@
 //     layout wgmma reads with its 128-byte swizzle (K padded with zeros
 //     to whole 64-row stages); each persistent block loads it into shared
 //     memory once, with one bulk copy;
-//   * T, the B operand of stage 1, holds the pseudo-fields P = (t1, t3),
-//     F_0 and Q = (t2, -t4) of a 16-column strip of the field as
-//     [re | im] column blocks: N = 96, K = 64 field rows a stage.  The
-//     consumer threads form it from the maps (8 pixels of one column a
-//     thread, 4 at a time for the sincosf chains to overlap), round it to
-//     bf16 once and store it once, 16 bytes a store, in the same
-//     swizzled layout (no bank conflict);
-//   * each thread recombines P's and Q's float32 stage-1 sums at the same
-//     position before anything is rounded, F_-a = P + Q, F_+a = P - Q
-//     (pallas_kernels.py:161-171, the TPU kernel's own grouping: its
-//     U +- W), forms rr and ri, and rounds them to bf16 in registers;
+//   * T, the B operand of stage 1, holds the policy's six parts of a
+//     16-column strip of the field as [re | im] column blocks: N = 96,
+//     K = 64 field rows a stage.  The consumer threads form it from the
+//     maps (8 pixels of one column a thread, kIlp at a time for the
+//     sincosf chains to overlap), round it to bf16 once and store it
+//     once, 16 bytes a store, in the same swizzled layout (no bank
+//     conflict);
+//   * each thread takes the three fields' float32 stage-1 sums at the
+//     same position (recombined first where the policy says), forms rr
+//     and ri, and rounds them to bf16 in registers;
 //   * those registers are, as they stand, the wgmma A fragments of stage
 //     2, O_d += G_d A2_strip^T (M = 64 rows rr_u, ri_u; N = 64 columns
 //     are_v, aim_v in the same permuted order, read from the same
 //     shared-memory copy of A2, which is K-major for B too; K = the
 //     strip's 16 columns).  O stays in the accumulator registers for the
-//     whole scenario, and the epilogue forms orr = rr are' - ri aim',
+//     whole item, and the epilogue forms orr = rr are' - ri aim',
 //     oi = rr aim' + ri are' and (orr^2 + oi^2) scale in the thread that
-//     holds all four, writing the (3, w, w) crops with no atomics;
+//     holds all four, writing the item's crops with no atomics;
 //   * a block is a producer warpgroup, one warp of which issues every
-//     copy, and two consumer warpgroups, one scenario each, persistent
-//     (one block an SM, walking scenario pairs).  The producer keeps a
-//     ring of up to 4 stages in flight, each a 64-row x 16-column tile of
-//     pupil, pcd, psd (shared by both scenarios: half the constant maps'
-//     L2 traffic) and of the two phases: by TMA where the maps' row pitch
-//     is a multiple of 16 bytes and the maps 16-byte aligned, by 4-byte
-//     cp.async otherwise (R=98, say), both completing on the stage's
-//     mbarrier.  A consumer warpgroup forms stage k + 1's T (its sincosf
-//     and products) while stage k's wgmma group is in flight (two T
-//     buffers, wgmma.wait_group 1), and frees a stage to the producer as
-//     soon as T is formed.  The second consumer starts a stage behind the
-//     first, so that one's waits at the end of a strip (for its last
-//     stage-1 group, then for stage 2) fall in the other's forming;
+//     copy, and two consumer warpgroups, one item each, persistent (one
+//     block an SM, walking pairs of items).  The producer keeps a ring of
+//     up to 4 stages in flight, each a 64-row x 16-column tile of every
+//     map of the stage (the shared maps once for both consumers: half
+//     their L2 traffic): by TMA where the maps' row pitch is a multiple
+//     of 16 bytes and the maps 16-byte aligned, by 4-byte cp.async
+//     otherwise (R=98, say), both completing on the stage's mbarrier.  A
+//     consumer warpgroup forms stage k + 1's T (its sincosf and products)
+//     while stage k's wgmma group is in flight (two T buffers,
+//     wgmma.wait_group 1), and frees a stage to the producer as soon as T
+//     is formed.  The second consumer starts a stage behind the first, so
+//     that one's waits at the end of a strip (for its last stage-1 group,
+//     then for stage 2) fall in the other's forming.  The last pair of an
+//     odd count repeats its last item in the second consumer, which
+//     stores nothing;
 //   * registers: a block of three warpgroups at one block an SM starts at
 //     168 registers a thread; the producer warpgroup gives its back
 //     (setmaxnreg 40) and the consumers take 232, room for O's 96
 //     accumulators, stage 1's 48 and the 12 fragment registers without a
 //     spill.  The roles are warp-uniform values, so that each warpgroup's
 //     branch holds its wgmma whole and none is serialized.
-// Measured (NVIDIA H100 80GB HBM3, 700 W; benchmarks/bf16_knockouts.py,
-// PERF.md): 0.35 ms at R=128, B=4096, w=31, against the mma.sync
-// design's 0.64 in the same call.  Knock-out builds split it: the field
-// forming costs 0.19 ms (sincosf 0.09 of it), stage 1's wgmma 0.04, the
-// TMA loads 0.01; with forming and loads both out 0.15 ms remain, the
-// products and the waits at each strip's end.  Keeping the next strip's
-// forming in front of those waits spilled at 232 registers.
+// Shared memory: a stage is 4 KB a map (sym3 20 KB, div 32 KB, crop 28
+// KB), beside 48 KB of T buffers and the operator's image (16 KB at
+// R=128 for a crop of one band).  Where fewer than 2 stages fit beside
+// the image, the launch returns cudaErrorInvalidValue: above R = 1088
+// (sym3), 896 (div), 960 (crop) for a crop of one band, above R = 512,
+// 448, 448 for a wider one.
+// Measured (NVIDIA H100 80GB HBM3, 700 W; benchmarks/kernel_variants.py,
+// benchmarks/bf16_knockouts.py, PERF.md) at R=128, B=4096, w=31, against
+// the mma.sync design in the same call: sym3 0.35 ms (0.66), div 0.37-
+// 0.38 (0.84), crop 0.61-0.62 (0.92).  Knock-out builds split them: the
+// field forming costs about 0.19 / 0.16 / 0.30 ms (its sincosf 0.09 /
+// 0.06 / 0.26), stage 1's wgmma 0.02-0.04, the TMA loads 0.01-0.03; with
+// forming and loads both out about 0.13 ms remain, the products and the
+// waits at each strip's end.  Keeping the next strip's forming in front
+// of those waits spilled at 232 registers.
 // The wgmma sums are not IEEE round to nearest, as mma.sync's were not;
 // stage 1 accumulates over K = R on the tensor cores as the old engine
 // did, and the P +- Q and rr / ri sums are float32 in the TPU kernel's
-// order.  Where the operator does not fit in shared memory beside the
-// ring (R > 1088 for a crop of one band, R > 512 for a wider one) the
-// launch returns cudaErrorInvalidValue.
+// order.
 //
 // Fragment layouts (PTX ISA, wgmma .m64nNk16, warp i of the warpgroup
 // holds rows 16 i..16 i + 15; g = lane / 4, t = lane % 4):
@@ -109,7 +151,7 @@
 
 namespace psf_wgmma {
 
-constexpr int kConsumers = 2;          // consumer warpgroups: a scenario each
+constexpr int kConsumers = 2;          // consumer warpgroups: an item each
 constexpr int kThreads = 128 * (kConsumers + 1);       // + the producer's
 constexpr int kConsumerRegs = 232;     // setmaxnreg: 2 x 128 x 232 +
 constexpr int kProducerRegs = 40;      //   128 x 40 <= 65536
@@ -117,17 +159,15 @@ constexpr int kRows = 64;              // stage 1's M: one band's A2 rows
 constexpr int kBand = 32;              // crop rows (columns) a band
 constexpr int kStrip = 16;             // field columns a strip: stage 2's K
 constexpr int kChunk = 64;             // field rows a stage: stage 1's K
-constexpr int kParts = 6;              // P, F_0, Q as re, im
+constexpr int kParts = 6;              // three fields' (or P, F_0, Q's) re, im
+constexpr int kFields = 3;             // output crops an item
 constexpr int kN1 = kParts * kStrip;   // stage 1's N
-constexpr int kMaps = 5;               // a stage: pupil, pcd, psd, 2 phases
 constexpr int kMapTile = kChunk * kStrip;              // floats
-constexpr int kStageBytes = kMaps * kMapTile * 4;      // 20480
 constexpr int kTBytes = kChunk * kN1 * 2;              // 12288
 constexpr int kMaxStages = 4;
 constexpr int kAlign = 1024;           // slack to align the dynamic smem
 constexpr int kAtom = 64;              // K columns of a 128-byte swizzle atom
 constexpr int kAtomBytes = kAtom * 2 * 8;              // its 8-row pattern
-constexpr int kIlp = 4;                // pixels a thread forms at once
 
 // Padded K extent of the operator (field rows and columns: whole stages,
 // so that every stage runs the same four k16 products), and the bytes of
@@ -139,29 +179,41 @@ __host__ __device__ constexpr int image_bytes(int R) {
   return kRows * padded(R) * 2;
 }
 
-// Dynamic shared memory of a launch whose operator copy holds `images`
-// bands, with `stages` ring stages.
+// Maps a stage of policy P holds: its shared ones, then each consumer's.
+template <class P>
+__host__ __device__ constexpr int maps() {
+  return P::kShared + kConsumers * P::kOwn;
+}
+template <class P>
+__host__ __device__ constexpr int stage_bytes() {
+  return maps<P>() * kMapTile * 4;
+}
+
+// Dynamic shared memory of a launch of policy P whose operator copy holds
+// `images` bands, with `stages` ring stages.
+template <class P>
 constexpr size_t smem_bytes(int R, int images, int stages) {
-  return kAlign + static_cast<size_t>(stages) * kStageBytes +
+  return kAlign + static_cast<size_t>(stages) * stage_bytes<P>() +
          2 * kConsumers * kTBytes +
          static_cast<size_t>(images) * image_bytes(R);
 }
 
-// TMA descriptors of the maps (unused where the launch copies by cp.async)
-struct Maps {
-  CUtensorMap phase;                   // (B, R, R), box 1 x 64 x 16
-  CUtensorMap pupil, pcd, psd;         // (R, R), box 64 x 16
+// A kernel's arguments: policy P's float32 (planes, R, R) inputs as TMA
+// descriptors (unused where the launch copies by cp.async) and pointers,
+// a __grid_constant__ whose address the copies take; then the policy and
+// the launch's Args, by value, which the loops read from the constant
+// bank (in one struct with the descriptors they were read through
+// generic loads, again after every asm memory clobber).
+template <class P>
+struct Inputs {
+  CUtensorMap map[P::kInputs];
+  const float* ptr[P::kInputs];
 };
 
 struct Args {
-  const float* phase;                  // (B, R, R)
-  const float* pupil;                  // (R, R)
-  const float* pcd;
-  const float* psd;
   const uint16_t* rows;                // stage 1's band of the image
   const uint16_t* cols;                // stage 2's band
-  float* out;                          // (B, 3, w, w)
-  int batch, R, w, u0, v0, stages, tma;
+  int R, w, u0, v0, stages, tma;
   float scale;
 };
 
@@ -207,13 +259,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)), "l"(src), "r"(bytes),
       "r"(smem_addr(b)) : "memory");
-}
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int c0, int c1, uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
-      "l"(map), "r"(c0), "r"(c1), "r"(smem_addr(b)) : "memory");
 }
 __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
                                        int c0, int c1, int c2, uint64_t* b) {
@@ -334,32 +379,20 @@ __global__ void operator_image(const float* __restrict__ are,
 
 // -------------------------------------------------------------- the block
 
-// T of one stage: the pseudo-fields at field rows x = 8 xg..8 xg + 7 of
-// column y of the stage's maps `st` (pupil, pcd, psd) and phase `ph`,
-// rounded to bf16 as psf_sym3::Fields<kBf16, true>::form rounds them,
-// into the B operand's swizzled K-major layout: a 128-byte row per
-// n = 16 part + y for the parts (P re, P im, F_0 re, F_0 im, Q re, Q im),
+// T of one stage: the six parts that `part` (e, v) forms in float32 at
+// element e of the stage's map tiles, for field rows x = 8 xg..8 xg + 7
+// of column y, kIlp pixels at a time, rounded to bf16 once, into the B
+// operand's swizzled K-major layout: a 128-byte row per n = 16 part + y,
 // one 16-byte store a part (the chunk xg of row n, at xg ^ (n % 8)).
-__device__ __forceinline__ void form(const float* st, const float* ph,
-                                     unsigned char* tb, int y, int xg) {
+template <int kIlp, class Part>
+__device__ __forceinline__ void form_t(unsigned char* tb, int y, int xg,
+                                       Part part) {
   uint32_t pk[kParts][4];
 #pragma unroll
   for (int i = 0; i < 8; i += kIlp) {
     float v[kIlp][kParts];
 #pragma unroll
-    for (int h = 0; h < kIlp; ++h) {
-      const int e = (8 * xg + i + h) * kStrip + y;
-      const float p = st[e], pc = st[kMapTile + e], ps = st[2 * kMapTile + e];
-      float s, c;
-      sincosf(ph[e], &s, &c);
-      const float t1 = c * pc, t2 = s * ps, t3 = s * pc, t4 = c * ps;
-      v[h][0] = t1;
-      v[h][1] = t3;
-      v[h][2] = p * c;
-      v[h][3] = p * s;
-      v[h][4] = t2;
-      v[h][5] = -t4;
-    }
+    for (int h = 0; h < kIlp; ++h) part((8 * xg + i + h) * kStrip + y, v[h]);
 #pragma unroll
     for (int h = 0; h < kIlp; h += 2) {
 #pragma unroll
@@ -376,25 +409,59 @@ __device__ __forceinline__ void form(const float* st, const float* ph,
   }
 }
 
-// The stage-1 sums S of a strip (one thread's 48) -> the A fragments of
-// the three fields' G = [rr; ri] rows for stage 2, rounded to bf16.
+// Parts q0 and q0 + 1 of T (one field's re and im) as `part` (e, re, im)
+// forms them in float32 at element e of the stage's map tiles; otherwise
+// as form_t.
+template <int kIlp, class Part>
+__device__ __forceinline__ void form_field(unsigned char* tb, int q0, int y,
+                                           int xg, Part part) {
+  uint32_t pk[2][4];
+#pragma unroll
+  for (int i = 0; i < 8; i += kIlp) {
+    float v[kIlp][2];
+#pragma unroll
+    for (int h = 0; h < kIlp; ++h) {
+      part((8 * xg + i + h) * kStrip + y, v[h][0], v[h][1]);
+    }
+#pragma unroll
+    for (int h = 0; h < kIlp; h += 2) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        pk[q][(i + h) / 2] = bf16x2(v[h][q], v[h + 1][q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int n = kStrip * (q0 + q) + y;
+    *reinterpret_cast<uint4*>(tb + n * 128 + (xg ^ (n % 8)) * 16) =
+        make_uint4(pk[q][0], pk[q][1], pk[q][2], pk[q][3]);
+  }
+}
+
+// The stage-1 sums S of a strip (one thread's 48; part q's in column
+// block q) -> the A fragments of the three fields' G = [rr; ri] rows for
+// stage 2, rounded to bf16.  Field d is parts 2d (re) and 2d + 1 (im), or
+// with kRecombine the parts are (P, F_0, Q) and the fields P + Q, F_0,
+// P - Q, summed in float32 before anything is rounded.
+template <bool kRecombine>
 __device__ __forceinline__ void crop_rows(const float (&S)[48],
-                                          uint32_t (&fr)[3][4]) {
+                                          uint32_t (&fr)[kFields][4]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float rr[3][2], ri[3][2];
+    float rr[kFields][2], ri[kFields][2];
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       // part q's sum at row are_u (r = 0) or aim_u (r = 1), column h, e
       auto at = [&](int q, int r) { return S[4 * (2 * q + h) + e + 2 * r]; };
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
+      for (int d = 0; d < kFields; ++d) {
         float re[2], im[2];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          if (d == 1) {
-            re[r] = at(2, r);
-            im[r] = at(3, r);
+          if (!kRecombine || d == 1) {
+            re[r] = at(2 * d, r);
+            im[r] = at(2 * d + 1, r);
           } else if (d == 0) {           // F_-a = P + Q
             re[r] = at(0, r) + at(4, r);
             im[r] = at(1, r) + at(5, r);
@@ -408,16 +475,35 @@ __device__ __forceinline__ void crop_rows(const float (&S)[48],
       }
     }
 #pragma unroll
-    for (int d = 0; d < 3; ++d) {
+    for (int d = 0; d < kFields; ++d) {
       fr[d][2 * h] = bf16x2(rr[d][0], rr[d][1]);
       fr[d][2 * h + 1] = bf16x2(ri[d][0], ri[d][1]);
     }
   }
 }
 
+// What the engine asks of a field policy P:
+//   kInputs            its float32 (planes, R, R) inputs (Inputs)
+//   kShared, kOwn      maps a stage holds for both consumers, and for each
+//   kIlp               pixels a consumer thread forms at once
+//   kRecombine         whether its parts are (P, F_0, Q) (crop_rows)
+//   input(m)           the input of stage map m (shared maps first, then
+//                      consumer 0's, then consumer 1's): constexpr, a
+//                      constant in the unrolled copy loops
+//   pairs()            pairs of work items (host and device)
+//   plane(m, q)        the plane of map m's input for pair q
+//   crop(q, wg, d, w)  consumer wg's (w, w) output crop of field d for
+//                      pair q, or nullptr: nothing to store
+//   form(st, own, tb, y, xg)  T (form_t) from a stage's shared maps st
+//                      and the consumer's own maps own
 // One persistent block: called by every thread of a kThreads block
-// launched with smem_bytes(R, images, a.stages) of dynamic shared memory.
-__device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
+// launched with smem_bytes<P>(R, images, a.stages) of dynamic shared
+// memory.
+template <class P>
+__device__ __forceinline__ void block(const Inputs<P>& in, const P& pol,
+                                      const Args& a) {
+  constexpr int kMaps = maps<P>();
+  constexpr unsigned kStageBytes = stage_bytes<P>();
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[kMaxStages], empty[kMaxStages], op_bar, skew;
   // aligned by an offset from the shared array itself, so that the
@@ -433,7 +519,7 @@ __device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
   const bool one_band = a.rows == a.cols;
   unsigned char* const img2 = one_band ? img1 : img1 + img_bytes;
   const int strips = (R + kStrip - 1) / kStrip, chunks = Rp / kChunk;
-  const int pairs = (a.batch + 1) / 2;
+  const int pairs = pol.pairs();
   // warp-uniform roles (shuffled from lane 0), so that the compiler sees
   // each warpgroup take one branch whole
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -462,7 +548,6 @@ __device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
     int stage = 0;
     unsigned phase = 0;
     for (int q = blockIdx.x; q < pairs; q += gridDim.x) {
-      const int b0 = 2 * q, b1 = min(2 * q + 1, a.batch - 1);
       for (int s = 0; s < strips; ++s) {
         for (int kc = 0; kc < chunks; ++kc) {
           mbar_wait(&empty[stage], phase ^ 1);
@@ -471,23 +556,24 @@ __device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
           if (a.tma) {
             if (lane == 0) {
               mbar_expect_tx(&full[stage], kStageBytes);
-              tma_2d(dst, &maps.pupil, y0, x0, &full[stage]);
-              tma_2d(dst + kMapTile, &maps.pcd, y0, x0, &full[stage]);
-              tma_2d(dst + 2 * kMapTile, &maps.psd, y0, x0, &full[stage]);
-              tma_3d(dst + 3 * kMapTile, &maps.phase, y0, x0, b0,
-                     &full[stage]);
-              tma_3d(dst + 4 * kMapTile, &maps.phase, y0, x0, b1,
-                     &full[stage]);
+#pragma unroll
+              for (int m = 0; m < kMaps; ++m) {
+                tma_3d(dst + m * kMapTile, &in.map[P::input(m)], y0, x0,
+                       pol.plane(m, q), &full[stage]);
+              }
             }
           } else {
             // rows not 16-byte aligned: 4-byte copies, zero outside R x R
 #pragma unroll 1
             for (int m = 0; m < kMaps; ++m) {
-              const float* src =
-                  m == 0 ? a.pupil
-                  : m == 1 ? a.pcd
-                  : m == 2 ? a.psd
-                  : a.phase + static_cast<size_t>(m == 3 ? b0 : b1) * R * R;
+              // the input's pointer by comparison, not by a dynamic index
+              // into the kernel's parameters
+              const float* src = in.ptr[0];
+#pragma unroll
+              for (int i = 1; i < P::kInputs; ++i) {
+                if (P::input(m) == i) src = in.ptr[i];
+              }
+              src += static_cast<size_t>(pol.plane(m, q)) * R * R;
 #pragma unroll 4
               for (int i = 0; i < kMapTile / 32; ++i) {
                 const int e = lane + 32 * i;
@@ -516,6 +602,7 @@ __device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
     const int tid = threadIdx.x % 128, wi = tid / 32;
     const int g = lane / 4, t = lane % 4;
     const int fy = tid % kStrip, fxg = tid / kStrip;   // forming role
+    const int own = (P::kShared + wg * P::kOwn) * kMapTile;
     unsigned char* const my_t = tbuf + wg * 2 * kTBytes;
     const uint64_t a1 = desc(img1), b2 = desc(img2);
     // descriptor offset of k16 slice i of the image: 32 bytes a slice
@@ -524,8 +611,8 @@ __device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
       return (i / 4 * kRows * 128 + i % 4 * 32) >> 4;
     };
     constexpr uint64_t kStep = 32 >> 4;                // T's k16 slice
-    float S[48] = {}, O[3][32] = {};
-    uint32_t fr[3][4];
+    float S[48] = {}, O[kFields][32] = {};
+    uint32_t fr[kFields][4];
     int stage = 0, tile = 0;
     unsigned phase = 0;
     mbar_wait(&op_bar, 0);
@@ -533,13 +620,12 @@ __device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
     // waits at the end of a strip overlap the other's forming
     if (wg == 1) mbar_wait(&skew, 0);
     for (int q = blockIdx.x; q < pairs; q += gridDim.x) {
-      const int b = 2 * q + wg;
       for (int s = 0; s < strips; ++s) {
         for (int kc = 0; kc < chunks; ++kc, ++tile) {
           mbar_wait(&full[stage], phase);
           const float* st = ring + stage * kMaps * kMapTile;
           unsigned char* const tb = my_t + (tile & 1) * kTBytes;
-          form(st, st + (3 + wg) * kMapTile, tb, fy, fxg);
+          P::form(st, st + own, tb, fy, fxg);
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
           warpgroup_sync(wg);
           if (tid == 0) {
@@ -567,11 +653,11 @@ __device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
         wgmma_wait<0>();
         fence_regs(S);
 #pragma unroll
-        for (int d = 0; d < 3; ++d) fence_regs(O[d]);
-        crop_rows(S, fr);
+        for (int d = 0; d < kFields; ++d) fence_regs(O[d]);
+        crop_rows<P::kRecombine>(S, fr);
         wgmma_fence();
 #pragma unroll
-        for (int d = 0; d < 3; ++d) {
+        for (int d = 0; d < kFields; ++d) {
           wgmma_rs_n64(O[d], fr[d], b2 + slice(s), s > 0);
         }
         wgmma_commit();
@@ -579,25 +665,24 @@ __device__ __forceinline__ void sym3_block(const Maps& maps, const Args& a) {
         wgmma_wait<0>();
       }
 #pragma unroll
-      for (int d = 0; d < 3; ++d) fence_regs(O[d]);
-      if (b < a.batch) {
-        float* const o = a.out + static_cast<size_t>(b) * 3 * a.w * a.w;
-        const int u = a.u0 + 8 * wi + g;
+      for (int d = 0; d < kFields; ++d) fence_regs(O[d]);
+      const int u = a.u0 + 8 * wi + g;
+#pragma unroll
+      for (int d = 0; d < kFields; ++d) {
+        float* const o = pol.crop(q, wg, d, a.w);
+        if (o == nullptr) continue;
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int v = a.v0 + 8 * k + 2 * t + e;
             if (u < a.w && v < a.w) {
-#pragma unroll
-              for (int d = 0; d < 3; ++d) {
-                // rows rr_u (+0), ri_u (+2); columns are_v (2k), aim_v (2k+1)
-                const float orr = O[d][4 * (2 * k) + e] -
-                                  O[d][4 * (2 * k + 1) + e + 2];
-                const float oi = O[d][4 * (2 * k + 1) + e] +
-                                 O[d][4 * (2 * k) + e + 2];
-                o[(d * a.w + u) * a.w + v] = (orr * orr + oi * oi) * a.scale;
-              }
+              // rows rr_u (+0), ri_u (+2); columns are_v (2k), aim_v (2k+1)
+              const float orr = O[d][4 * (2 * k) + e] -
+                                O[d][4 * (2 * k + 1) + e + 2];
+              const float oi = O[d][4 * (2 * k + 1) + e] +
+                               O[d][4 * (2 * k) + e + 2];
+              o[u * a.w + v] = (orr * orr + oi * oi) * a.scale;
             }
           }
         }
@@ -639,31 +724,34 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A float32 map of `rank` dims (innermost first) whose boxes are
-// 16 columns x 64 rows (x 1); zeros outside it.
-inline bool encode(CUtensorMap* map, const float* p, int rank,
-                   const cuuint64_t* dims) {
+// A float32 (planes, R, R) input whose boxes are 16 columns x 64 rows x 1
+// plane; zeros outside it.
+inline bool encode(CUtensorMap* map, const float* p, int R, int planes) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(R),
+                              static_cast<cuuint64_t>(R),
+                              static_cast<cuuint64_t>(planes)};
   const cuuint64_t strides[2] = {dims[0] * 4, dims[0] * dims[1] * 4};
   const cuuint32_t box[3] = {kStrip, kChunk, 1}, elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
-            const_cast<float*>(p), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(p),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // Lays the operator's bf16 image out in `work` (bands(w) * image_bytes(R)
 // bytes, 16-byte aligned, allocated by the caller) and launches `kernel`
-// (maps, args) once per band pair of the crop, persistent: one block an
-// SM, at most one a scenario pair.  On `stream` of the current device;
-// returns the first error.
-template <class Kernel>
-cudaError_t launch(Kernel kernel, const float* phase, const float* pupil,
-                   const float* pcd, const float* psd, const float* are,
-                   const float* aim, void* work, float* out, int batch,
-                   int R, int w, float scale, cudaStream_t stream) {
+// (Inputs<P>, P, Args) with policy `pol` on its inputs `in` (planes[i]
+// planes of R x R each) once per band pair of the crop, persistent: one
+// block an SM, at most one a pair of items.  On `stream` of the current
+// device; returns the first error.
+template <class P, class Kernel>
+cudaError_t launch(Kernel kernel, const P& pol,
+                   const float* const (&in)[P::kInputs],
+                   const int (&planes)[P::kInputs], const float* are,
+                   const float* aim, void* work, int R, int w, float scale,
+                   cudaStream_t stream) {
   if (R <= 0 || w <= 0) return cudaErrorInvalidValue;
   int dev = 0, sms = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -681,44 +769,46 @@ cudaError_t launch(Kernel kernel, const float* phase, const float* pupil,
   const int elems = nb * kRows * Rp;
   operator_image<<<(elems + 255) / 256, 256, 0, stream>>>(are, aim, image, R,
                                                           w, nb);
-  Maps maps{};
-  const int tma = R % 4 == 0 && aligned16(phase) && aligned16(pupil) &&
-                  aligned16(pcd) && aligned16(psd);
-  if (tma) {
-    const cuuint64_t plane[2] = {static_cast<cuuint64_t>(R),
-                                 static_cast<cuuint64_t>(R)};
-    const cuuint64_t cube[3] = {static_cast<cuuint64_t>(R),
-                                static_cast<cuuint64_t>(R),
-                                static_cast<cuuint64_t>(batch)};
-    if (!encode(&maps.phase, phase, 3, cube) ||
-        !encode(&maps.pupil, pupil, 2, plane) ||
-        !encode(&maps.pcd, pcd, 2, plane) ||
-        !encode(&maps.psd, psd, 2, plane)) {
+  Inputs<P> inputs{};
+  Args args{};
+  int tma = R % 4 == 0;
+  for (int i = 0; i < P::kInputs; ++i) {
+    inputs.ptr[i] = in[i];
+    tma = tma && aligned16(in[i]);
+  }
+  for (int i = 0; tma && i < P::kInputs; ++i) {
+    if (!encode(&inputs.map[i], in[i], R, planes[i])) {
       return cudaErrorInvalidValue;
     }
   }
-  const int pairs = (batch + 1) / 2;
+  args.R = R;
+  args.w = w;
+  args.tma = tma;
+  args.scale = scale;
+  const int pairs = pol.pairs();
   const size_t band_elems = static_cast<size_t>(kRows) * Rp;
   for (int i = 0; i < nb; ++i) {
     for (int j = 0; j < nb; ++j) {
       const int images = i == j ? 1 : 2;
       // the static barriers take the last 128 bytes of the opt-in limit
       const long room = static_cast<long>(optin) - 128 -
-                        static_cast<long>(smem_bytes(R, images, 0));
+                        static_cast<long>(smem_bytes<P>(R, images, 0));
       const int stages = static_cast<int>(
-          room < 0 ? 0 : (room / kStageBytes < kMaxStages
-                              ? room / kStageBytes : kMaxStages));
+          room < 0 ? 0 : (room / stage_bytes<P>() < kMaxStages
+                              ? room / stage_bytes<P>() : kMaxStages));
       if (stages < 2) return cudaErrorInvalidValue;
-      const size_t smem = smem_bytes(R, images, stages);
+      const size_t smem = smem_bytes<P>(R, images, stages);
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      const Args args{phase, pupil, pcd, psd, image + i * band_elems,
-                      image + j * band_elems, out, batch, R, w, kBand * i,
-                      kBand * j, stages, tma, scale};
-      kernel<<<pairs < sms ? pairs : sms, kThreads, smem, stream>>>(maps,
-                                                                   args);
+      args.rows = image + i * band_elems;
+      args.cols = image + j * band_elems;
+      args.u0 = kBand * i;
+      args.v0 = kBand * j;
+      args.stages = stages;
+      kernel<<<pairs < sms ? pairs : sms, kThreads, smem, stream>>>(
+          inputs, pol, args);
     }
   }
   return cudaGetLastError();

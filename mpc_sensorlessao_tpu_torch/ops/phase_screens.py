@@ -15,6 +15,7 @@
 from __future__ import annotations
 
 import math
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -22,6 +23,10 @@ import torch
 
 from ..utils.config import AtmosphereConfig, TelescopeConfig
 from . import phase_stats
+
+# host threads and rows a band for the subharmonic patches
+SCREEN_THREADS = 8
+SUBHARMONIC_ROWS = 32
 
 
 @dataclass(frozen=True)
@@ -144,11 +149,17 @@ def _subharmonics(rng: np.random.Generator, atm: AtmosphereConfig, N: int,
     For each level l, a 3x3 grid of frequencies at spacing df/3^l replaces
     the coarser cell it subdivides; the central cell is left to the next
     level, and DC is skipped.
+
+    The draws are made first, in the JAX package's order; the patches are
+    then summed in bands of SUBHARMONIC_ROWS rows in host threads (numpy
+    releases the interpreter lock in its array math).  Each pixel sees the
+    same float64 operations in the same order as in one pass over the
+    whole grid, so the screen is bit for bit the JAX package's.
     """
     x = np.arange(N) * pitch
     XX = x[:, None, None].transpose(2, 0, 1)   # (1, N, 1)
     YY = x[None, None, :]                      # (1, 1, N)
-    total = np.zeros((N, N))
+    draws = []
     for lvl in range(1, levels + 1):
         df_l = df / (3.0 ** lvl)
         f = np.asarray([(p * df_l, q * df_l)
@@ -159,11 +170,21 @@ def _subharmonics(rng: np.random.Generator, atm: AtmosphereConfig, N: int,
         ) * df_l
         a = rng.standard_normal(f.shape[0]) * amp
         b = rng.standard_normal(f.shape[0]) * amp
-        phase_arg = 2.0 * math.pi * (XX * f[:, 0:1, None]
-                                     + YY * f[:, 1:2, None])
-        total = total + np.sum(
-            a[:, None, None] * np.cos(phase_arg)
-            + b[:, None, None] * np.sin(phase_arg), axis=0)
+        draws.append((f, a, b))
+    total = np.zeros((N, N))
+
+    def band(r0):
+        rows = slice(r0, min(r0 + SUBHARMONIC_ROWS, N))
+        acc = total[rows]
+        for f, a, b in draws:
+            phase_arg = 2.0 * math.pi * (XX[:, rows] * f[:, 0:1, None]
+                                         + YY * f[:, 1:2, None])
+            acc = acc + np.sum(
+                a[:, None, None] * np.cos(phase_arg)
+                + b[:, None, None] * np.sin(phase_arg), axis=0)
+        total[rows] = acc
+    with ThreadPoolExecutor(SCREEN_THREADS) as pool:
+        list(pool.map(band, range(0, N, SUBHARMONIC_ROWS)))
     return total
 
 
@@ -197,12 +218,14 @@ def make_layers(seed: int, atm: AtmosphereConfig, tel: TelescopeConfig,
         need = min(need, max_screen)
         oversample = max(oversample, int(math.ceil(need / R)))
 
-    screens = []
-    for i in range(atm.n_layers):
+    def screen(i):
         scr = synthesize_screen(seeds[i], atm.layer(i), R, pitch,
                                 oversample=oversample)
         # wrap-pad by the window size so every window is one plain slice
-        screens.append(np.pad(scr, ((0, R + 1), (0, R + 1)), mode="wrap"))
+        return np.pad(scr, ((0, R + 1), (0, R + 1)), mode="wrap")
+    # one host thread a layer: each screen is the same function of its seed
+    with ThreadPoolExecutor(atm.n_layers) as pool:
+        screens = list(pool.map(screen, range(atm.n_layers)))
     return FrozenFlowLayers(
         screens=torch.as_tensor(np.stack(screens), dtype=torch.float32,
                                 device=device),

@@ -20,9 +20,10 @@ stages on the tensor cores in 3xTF32 (float32 accuracy) on one engine,
 Each also takes ``compute_dtype="bfloat16"``, the Pallas kernels' branch
 that rounds the DFT stages' operands to bf16 and sums in float32: on a
 CUDA tensor the library's ``<name>_bf16`` entry point (one bf16 pass,
-counted in ``<wrapper>.launches_bf16``: B2-B4's on the same engine, B1's
+counted in ``<wrapper>.launches_bf16``: B4's on the same engine, B1-B3's
 on the Hopper engine ``csrc/psf_wgmma.cuh``, wgmma with persistent
-blocks), on a CPU tensor the plain version rounding at the same points.
+blocks, one field policy each), on a CPU tensor the plain version
+rounding at the same points.
 """
 
 from __future__ import annotations
@@ -306,9 +307,10 @@ def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
 def _operator_scratch(R: int, w: int) -> int:
     """Floats of the scratch in which the engine lays the operator out as
     32 x 32 tiles of (re, im) in bands of 32 rows:
-    ``2 * 32 * 32 * ceil(R / 32) * ceil(w / 32)``.  B1's bf16 entry lays
-    its bf16 image of the stacked operator there, ``32 * ceil(R / 64) *
-    64 * ceil(w / 32)`` floats' worth, which that never exceeds."""
+    ``2 * 32 * 32 * ceil(R / 32) * ceil(w / 32)``.  The bf16 entries on
+    the wgmma engine (B1-B3's) lay their bf16 image of the stacked
+    operator there, ``32 * ceil(R / 64) * 64 * ceil(w / 32)`` floats'
+    worth, which that never exceeds."""
     return 2 * MMA_TILE * MMA_TILE * -(-R // MMA_TILE) * -(-w // MMA_TILE)
 
 

@@ -160,8 +160,6 @@ def test_knockout_builds_patch_the_current_sources(build, tmp_path):
     once in the current csrc/ and changes it (nvcc runs only on the
     card): the split stays tied to the sources it measures."""
     dest = bf16_knockouts.patched_sources(build, tmp_path)
-    changed = [name for name in ("psf_mma.cuh", "psf_sym3.cuh",
-                                 "psf_wgmma.cuh")
-               if (dest / name).read_text()
-               != (cuda_build.CSRC / name).read_text()]
+    changed = [src.name for src in cuda_build.CSRC.iterdir()
+               if (dest / src.name).read_text() != src.read_text()]
     assert bool(changed) == (not build.endswith("_full"))

@@ -76,7 +76,7 @@ def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
 
 MMA_LIBS = ["psf_div3_sym", "psf_div", "psf_crop", "psf_div3_sym_thin"]
 # libraries whose bf16 entry runs the wgmma engine csrc/psf_wgmma.cuh
-WGMMA_LIBS = ("psf_div3_sym",)
+WGMMA_LIBS = ("psf_div3_sym", "psf_div", "psf_crop")
 
 
 @pytest.mark.gpu
@@ -85,9 +85,9 @@ def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
     """The built SASS of B1, and of B2, B3 and B4 on its engine, holds HMMA
     (tensor-core) instructions, and ptxas reports no spill for any of
     a library's kernels (its float32 and bf16 entries'), within the 128
-    registers a thread that two resident blocks per SM allow -- but B1's
-    bf16 kernel on the wgmma engine, one 384-thread block an SM, within
-    168 (test_bf16_entries_build_without_spills_on_bf16_mma)."""
+    registers a thread that two resident blocks per SM allow -- but the
+    bf16 kernels of B1-B3 on the wgmma engine, one 384-thread block an
+    SM, within 168 (test_bf16_entries_build_without_spills_on_bf16_mma)."""
     res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))
     assert any(f"{lib}_kernel" in fn for fn in res)
     for fn, r in res.items():
@@ -180,19 +180,19 @@ def test_b2_b3_ragged_groups_match_plain(cuda_device, kernel, count, R):
 
 
 BF16_HMMA = "HMMA.16816.F32.BF16"
-# bf16 warpgroup products (wgmma): B1's bf16 entry, csrc/psf_wgmma.cuh
+# bf16 warpgroup products (wgmma): B1-B3's bf16 entries, csrc/psf_wgmma.cuh
 BF16_HGMMA = re.compile(r"\bHGMMA\.64x\d+x16\.F32\.BF16\b")
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lib", MMA_LIBS)
 def test_bf16_entries_build_without_spills_on_bf16_mma(cuda_device, lib):
-    """Each library's bf16 kernel builds without a spill.  B2-B4's, on
-    the mma.sync engine, within 128 registers (two blocks an SM), and
-    their SASS holds bf16 tensor-core products (HMMA.16816.F32.BF16) and
-    no TF32 ones; B1's, on the wgmma engine, within the 168 a thread of
-    its 384-thread block starts with (setmaxnreg then moves them between
-    its warpgroups), and its SASS holds bf16 warpgroup products
+    """Each library's bf16 kernel builds without a spill.  B4's, on the
+    mma.sync engine, within 128 registers (two blocks an SM), and its
+    SASS holds bf16 tensor-core products (HMMA.16816.F32.BF16) and no
+    TF32 ones; B1-B3's, on the wgmma engine, within the 168 a thread of
+    their 384-thread block starts with (setmaxnreg then moves them
+    between its warpgroups), and their SASS holds bf16 warpgroup products
     (HGMMA.64xNx16.F32.BF16) and no HMMA.  The float32 kernel beside each
     holds no bf16 product."""
     res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))

@@ -689,8 +689,9 @@ def test_bf16_card_limit_catches_misrounded_b1():
 def test_bf16_rtz_emulation_reproduces_card_reading(label, scenario,
                                                     card_err):
     """The engine's bf16 stage-1 sums rounded toward zero
-    (``_crops_bf16_rtz``) reproduce B2's bf16 reading on the card in
-    chip_smoke.py's kernel phase at R=128, B=4096 -- max abs error
+    (``_crops_bf16_rtz``) reproduce the reading of B2's bf16 entry on
+    that engine (psf_mma.cuh, before it moved to psf_wgmma.cuh) on the
+    card in chip_smoke.py's kernel phase at R=128, B=4096 -- max abs error
     1.157e-3 on the triple, 3.820e-3 on the 5 random maps (NVIDIA H100
     80GB HBM3, 700 W) -- in the one scenario where the emulation errs
     most over that batch: one bf16 rounding of a stage-1 element flips.

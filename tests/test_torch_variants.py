@@ -52,6 +52,20 @@ def test_screen_methods_identical_to_jax(method, n, os_):
     assert np.isfinite(got).all() and got.std() > 0
 
 
+@pytest.mark.parametrize("threads,rows", [(1, 32), (8, 32), (3, 7)])
+def test_subharmonic_bands_identical_to_jax(monkeypatch, threads, rows):
+    """The subharmonic patches summed in bands of rows on host threads
+    (a ragged last band at N=150) give the JAX package's one-pass
+    screen, bit for bit, at any thread count and band height."""
+    monkeypatch.setattr(phase_screens, "SCREEN_THREADS", threads)
+    monkeypatch.setattr(phase_screens, "SUBHARMONIC_ROWS", rows)
+    atm, jatm, pitch = _atm_pitch(75)
+    got = phase_screens.synthesize_screen(13, atm, 75, pitch, oversample=2)
+    want = np.asarray(jps.synthesize_screen(13, jatm, 75, pitch,
+                                            oversample=2))
+    np.testing.assert_array_equal(got, want)
+
+
 def test_screen_method_limits_match_jax():
     """Cholesky keeps JAX's N > 96 refusal; an unknown method raises; the
     subharmonic levels can be set apart from the config."""

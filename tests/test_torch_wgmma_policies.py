@@ -1,0 +1,197 @@
+"""Kernels B2 and B3's bf16 entries on the Hopper engine
+(csrc/psf_wgmma.cuh, its div and crop policies): their arithmetic
+emulated on the CPU and held against the Pallas kernels'
+compute_dtype="bfloat16" branches in interpret mode.
+
+Both policies round where their TPU kernels round: the operator, each
+field's (re, im) as formed in float32 -- B2's from rounded products,
+c pcd - s psd and s pcd + c psd (pcd, psd = pupil cos, pupil sin of the
+diversity map), B3's pupil (cos, sin) of each total phase -- and each
+field's stage-1 rows.  Stage 1 sums the stacked operator's rows (are,
+aim) against each part, chained over K in k16 slices as one wgmma
+accumulator takes them (test_torch_b1_wgmma._chain); rr = S[are][re] -
+S[aim][im] and ri = S[are][im] + S[aim][re] in float32, rounded to bf16
+once; stage 2 and the epilogue as in B1's sym3 policy.  Neither policy
+recombines its fields.  Which scenario, diversity group or phase triple
+a consumer takes changes no sum: every field runs the same chains.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpc_sensorlessao_tpu.ops import dft as jdft
+from mpc_sensorlessao_tpu.ops import pallas_kernels as jpk
+from mpc_sensorlessao_tpu.ops import psf as jpsf
+from mpc_sensorlessao_tpu_torch.ops import dft, psf, psf_kernels, zernike
+from test_torch_b1_wgmma import BF16_ATOL, _chain
+
+torch.set_num_threads(1)
+
+# chip_smoke.py's limit for B2's bf16 entry on random diversity maps, of
+# the peak: speckle makes a flipped stage-1 rounding move a pixel by more
+BF16_ATOL_RANDOM_MAPS = 2e-4
+R, B, A = 64, 4, 3.0
+
+
+def _wgmma(fre: torch.Tensor, fim: torch.Tensor, dft_op: torch.Tensor,
+           scale: float, rtz: bool = True, rows: bool = False):
+    """The engine's arithmetic for fields that are not recombined: their
+    float32 parts fre, fim (..., R, R) -> crops (..., w, w); with
+    ``rows`` also the float32 stage-1 rows (rr, ri) before rounding."""
+    bf = psf_kernels._bf16
+    T = bf(torch.stack([fre, fim], dim=-3))[..., None, :, :]   # (...,2,1,R,R)
+    are, aim = bf(dft_op.real), bf(dft_op.imag)
+    S = _chain(torch.stack([are, aim]), T, rtz)                # (...,2,2,w,R)
+    re, im = S[..., 0, :, :, :], S[..., 1, :, :, :]            # rows are, aim
+    g = (re[..., 0, :, :] - im[..., 1, :, :],
+         im[..., 0, :, :] + re[..., 1, :, :])
+    G = torch.stack([bf(g[0]), bf(g[1])], dim=-3)[..., None, :, :]
+    S2 = _chain(G, torch.stack([are, aim]).transpose(-1, -2), rtz)
+    orr = S2[..., 0, 0, :, :] - S2[..., 1, 1, :, :]
+    oi = S2[..., 0, 1, :, :] + S2[..., 1, 0, :, :]
+    crops = (orr * orr + oi * oi) * scale
+    return (crops, g) if rows else crops
+
+
+def _plain_rows(fre, fim, dft_op):
+    """The plain version's float32 stage-1 rows (rr, ri) before rounding
+    (psf_kernels._intensity_bf16)."""
+    bf = psf_kernels._bf16
+    are, aim, fre, fim = (bf(dft_op.real), bf(dft_op.imag), bf(fre),
+                          bf(fim))
+    return are @ fre - aim @ fim, are @ fim + aim @ fre
+
+
+def _div_fields(phase, pupil, div_cos, div_sin, fma=False):
+    """B2's parts, (B, n_div, R, R) each: every product rounded, then
+    their sum; with ``fma`` the first product of each sum is left
+    unrounded, as a fused multiply-add takes it."""
+    c, s = torch.cos(phase)[:, None], torch.sin(phase)[:, None]
+    pcd, psd = pupil * div_cos, pupil * div_sin
+    if fma:
+        return ((c.double() * pcd.double() - (s * psd).double()).float(),
+                (s.double() * pcd.double() + (c * psd).double()).float())
+    return c * pcd - s * psd, s * pcd + c * psd
+
+
+def _crop_fields(total, pupil):
+    """B3's parts, (N, R, R) each."""
+    return pupil * torch.cos(total), pupil * torch.sin(total)
+
+
+def _case(kind: str, c: int):
+    """(the policy's float32 parts (fre, fim), the operator, the scale,
+    the plain version's bf16 output, the JAX kernel's bf16 branch in
+    interpret mode, the limit of the peak) on
+    numpy-seeded phases at R=64, B=4, a (2c + 1)-px crop and a unit-peak
+    scale: B2 on the symmetric defocus triple (-a, 0, +a) Z4 (the loop's
+    div_sym3=False route) or on 5 random maps (a group of 3 and a ragged
+    one of 2), B3 on the first N=7 of the scenarios' 12 total phases (two
+    triples and a ragged one)."""
+    rng = np.random.default_rng(3)
+    phase = (rng.normal(size=(B, R, R)) * 0.4).astype(np.float32)
+    z4 = zernike.make_basis(6, R, device="cpu").stack[4].numpy()
+    triple = np.stack([-A * z4, 0.0 * z4, A * z4]).astype(np.float32)
+    scale = 1.0 / float(jpsf.pupil_mask_np(R).sum()) ** 2
+    jop, op = (jdft.centered_partial_dft(R, c),
+               dft.centered_partial_dft(R, c, device="cpu"))
+    jpupil, pupil = jpsf.pupil_mask(R), psf.pupil_mask(R, device="cpu")
+    if kind == "b3":
+        total = (phase[:, None] + triple).reshape(-1, R, R)[:7]
+        want = jpk.psf_crop_intensity(jnp.asarray(total), jpupil, jop, scale,
+                                      interpret=True,
+                                      compute_dtype="bfloat16")
+        args = (torch.as_tensor(total), pupil, op, scale)
+        plain = psf_kernels.psf_crop_intensity_ref(*args,
+                                                   compute_dtype="bfloat16")
+        return (_crop_fields(*args[:2]), op, scale, plain, np.asarray(want),
+                BF16_ATOL)
+    if kind == "b2_triple":
+        div, limit = triple, BF16_ATOL
+    else:
+        div = (rng.normal(size=(5, R, R)) * 0.8).astype(np.float32)
+        limit = BF16_ATOL_RANDOM_MAPS
+    div_cos, div_sin = np.cos(div), np.sin(div)
+    want = jpk.psf_crop_diversity(
+        jnp.asarray(phase), jpupil, jnp.asarray(div_cos),
+        jnp.asarray(div_sin), jop, scale, interpret=True,
+        compute_dtype="bfloat16")
+    args = (torch.as_tensor(phase), pupil, torch.as_tensor(div_cos),
+            torch.as_tensor(div_sin), op, scale)
+    plain = psf_kernels.psf_crop_diversity_ref(*args,
+                                               compute_dtype="bfloat16")
+    return _div_fields(*args[:4]), op, scale, plain, np.asarray(want), limit
+
+
+@pytest.fixture(scope="module", params=[
+    ("b2_triple", 15), ("b2_random5", 15), ("b3", 15),
+    ("b2_triple", 20), ("b2_random5", 20), ("b3", 20)],
+    ids=lambda p: f"{p[0]}-w{2 * p[1] + 1}")
+def case(request):
+    return request.param[0], _case(*request.param)
+
+
+@pytest.mark.parametrize("rtz", [True, False], ids=["rtz", "nearest"])
+def test_policy_arithmetic_matches_jax_bf16_branch(case, rtz):
+    """The emulated policy == its JAX kernel's bf16 branch (interpret
+    mode) within the card's limit of the peak -- 4e-5 on the real
+    diversity, 2e-4 on random maps -- at w = 31 (one M=64 tile) and 41
+    (two crop bands), with the tensor cores' sums rounded toward zero or
+    to nearest: the kernel computes the bf16 function whichever way its
+    accumulator rounds.  The shapes are the JAX kernel's: (B, n_div, w,
+    w) for B2, (N, w, w) for B3."""
+    kind, (fields, op, scale, _, want, limit) = case
+    got = _wgmma(*fields, op, scale, rtz=rtz).numpy()
+    n = {"b2_triple": (B, 3), "b2_random5": (B, 5), "b3": (7,)}[kind]
+    assert got.shape == want.shape == n + want.shape[-2:]
+    peak = float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= limit * peak
+
+
+def test_policy_grouping_is_the_plain_versions_to_float32_error(case):
+    """With sums rounded to nearest, the emulated policy's float32
+    stage-1 rows == the plain version's bf16 branch's to 4e-7 of their
+    largest, a few float32 rounding steps (1.9e-7 here): its grouping
+    (stage-1 part sums, then rr / ri) is the TPU kernels' S1[:w, :R] -
+    S1[w:, R:], and the plain version's differs from it by float32
+    reassociation alone.  Their crops agree to 1e-6 of the peak: to 1.3e-8
+    where no bf16 rounding of a stage-1 element flips, and where that
+    reassociation flips one (1 of 23,808 elements of rr, and of ri, on
+    the triple here) a pixel moves by 4.5e-7 of the peak."""
+    _, (fields, op, scale, plain, _, _) = case
+    got, rows = _wgmma(*fields, op, scale, rtz=False, rows=True)
+    for g, p in zip(rows, _plain_rows(*fields, op)):
+        assert float((g - p).abs().max()) <= 4e-7 * float(p.abs().max())
+    peak = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 1e-6 * peak
+
+
+def test_fused_forming_flips_the_fields_bf16_rounding():
+    """B2's forming, each product rounded and then their sum (the div
+    policy's __fmul_rn), gives the plain version's bf16 fields bit for bit
+    on 5 random maps at R=128, B=16 (1,310,720 parts each of re and im);
+    the same sums with the first product left unrounded -- a fused
+    multiply-add, as nvcc contracts c pcd - s psd unless told not to --
+    round 9 of the re parts and 21 of the im parts the other way.  One
+    flipped field rounding moves a crop by far less than the random-map
+    limit (BF16_ATOL_RANDOM_MAPS) at any size a CPU test can run, so the
+    rounding points are held here on the fields themselves."""
+    R2, B2 = 128, 16
+    rng = np.random.default_rng(5)
+    phase = torch.as_tensor((rng.normal(size=(B2, R2, R2)) * 0.4).astype(
+        np.float32))
+    div = torch.as_tensor((rng.normal(size=(5, R2, R2)) * 0.8).astype(
+        np.float32))
+    pupil = psf.pupil_mask(R2, device="cpu")
+    c, s = torch.cos(phase)[:, None], torch.sin(phase)[:, None]
+    dc, ds = torch.cos(div), torch.sin(div)
+    bf = psf_kernels._bf16
+    # psf_crop_diversity_ref's fields
+    want = (bf(pupil * (c * dc - s * ds)), bf(pupil * (s * dc + c * ds)))
+    got = _div_fields(phase, pupil, dc, ds)
+    fused = _div_fields(phase, pupil, dc, ds, fma=True)
+    for g, f, w in zip(got, fused, want):
+        assert torch.equal(bf(g), w)
+        assert int((bf(f) != w).sum()) > 0
