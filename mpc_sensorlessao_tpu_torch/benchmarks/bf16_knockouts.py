@@ -1,28 +1,28 @@
-"""Where the bf16 kernels' time goes, by knock-out builds, on one CUDA card.
+"""Where the PSF kernels' time goes, by knock-out builds, on one CUDA card.
 
     python -m mpc_sensorlessao_tpu_torch.benchmarks.bf16_knockouts \
-        [R] [B] [out.json] [--parent DIR [--bitwise]]
+        [R] [B] [out.json] [--designs D,...] [--parent DIR [--bitwise]]
 
 Builds copies of ``csrc/`` in a temporary directory, each with one part
 of a kernel knocked out (its results are then wrong: only the time is
-read), and times every build's bf16 entry points at R, B (defaults 128,
-4096: the main path's) with 31-px crops on the kernel A/B's inputs
-(``kernel_variants.inputs``: B1, B2 and B4 on the B scenarios, B3 on the
-3 B total phases), in two turns, with CUDA events
+read), and times every build's entry points of its design at R, B
+(defaults 128, 4096: the main path's) with 31-px crops on the kernel
+A/B's inputs (``kernel_variants.inputs``: B1, B2 and B4 on the B
+scenarios, B3 on the 3 B total phases), in two turns, with CUDA events
 (``profiling.cuda_time_ms``, 20 calls).  A part's cost is the full
 build's time less its knock-out's; parts overlap, so they need not sum
-to the whole.
+to the whole.  ``--designs`` takes some of the four designs:
 
-  old design, the mma.sync engine (``psf_mma.cuh``, Precision::kBf16),
-  timed on ``psf_div3_sym_thin_bf16`` (b4: B4 bf16, B1 bf16's old
-  instantiation, the one entry still on it):
+  old, the mma.sync engine (``psf_mma.cuh``, Precision::kBf16), timed on
+  ``psf_div3_sym_thin_bf16`` (b4: B4 bf16, B1 bf16's old instantiation,
+  the one bf16 entry still on it):
     sincosf        the field forming's sincosf (a cheap stand-in)
     fragments      the shared-memory fragment loads and their bf16
                    rounding (fragments made from addresses)
     rounding       the rounding alone (cvt.rn.bf16x2 -> a bit mix)
-    mma            the mma.sync issue (a bit mix in its place)
+    mma            the mma.sync instructions (a bit mix in their place)
     barriers       the two __syncthreads of each of its steps
-  new design, the wgmma engine ``psf_wgmma.cuh``, timed on its three
+  new, the wgmma engine ``psf_wgmma.cuh`` in bf16, timed on its three
   policies' entries ``psf_div3_sym_bf16`` (b1), ``psf_div_bf16`` (b2) and
   ``psf_crop_bf16`` (b3):
     sincosf        as above, in each policy's forming
@@ -30,12 +30,26 @@ to the whole.
     stage1         stage 1's wgmma
     loads          the TMA copies (the stages arrive empty)
     skeleton       forming and loads both out: wgmma, waits, epilogues
+  f32old, the mma.sync engine in 3xTF32, timed on
+  ``psf_div3_sym_thin`` (b4f: B4 float32, B1 float32's old design):
+    sincosf        as above
+    splits         the TF32 hi/lo splits (a bit mix in their place)
+    fragments      the shared-memory fragment loads
+    mma            the mma.sync instructions
+    barriers       as above
+    gstore         the store of each strip's stage-1 rows to shared
+                   memory (behind a condition never true)
+  f32new, the wgmma engine in 3xTF32 (``block_tf32``), timed on
+  ``psf_div3_sym`` (b1f: B1 float32):
+    sincosf, forming, stage1, loads, skeleton   as for new
+    splits         the TF32 hi/lo splits of the forming
+    stage2         stage 2's wgmma (the fragments kept live)
 
 ``--parent DIR`` copies DIR -- the ``csrc/`` of a checkout from before
-B2 and B3's bf16 entries moved onto ``psf_wgmma.cuh``, where they still
-ran the old design -- and times the old builds alone, on b4, b2 and b3.
-With ``--bitwise`` it times nothing: it builds B1's library whole from
-DIR and from ``csrc/``, runs each entry of b1 once on the same inputs and
+B1 float32 moved onto ``psf_wgmma.cuh``, where it still ran the old
+design -- and times the f32old builds alone, on b1f and b4f.  With
+``--bitwise`` it times nothing: it builds B1's library whole from DIR
+and from ``csrc/``, runs each entry of b1 once on the same inputs and
 reports ``b1_bits_equal`` (the two outputs hold the same bits) and
 ``b1_max_abs_diff``.
 
@@ -63,17 +77,22 @@ from ..ops import cuda_build, psf_kernels
 from ..utils import profiling
 from . import kernel_variants
 
-# entry tag -> (library, bf16 entry point)
+# entry tag -> (library, entry point): the bf16 entries, then (tags
+# ending in "f") the float32 ones
 ENTRIES = {
     "b1": ("psf_div3_sym", "psf_div3_sym_bf16"),
     "b2": ("psf_div", "psf_div_bf16"),
     "b3": ("psf_crop", "psf_crop_bf16"),
     "b4": ("psf_div3_sym_thin", "psf_div3_sym_thin_bf16"),
+    "b1f": ("psf_div3_sym", "psf_div3_sym"),
+    "b4f": ("psf_div3_sym_thin", "psf_div3_sym_thin"),
 }
 # the entries each design's builds are timed on
-DESIGN_ENTRIES = {"old": ("b4",), "new": ("b1", "b2", "b3")}
-# the old design's entries in a parent checkout (--parent)
-PARENT_ENTRIES = ("b4", "b2", "b3")
+DESIGN_ENTRIES = {"old": ("b4",), "new": ("b1", "b2", "b3"),
+                  "f32old": ("b4f",), "f32new": ("b1f",)}
+# the designs' entries in a parent checkout (--parent), where B1 float32
+# still ran the mma.sync engine
+PARENT_ENTRIES = {"f32old": ("b1f", "b4f")}
 
 _FRAG = ("re.v[r] = bf16x2(v[2 * r].x, v[2 * r + 1].x);\n"
          "      im.v[r] = bf16x2(v[2 * r].y, v[2 * r + 1].y);")
@@ -86,14 +105,48 @@ _MMA_BF16 = """  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));"""
+_MMA_TF32 = """  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));"""
+# the mma.sync engine's fragment loads from shared memory, made from
+# addresses instead (either precision)
+_OLD_LOADS = [
+    ("psf_mma.cuh",
+     "v[V * r + e] = p[(r % 2) * 8 * kStride + 4 * (e + V * (r / 2))];",
+     f"v[V * r + e] = make_float2(__uint_as_float({_SHARED} + 8 * r + "
+     "e), 1.f);"),
+    ("psf_mma.cuh",
+     "for (int e = 0; e < V; ++e) v[V * r + e] = p[4 * (e + V * r) * "
+     "k_stride];",
+     "for (int e = 0; e < V; ++e) v[V * r + e] = make_float2("
+     f"__uint_as_float({_SHARED} + k_stride * r + e), 1.f);")]
+# the two __syncthreads of each of its steps
+_OLD_BARRIERS = [
+    ("psf_mma.cuh", "    // fbuf ready; raw and the other ring slot are "
+     "free\n    __syncthreads();", ""),
+    ("psf_mma.cuh", '    asm volatile("cp.async.wait_group 0;" ::: '
+     '"memory");\n    __syncthreads();\n  }',
+     '    asm volatile("cp.async.wait_group 0;" ::: "memory");\n  }')]
+# the store of a strip's stage-1 rows G to shared memory (kept behind a
+# condition the compiler cannot decide, so that G stays computed)
+_G_STORE = """        row[0] = make_float4(g_re[j][0], g_im[j][0], g_re[j][1], g_im[j][1]);
+        row[4 * kStride] =
+            make_float4(g_re[j][2], g_im[j][2], g_re[j][3], g_im[j][3]);"""
 _FORM = "          P::form(st, st + own, tb, fy, fxg);\n"
+_FORM_TF32 = "          P::form(mp, mp + own, tb, fy, fxg);\n"
 _NO_LOADS = [
-    ("psf_wgmma.cuh", "mbar_expect_tx(&full[stage], kStageBytes);",
-     "mbar_expect_tx(&full[stage], 0);"),
+    ("psf_wgmma.cuh", "mbar_expect_tx(&full[stage], kStageBytes);\n"
+     "#pragma unroll", "mbar_expect_tx(&full[stage], 0);\n#pragma unroll"),
     ("psf_wgmma.cuh",
      "int c0, int c1, int c2, uint64_t* b) {\n  asm volatile(",
      "int c0, int c1, int c2, uint64_t* b) {\n  return;\n  asm volatile("),
 ]
+_NO_LOADS_TF32 = [
+    ("psf_wgmma.cuh", "mbar_expect_tx(&full[stage], kStageBytes);\n"
+     "              bulk_copy(dst, a.rows + kc * kOpTile, kOpTile, "
+     "&full[stage]);", "mbar_expect_tx(&full[stage], 0);"),
+    _NO_LOADS[1]]
 
 # build -> [(file, text, replacement)]
 BUILDS = {
@@ -105,28 +158,13 @@ BUILDS = {
          "s = m[0]; c = 1.f - m[0];"),
         ("psf_crop.cu", "sincosf(m[j * kTilePixels], &s, &c);",
          "s = m[j * kTilePixels]; c = 1.f - s;")],
-    "old_fragments": [
-        ("psf_mma.cuh", _FRAG, _MIX),
-        ("psf_mma.cuh",
-         "v[V * r + e] = p[(r % 2) * 8 * kStride + 4 * (e + V * (r / 2))];",
-         f"v[V * r + e] = make_float2(__uint_as_float({_SHARED} + 8 * r + "
-         "e), 1.f);"),
-        ("psf_mma.cuh",
-         "for (int e = 0; e < V; ++e) v[V * r + e] = p[4 * (e + V * r) * "
-         "k_stride];",
-         "for (int e = 0; e < V; ++e) v[V * r + e] = make_float2("
-         f"__uint_as_float({_SHARED} + k_stride * r + e), 1.f);")],
+    "old_fragments": [("psf_mma.cuh", _FRAG, _MIX)] + _OLD_LOADS,
     "old_rounding": [("psf_mma.cuh", _FRAG, _MIX)],
     "old_mma": [
         ("psf_mma.cuh", _MMA_BF16,
          "  c[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0] ^ "
          "b[1]);")],
-    "old_barriers": [
-        ("psf_mma.cuh", "    // fbuf ready; raw and the other ring slot are "
-         "free\n    __syncthreads();", ""),
-        ("psf_mma.cuh", '    asm volatile("cp.async.wait_group 0;" ::: '
-         '"memory");\n    __syncthreads();\n  }',
-         '    asm volatile("cp.async.wait_group 0;" ::: "memory");\n  }')],
+    "old_barriers": _OLD_BARRIERS,
     "new_full": [],
     "new_sincosf": [
         ("psf_div3_sym.cu", "sincosf(ph[e], &s, &c);",
@@ -143,6 +181,50 @@ BUILDS = {
          "            S[j] += 1.f;")],
     "new_loads": _NO_LOADS,
     "new_skeleton": [("psf_wgmma.cuh", _FORM, "")] + _NO_LOADS,
+    "f32old_full": [],
+    "f32old_sincosf": [
+        ("psf_sym3.cuh", "sincosf(m[0], &s, &c);",
+         "s = m[0]; c = 1.f - m[0];")],
+    "f32old_splits": [
+        ("psf_mma.cuh",
+         "  hi = tf32_rna(__float_as_uint(x));\n"
+         "  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));",
+         "  hi = __float_as_uint(x);\n  lo = hi ^ 0x1000u;")],
+    "f32old_fragments": _OLD_LOADS,
+    "f32old_mma": [
+        ("psf_mma.cuh", _MMA_TF32,
+         "  c[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0] ^ "
+         "b[1]);")],
+    "f32old_barriers": _OLD_BARRIERS,
+    "f32old_gstore": [("psf_mma.cuh", _G_STORE,
+                       "        if (scale < 0.f) {\n" + _G_STORE + "\n"
+                       "        }")],
+    "f32new_full": [],
+    "f32new_sincosf": [
+        ("psf_div3_sym.cu", "sincosf(ph[e], &s, &c);",
+         "s = ph[e]; c = 1.f - ph[e];")],
+    "f32new_splits": [
+        ("psf_wgmma.cuh",
+         "    for (int h = 0; h < 4; ++h) split(v[h][q], hi[h], lo[h]);",
+         "    for (int h = 0; h < 4; ++h) {\n"
+         "      hi[h] = __float_as_uint(v[h][q]);\n"
+         "      lo[h] = hi[h] ^ 0x1000u;\n    }")],
+    "f32new_forming": [("psf_wgmma.cuh", _FORM_TF32, "")],
+    "f32new_stage1": [
+        ("psf_wgmma.cuh",
+         "            wgmma_tf32_n96(C, ak + kOpLo, bk, 1);          // lo * hi\n"
+         "            wgmma_tf32_n96(C, ak, bk + kTLo, 1);           // hi * lo\n"
+         "            wgmma_tf32_n96(S, ak, bk, 1);                  // hi * hi",
+         "            S[j] += 1.f;\n            C[j] += 1.f;")],
+    "f32new_stage2": [
+        ("psf_wgmma.cuh",
+         "            wgmma_rs_tf32_n64(Pd, lo[d][h], bh, 1);        // lo * hi\n"
+         "            wgmma_rs_tf32_n64(Pd, hi[d][h], bh + kColLo, 1);   // hi * lo\n"
+         "            wgmma_rs_tf32_n64(Pd, hi[d][h], bh, 1);        // hi * hi",
+         "            Pd[h] += __uint_as_float(hi[d][h][0] ^ lo[d][h][1] ^ "
+         "hi[d][h][2] ^ lo[d][h][3]);")],
+    "f32new_loads": _NO_LOADS_TF32,
+    "f32new_skeleton": [("psf_wgmma.cuh", _FORM_TF32, "")] + _NO_LOADS_TF32,
 }
 
 
@@ -176,7 +258,7 @@ def _arguments(tag: str, inp: dict):
     kernel A/B's inputs, as psf_kernels' wrappers pass them."""
     p, pup = inp["phase"], inp["pupil"]
     B, w = p.shape[0], inp["dft_op"].shape[0]
-    if tag in ("b1", "b4"):
+    if tag.rstrip("f") in ("b1", "b4"):
         maps = psf_kernels._sym3_maps(p, pup, inp["cos_a"], inp["sin_a"])
         return p, [m for _, m, _ in maps], (), (B, 3, w, w)
     if tag == "b2":
@@ -214,12 +296,16 @@ def _caller(path: Path, tag: str, inp: dict):
     return call
 
 
-def run(R: int = 128, B: int = 4096, parent: Path | None = None) -> dict:
+def run(R: int = 128, B: int = 4096, parent: Path | None = None,
+        designs: tuple | None = None) -> dict:
+    """Each build of ``designs`` (default: all of DESIGN_ENTRIES, or of
+    PARENT_ENTRIES with ``parent``) timed on its design's entries."""
     if not torch.cuda.is_available():
         raise RuntimeError("the knock-out split needs a CUDA device")
     csrc = cuda_build.CSRC if parent is None else Path(parent)
-    entries = (dict(DESIGN_ENTRIES) if parent is None
-               else {"old": PARENT_ENTRIES})
+    entries = {d: tags for d, tags in
+               (DESIGN_ENTRIES if parent is None else PARENT_ENTRIES).items()
+               if designs is None or d in designs}
     builds = [b for b in BUILDS if b.split("_", 1)[0] in entries]
     inp = kernel_variants.inputs(R, B, "cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -278,11 +364,14 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("out", nargs="?")
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--bitwise", action="store_true")
+    ap.add_argument("--designs", help="comma-separated designs to time "
+                    "(default: every design of the sources)")
     args = ap.parse_args(argv)
     if args.bitwise and args.parent is None:
         ap.error("--bitwise compares with a --parent DIR")
     out = (bitwise(args.parent, args.R, args.B) if args.bitwise
-           else run(args.R, args.B, args.parent))
+           else run(args.R, args.B, args.parent,
+                    args.designs and tuple(args.designs.split(","))))
     out["card"] = profiling.card()
     line = json.dumps(out)
     print(line)

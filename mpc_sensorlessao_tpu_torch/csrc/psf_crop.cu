@@ -13,9 +13,9 @@
 // phases (3x the phase bytes: 805 MB at that shape) and takes 3x the
 // sincosf (201 M), both overlapped with the products through cp.async.
 //
-// Design: the tensor-core DFT engine of B1 (psf_mma.cuh), one block per
+// Design: the tensor-core DFT engine psf_mma.cuh, one block per
 // three consecutive items, grid ceil(N / 3).  Its field-forming policy
-// loads the three items' phases and the pupil a K tile -- four maps, B1's
+// loads the three items' phases and the pupil a K tile -- four maps, B4's
 // shared-memory footprint -- and takes a full-precision sincosf per item
 // and pixel (no angle addition: the +-3 rad diversity is already inside
 // each total phase).  In the last block, items at or beyond N read as

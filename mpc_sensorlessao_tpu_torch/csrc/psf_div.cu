@@ -19,7 +19,7 @@
 // call at R=128, B=4096 on three maps); the maps are shared by all
 // scenarios and stay in L2.
 //
-// Design: the tensor-core DFT engine of B1 (psf_mma.cuh), one block per
+// Design: the tensor-core DFT engine psf_mma.cuh, one block per
 // scenario and group of up to three diversities, grid (B, ceil(n_div /
 // 3)).  Its field-forming policy loads the phase and the group's pcd and
 // psd a K tile -- 7 maps, 74,752 B of shared memory a block, still two

@@ -18,10 +18,11 @@
 // and G_+a = G_P - G_Q, before stage 2: the same sums the TPU kernel forms
 // on its rows, and the same tensor-core work as B1.
 //
-// What bounds it, and the design: B1's (psf_mma.cuh, with the
-// field-forming policy of psf_sym3.cuh that B1 shares, here recombining
-// in both precisions): 3 TF32 passes of 62.0 GFLOP of DFT stages per call
-// at R=128, B=4096.  The FP32 design this replaced ran the six products'
+// What bounds it, and the design: the mma.sync engine psf_mma.cuh that B1
+// ran until it moved to psf_wgmma.cuh, with the field-forming policy of
+// psf_sym3.cuh, recombining in both precisions: 3 TF32 passes of 62.0
+// GFLOP of DFT stages per call at R=128, B=4096.  It stays on this engine
+// as the yardstick of B1's old design in the kernel A/B.  The FP32 design this replaced ran the six products'
 // first stage as scalar fmaf chains (48 row accumulators a thread) and
 // took 2.3298 ms there (NVIDIA H100 80GB HBM3, 700 W), 16.1% of the
 // tensor bound.
@@ -31,8 +32,8 @@
 // rounding where the TPU kernel rounds (pallas_kernels.py:193-212): the
 // operator and the six products (a product is one multiply, so P, F_0 and
 // Q round as the products do), and each field's stage-1 rows after the
-// +- recombination in float32.  It is B1's bf16 instantiation, under B4's
-// entry.
+// +- recombination in float32.  It is B1 bf16's old instantiation, under
+// B4's entry.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
@@ -47,7 +48,7 @@ namespace {
 using psf_mma::Precision;
 // the pseudo-fields P, F_0, Q, recombined on the stage-1 rows
 template <Precision P>
-using ThinFields = psf_sym3::Fields<P, true>;
+using ThinFields = psf_sym3::Fields<P>;
 
 __global__ void __launch_bounds__(psf_mma::kThreads, 2)
 psf_div3_sym_thin_kernel(ThinFields<Precision::kTf32x3> fields,

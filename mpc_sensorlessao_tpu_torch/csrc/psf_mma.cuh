@@ -1,7 +1,8 @@
-// The tensor-core DFT engine of the PSF-measurement kernels B1
-// (psf_div3_sym.cu), B2 (psf_div.cu), B3 (psf_crop.cu) and B4
-// (psf_div3_sym_thin.cu), and of B4's bf16 entry (B1-B3's run on
-// psf_wgmma.cuh).  For the three complex fields F_d (R x R) of
+// The tensor-core DFT engine of the PSF-measurement kernels B2
+// (psf_div.cu), B3 (psf_crop.cu) and B4 (psf_div3_sym_thin.cu), and of
+// B4's bf16 entry; B1 (psf_div3_sym.cu) ran on it until both its entries,
+// like B2 and B3's bf16 ones, moved to psf_wgmma.cuh.  For the three
+// complex fields F_d (R x R) of
 // one block it computes
 //
 //   out[d] = |A F_d A^T|^2 * scale,      A the (w, R) partial DFT, any w,

@@ -1,7 +1,7 @@
-// The field-forming policy and the host launch shared by kernels B1
-// (psf_div3_sym.cu) and B4 (psf_div3_sym_thin.cu), which compute one
-// function: for every scenario b the symmetric diversity triple
-// (-a, 0, +a),
+// The field-forming policy and the host launch of kernel B4
+// (psf_div3_sym_thin.cu, both precisions), which computes kernel B1's
+// function (psf_div3_sym.cu): for every scenario b the symmetric
+// diversity triple (-a, 0, +a),
 //
 //   out[b, d] = |A F_d A^T|^2 * scale,     F_d = pupil e^{i (phase_b + d Z4)}
 //
@@ -12,14 +12,14 @@
 // psd = pupil sin(a Z4), the four products t1 = c pcd, t2 = s psd,
 // t3 = s pcd, t4 = c psd and F_0 = pupil (c, s):
 //   F_-a = (t1 + t2, t3 - t4),   F_+a = (t1 - t2, t3 + t4).
-// The two kernels differ in where the +- is taken.  B1 in float32 forms
-// F_-a, F_0, F_+a at every pixel.  B4 (both precisions) forms the
-// pseudo-fields P = t1 + i t3, F_0 and Q = t2 - i t4, and recombines
-// their float32 stage-1 rows into the fields', G_-a = G_P + G_Q and
-// G_+a = G_P - G_Q, before G is stored (and, for kBf16, rounded): the
-// TPU kernels' thin-row recombination (pallas_kernels.py:161-171 for B1's
-// bf16 branch, :178-234 for B4).  B1's bf16 entry forms and recombines
-// the same pseudo-fields on its own engine, psf_wgmma.cuh.
+// B4 forms the pseudo-fields P = t1 + i t3, F_0 and Q = t2 - i t4, and
+// recombines their float32 stage-1 rows into the fields', G_-a = G_P +
+// G_Q and G_+a = G_P - G_Q, before G is stored (and, for kBf16, rounded):
+// the TPU kernels' thin-row recombination (pallas_kernels.py:161-171 for
+// B1, :178-234 for B4).  B1's entries form and recombine the same
+// pseudo-fields on their own engine, psf_wgmma.cuh; the float32 one ran
+// this policy on psf_mma.cuh, forming F_-a, F_0, F_+a at every pixel,
+// until it moved there.
 
 #pragma once
 
@@ -33,12 +33,12 @@ using psf_mma::kFields;
 using psf_mma::kTilePixels;
 using psf_mma::Precision;
 
-// Block b: scenario b's fields (-a, 0, +a), recombined on the
-// stage-1 rows where kRecombine.
-template <Precision P, bool kRecombine_>
+// Block b: scenario b's fields (-a, 0, +a), recombined on the stage-1
+// rows.
+template <Precision P>
 struct Fields {
   static constexpr int kMaps = 4;     // phase, pupil, pcd, psd
-  static constexpr bool kRecombine = kRecombine_;
+  static constexpr bool kRecombine = true;
   const float* phase;                 // (B, R, R)
   const float* pupil;                 // (R, R)
   const float* pcd;                   // (R, R)
@@ -62,15 +62,9 @@ struct Fields {
     float s, c;
     sincosf(m[0], &s, &c);
     const float t1 = c * pc, t2 = s * ps, t3 = s * pc, t4 = c * ps;
-    if constexpr (kRecombine) {
-      f[0] = make_float2(t1, t3);     // P
-      f[1] = make_float2(p * c, p * s);
-      f[2] = make_float2(t2, -t4);    // Q
-    } else {
-      f[0] = make_float2(t1 + t2, t3 - t4);
-      f[1] = make_float2(p * c, p * s);
-      f[2] = make_float2(t1 - t2, t3 + t4);
-    }
+    f[0] = make_float2(t1, t3);       // P
+    f[1] = make_float2(p * c, p * s);
+    f[2] = make_float2(t2, -t4);      // Q
   }
   __device__ void recombine(float (&g)[kFields][4]) const {
 #pragma unroll
@@ -84,14 +78,13 @@ struct Fields {
 
 // Dynamic shared memory a block of a kernel of precision p takes.
 constexpr size_t smem_bytes(Precision p) {
-  return psf_mma::smem_bytes(Fields<Precision::kTf32x3, false>::kMaps, p);
+  return psf_mma::smem_bytes(Fields<Precision::kTf32x3>::kMaps, p);
 }
 
 // Lays the operator out in `work` and launches `kernel` (psf_mma::launch),
 // on `stream` of CUDA device `device`; the first error.
-template <Precision P, bool kRe>
-int launch(void (*kernel)(Fields<P, kRe>, psf_mma::Band, int, int, float,
-                          int),
+template <Precision P>
+int launch(void (*kernel)(Fields<P>, psf_mma::Band, int, int, float, int),
            const float* phase, const float* pupil, const float* pcd,
            const float* psd, const float* are, const float* aim, float* work,
            float* out, int batch, int R, int w, float scale, int device,
@@ -105,7 +98,7 @@ int launch(void (*kernel)(Fields<P, kRe>, psf_mma::Band, int, int, float,
                     aligned16(pcd) && aligned16(psd);
   return static_cast<int>(psf_mma::launch(
       kernel, dim3(batch), smem_bytes(P),
-      Fields<P, kRe>{phase, pupil, pcd, psd, out}, are, aim, work, R, w,
+      Fields<P>{phase, pupil, pcd, psd, out}, are, aim, work, R, w,
       scale, vec16, static_cast<cudaStream_t>(stream)));
 }
 

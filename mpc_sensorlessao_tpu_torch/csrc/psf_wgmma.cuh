@@ -1,18 +1,24 @@
-// The Hopper engine of the PSF kernels' bf16 entries: B1's
-// psf_div3_sym_bf16 (psf_div3_sym.cu), B2's psf_div_bf16 (psf_div.cu) and
-// B3's psf_crop_bf16 (psf_crop.cu), the compute_dtype="bfloat16" branches
-// of the TPU kernels mpc_sensorlessao_tpu/ops/pallas_kernels.py
-// `_psf_div3_sym_kernel` (:115-175, pallas_call :309), `_psf_div_kernel`
-// (:65-112, pallas_call :365) and `_psf_kernel` (:26-62, pallas_call
-// :408), on warpgroup matrix products (wgmma), asynchronous copies
-// completing on mbarriers, and persistent blocks.  For the three fields
-// F_d of every work item it computes
+// The Hopper engine of the PSF kernels' bf16 entries and of B1 in
+// float32: B1's psf_div3_sym_bf16 and psf_div3_sym (psf_div3_sym.cu), B2's
+// psf_div_bf16 (psf_div.cu) and B3's psf_crop_bf16 (psf_crop.cu), the
+// compute_dtype="bfloat16" branches of the TPU kernels
+// mpc_sensorlessao_tpu/ops/pallas_kernels.py `_psf_div3_sym_kernel`
+// (:115-175, pallas_call :309), `_psf_div_kernel` (:65-112, pallas_call
+// :365) and `_psf_kernel` (:26-62, pallas_call :408), and the float32
+// branch of the first, on warpgroup matrix products (wgmma), asynchronous
+// copies completing on mbarriers, and persistent blocks.  For the three
+// fields F_d of every work item it computes
 //
 //   out[item, d] = |A F_d A^T|^2 * scale,
 //
-// with A the (w, R) partial centered DFT, rounding where the TPU kernel
-// rounds: the operator, the six bf16 parts a field policy forms a pixel,
-// and each field's stage-1 rows G = [rr; ri] once; every sum in float32.
+// with A the (w, R) partial centered DFT.  In bf16 (block) it rounds
+// where the TPU kernel rounds: the operator, the six bf16 parts a field
+// policy forms a pixel, and each field's stage-1 rows G = [rr; ri] once;
+// every sum in float32.  In 3xTF32 (block_tf32, B1 float32) every
+// operand is split into TF32 hi and lo, x = hi + lo to float32 accuracy,
+// and each product is lo*hi + hi*lo + hi*hi, as the mma.sync engine
+// psf_mma.cuh takes it; its differences from the bf16 block are listed
+// above block_tf32.
 //
 // The policies (a struct beside each entry; what the engine asks of one
 // is listed above `block`).  Each says which maps a pipeline stage holds,
@@ -120,10 +126,16 @@
 // the image, the launch returns cudaErrorInvalidValue: above R = 1088
 // (sym3), 896 (div), 960 (crop) for a crop of one band, above R = 512,
 // 448, 448 for a wider one.
+// 3xTF32 (block_tf32) keeps 2 x 24 KB of T buffers a consumer, streams
+// both stages' operator tiles, and takes 222,208 B at any R: no R is
+// refused.  At R=128, B=4096 it does 3 x 62.0 GFLOP (0.3759 ms at the
+// published 495 TFLOP/s TF32), and its stage-1 operand reads alone keep
+// the shared memory ~80% busy.
 // Measured (NVIDIA H100 80GB HBM3, 700 W; benchmarks/kernel_variants.py,
 // benchmarks/bf16_knockouts.py, PERF.md) at R=128, B=4096, w=31, against
 // the mma.sync design in the same call: sym3 0.35 ms (0.66), div 0.37-
-// 0.38 (0.84), crop 0.61-0.62 (0.92).  Knock-out builds split them: the
+// 0.38 (0.84), crop 0.61-0.62 (0.92); sym3 in 3xTF32 0.78 (1.34), its
+// forming ~0.24 and stage 1's wgmma ~0.25 of it, little overlapped.  Knock-out builds split them: the
 // field forming costs about 0.19 / 0.16 / 0.30 ms (its sincosf 0.09 /
 // 0.06 / 0.26), stage 1's wgmma 0.02-0.04, the TMA loads 0.01-0.03; with
 // forming and loads both out about 0.13 ms remain, the products and the
@@ -134,13 +146,18 @@
 // did, and the P +- Q and rr / ri sums are float32 in the TPU kernel's
 // order.
 //
-// Fragment layouts (PTX ISA, wgmma .m64nNk16, warp i of the warpgroup
-// holds rows 16 i..16 i + 15; g = lane / 4, t = lane % 4):
+// Fragment layouts (PTX ISA, wgmma .m64nNk16 and .m64nNk8, warp i of the
+// warpgroup holds rows 16 i..16 i + 15; g = lane / 4, t = lane % 4):
 //   accumulator: d[4 j + e + 2 r] at row 16 i + g + 8 r, column 8 j + 2 t + e
 //   A (registers, bf16): a0 (g, 2t 2t+1), a1 (g + 8, 2t 2t+1),
 //                        a2 (g, 2t+8 2t+9), a3 (g + 8, 2t+8 2t+9)
-// -- the accumulator of two 8-column blocks is the A fragment of one
-// k16 slice.
+//   A (registers, tf32): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+//                        a3 (g + 8, t + 4)
+// -- the accumulator of two 8-column blocks is the bf16 A fragment of one
+// k16 slice; for tf32, an 8-column block's pair (2t, 2t + 1) lands at K
+// (t, t + 4), one fixed permutation of each 8 columns, which stage 2's
+// operator image takes too (a common K permutation leaves the sum as it
+// is).
 
 #pragma once
 
@@ -198,6 +215,48 @@ constexpr size_t smem_bytes(int R, int images, int stages) {
          static_cast<size_t>(images) * image_bytes(R);
 }
 
+// The 3xTF32 precision's layout.  A stage is 32 field rows (one 128-byte
+// swizzle row of float32 K), and every wgmma operand is held as two TF32
+// planes, hi and lo.  The operator's image in device memory is, for each
+// crop band, stage 1's chunks (kOpTile each: the band's 64 permuted rows
+// x 32 columns, the hi atom, then the lo atom), then stage 2's strips
+// (kColTile each: the 64 rows x the strip's 16 columns, hi in K 0-15 and
+// lo in K 16-31 of each 128-byte row, the columns permuted in each
+// 8-group, see block_tf32): 1024 bytes a padded row of the grid.
+namespace tf32 {
+constexpr int kChunk = 32;             // field rows a stage: stage 1's K
+constexpr int kMapTile = kChunk * kStrip;              // floats
+constexpr int kPlane = kN1 * 128;      // T's hi (or lo) plane, bytes
+constexpr int kTBytes = 2 * kPlane;    // 24576
+constexpr int kAtomBytes = kRows * 128;                // 8192
+constexpr int kOpTile = 2 * kAtomBytes;                // a chunk's hi, lo
+constexpr int kColTile = kAtomBytes;   // a strip's stage-2 operand
+constexpr int kColSlots = 2;           // strips' operands in flight
+
+__host__ __device__ constexpr int padded(int R) {
+  return (R + kChunk - 1) / kChunk * kChunk;
+}
+// bytes of stage 1's part of a band's image, and of the whole band
+__host__ __device__ constexpr size_t stage1_bytes(int R) {
+  return static_cast<size_t>(padded(R) / kChunk) * kOpTile;
+}
+__host__ __device__ constexpr size_t image_bytes(int R) {
+  return stage1_bytes(R) + static_cast<size_t>(padded(R) / kStrip) * kColTile;
+}
+// a ring stage of policy P: the chunk's operator tile, then its maps
+template <class P>
+__host__ __device__ constexpr int stage_bytes() {
+  return kOpTile + maps<P>() * kMapTile * 4;
+}
+// Dynamic shared memory of a launch of policy P with `stages` ring
+// stages, at any R.
+template <class P>
+constexpr size_t smem_bytes(int stages) {
+  return kAlign + static_cast<size_t>(stages) * stage_bytes<P>() +
+         2 * kConsumers * kTBytes + kColSlots * kColTile;
+}
+}  // namespace tf32
+
 // A kernel's arguments: policy P's float32 (planes, R, R) inputs as TMA
 // descriptors (unused where the launch copies by cp.async) and pointers,
 // a __grid_constant__ whose address the copies take; then the policy and
@@ -211,8 +270,8 @@ struct Inputs {
 };
 
 struct Args {
-  const uint16_t* rows;                // stage 1's band of the image
-  const uint16_t* cols;                // stage 2's band
+  const unsigned char* rows;           // stage 1's band of the image
+  const unsigned char* cols;           // stage 2's band
   int R, w, u0, v0, stages, tma;
   float scale;
 };
@@ -230,6 +289,12 @@ __device__ __forceinline__ void mbar_init(uint64_t* b, unsigned count) {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* b, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
                    "r"(smem_addr(b)), "r"(bytes) : "memory");
+}
+// `bytes` more to arrive on b, without an arrival of this thread
+__device__ __forceinline__ void mbar_expect_tx_only(uint64_t* b,
+                                                    unsigned bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(b)), "r"(bytes) : "memory");
 }
 __device__ __forceinline__ void mbar_arrive(uint64_t* b) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
@@ -344,6 +409,43 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "memory");
 }
 
+// d (64 x 96) (+)= A (64 x 8, shared) B (8 x 96, shared), TF32 operands
+__device__ __forceinline__ void wgmma_tf32_n96(float (&d)[48], uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1;\n}\n"
+      : PSF_F8(d, 0), PSF_F8(d, 8), PSF_F8(d, 16), PSF_F8(d, 24),
+        PSF_F8(d, 32), PSF_F8(d, 40)
+      : "l"(a), "l"(b), "r"(acc)
+      : "memory");
+}
+
+// d (64 x 64) (+)= A (64 x 8, registers) B (8 x 64, shared), TF32
+// operands
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : PSF_F8(d, 0), PSF_F8(d, 8), PSF_F8(d, 16), PSF_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc)
+      : "memory");
+}
+
 #undef PSF_F8
 
 // lo and hi rounded to bf16 (to nearest, ties to even), lo in the low half
@@ -351,6 +453,18 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+// TF32 round to nearest, ties away from zero (cvt.rna.tf32.f32): add half
+// of the 13 dropped bits to the magnitude, then drop them
+__device__ __forceinline__ uint32_t tf32_rna(uint32_t x) {
+  return (x + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo to float32 accuracy, hi and lo TF32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(__float_as_uint(x));
+  lo = tf32_rna(__float_as_uint(x - __uint_as_float(hi)));
 }
 
 // ------------------------------------------------------------- operator
@@ -375,6 +489,45 @@ __global__ void operator_image(const float* __restrict__ are,
                     static_cast<size_t>(x / kAtom) * kRows * kAtom +
                     m * kAtom + ((x % kAtom / 8) ^ (m % 8)) * 8 + x % 8;
   image[at] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// The 3xTF32 image of band `band` of A2 (tf32:: above): each element
+// (m, x) split into TF32 hi and lo, m as in operator_image.  Stage 1's
+// chunk x / 32 holds it at K x % 32 of row m in its hi and its lo atom;
+// stage 2's strip s = x' / 16 holds, at K j of row m, column x = 16 s +
+// 8 (j / 8) + 2 (j % 4) + j % 8 / 4 (hi; lo at K 16 + j): each 8-group's
+// columns in the order that stage 2's register fragments take them.
+// One thread an element of either part.
+__global__ void operator_image_tf32(const float* __restrict__ are,
+                                    const float* __restrict__ aim,
+                                    uint32_t* __restrict__ image, int R,
+                                    int w, int bands) {
+  const int Rp = tf32::padded(R);
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= bands * 2 * kRows * Rp) return;
+  const int band = e / (2 * kRows * Rp), f = e % (2 * kRows * Rp);
+  const int m = f / Rp % kRows, k = f % Rp;
+  const int u = band * kBand + 8 * (m / 16) + m % 8;
+  const float* src = (m / 8) % 2 ? aim : are;
+  size_t hi_at, lo_at;                 // in words from the band's start
+  int x;
+  if (f < kRows * Rp) {
+    x = k;
+    hi_at = static_cast<size_t>(k / tf32::kChunk) * (tf32::kOpTile / 4) +
+            m * 32 + ((k % 32 / 4) ^ (m % 8)) * 4 + k % 4;
+    lo_at = hi_at + tf32::kAtomBytes / 4;
+  } else {
+    const int s = k / kStrip, j = k % kStrip;
+    x = kStrip * s + 8 * (j / 8) + 2 * (j % 4) + j % 8 / 4;
+    const size_t row = tf32::stage1_bytes(R) / 4 +
+                       static_cast<size_t>(s) * (tf32::kColTile / 4) + m * 32;
+    hi_at = row + ((j / 4) ^ (m % 8)) * 4 + j % 4;
+    lo_at = row + ((4 + j / 4) ^ (m % 8)) * 4 + j % 4;
+  }
+  const float v = u < w && x < R ? src[static_cast<size_t>(u) * R + x] : 0.f;
+  uint32_t* const b = image + static_cast<size_t>(band) *
+                                  (tf32::image_bytes(R) / 4);
+  split(v, b[hi_at], b[lo_at]);
 }
 
 // -------------------------------------------------------------- the block
@@ -440,13 +593,13 @@ __device__ __forceinline__ void form_field(unsigned char* tb, int q0, int y,
 }
 
 // The stage-1 sums S of a strip (one thread's 48; part q's in column
-// block q) -> the A fragments of the three fields' G = [rr; ri] rows for
-// stage 2, rounded to bf16.  Field d is parts 2d (re) and 2d + 1 (im), or
-// with kRecombine the parts are (P, F_0, Q) and the fields P + Q, F_0,
-// P - Q, summed in float32 before anything is rounded.
-template <bool kRecombine>
-__device__ __forceinline__ void crop_rows(const float (&S)[48],
-                                          uint32_t (&fr)[kFields][4]) {
+// block q) -> the three fields' G = [rr; ri] rows at the thread's
+// positions, in float32: out(d, h, rr, ri) for field d's column pairs
+// 8 h + 2 t + e (e = 0, 1) of rows rr_u (rr[e]) and ri_u (ri[e]).  Field d
+// is parts 2d (re) and 2d + 1 (im), or with kRecombine the parts are (P,
+// F_0, Q) and the fields P + Q, F_0, P - Q.
+template <bool kRecombine, class Out>
+__device__ __forceinline__ void crop_sums(const float (&S)[48], Out out) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float rr[kFields][2], ri[kFields][2];
@@ -475,9 +628,90 @@ __device__ __forceinline__ void crop_rows(const float (&S)[48],
       }
     }
 #pragma unroll
-    for (int d = 0; d < kFields; ++d) {
-      fr[d][2 * h] = bf16x2(rr[d][0], rr[d][1]);
-      fr[d][2 * h + 1] = bf16x2(ri[d][0], ri[d][1]);
+    for (int d = 0; d < kFields; ++d) out(d, h, rr[d], ri[d]);
+  }
+}
+
+// crop_sums -> the A fragments of stage 2 (k16: one a field), rounded to
+// bf16 once
+template <bool kRecombine>
+__device__ __forceinline__ void crop_rows(const float (&S)[48],
+                                          uint32_t (&fr)[kFields][4]) {
+  crop_sums<kRecombine>(S, [&](int d, int h, const float (&rr)[2],
+                               const float (&ri)[2]) {
+    fr[d][2 * h] = bf16x2(rr[0], rr[1]);
+    fr[d][2 * h + 1] = bf16x2(ri[0], ri[1]);
+  });
+}
+
+// crop_sums -> the TF32 A fragments of stage 2, split into hi and lo: k8
+// step h of field d, whose K index t (t + 4) holds column 8 h + 2 t (+ 1)
+// of the strip -- the accumulator's column pair, taken as it stands
+template <bool kRecombine>
+__device__ __forceinline__ void crop_rows_tf32(
+    const float (&S)[48], uint32_t (&hi)[kFields][2][4],
+    uint32_t (&lo)[kFields][2][4]) {
+  crop_sums<kRecombine>(S, [&](int d, int h, const float (&rr)[2],
+                               const float (&ri)[2]) {
+    split(rr[0], hi[d][h][0], lo[d][h][0]);     // (g, t)
+    split(ri[0], hi[d][h][1], lo[d][h][1]);     // (g + 8, t)
+    split(rr[1], hi[d][h][2], lo[d][h][2]);     // (g, t + 4)
+    split(ri[1], hi[d][h][3], lo[d][h][3]);     // (g + 8, t + 4)
+  });
+}
+
+// T of one 3xTF32 stage: as form_t, for field rows x = 4 xg..4 xg + 3 of
+// column y, all four at once, each part split into hi and lo (x = hi + lo
+// to float32 accuracy, both TF32) and stored once in its plane of the
+// swizzled K-major layout: a 128-byte row per n = 16 part + y, 32 K
+// values, one 16-byte store a part and plane (chunk xg of row n, at xg ^
+// (n % 8)).
+template <class Part>
+__device__ __forceinline__ void form_t_tf32(unsigned char* tb, int y, int xg,
+                                            Part part) {
+  float v[4][kParts];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) part((4 * xg + h) * kStrip + y, v[h]);
+#pragma unroll
+  for (int q = 0; q < kParts; ++q) {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) split(v[h][q], hi[h], lo[h]);
+    const int n = kStrip * q + y;
+    unsigned char* const at = tb + n * 128 + (xg ^ (n % 8)) * 16;
+    *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(at + tf32::kPlane) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// Consumer wg's output of pair q from its stage-2 sums O (rows rr_u, ri_u
+// with u = a.u0 + 8 wi + g; columns are_v, aim_v): orr = rr are' - ri
+// aim', oi = rr aim' + ri are', (orr^2 + oi^2) scale, no atomics.
+template <class P>
+__device__ __forceinline__ void store_crops(const P& pol,
+                                            const float (&O)[kFields][32],
+                                            int q, int wg, int wi, int g,
+                                            int t, const Args& a) {
+  const int u = a.u0 + 8 * wi + g;
+#pragma unroll
+  for (int d = 0; d < kFields; ++d) {
+    float* const o = pol.crop(q, wg, d, a.w);
+    if (o == nullptr) continue;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int v = a.v0 + 8 * k + 2 * t + e;
+        if (u < a.w && v < a.w) {
+          // rows rr_u (+0), ri_u (+2); columns are_v (2k), aim_v (2k+1)
+          const float orr = O[d][4 * (2 * k) + e] -
+                            O[d][4 * (2 * k + 1) + e + 2];
+          const float oi = O[d][4 * (2 * k + 1) + e] +
+                           O[d][4 * (2 * k) + e + 2];
+          o[u * a.w + v] = (orr * orr + oi * oi) * a.scale;
+        }
+      }
     }
   }
 }
@@ -666,27 +900,239 @@ __device__ __forceinline__ void block(const Inputs<P>& in, const P& pol,
       }
 #pragma unroll
       for (int d = 0; d < kFields; ++d) fence_regs(O[d]);
-      const int u = a.u0 + 8 * wi + g;
+      store_crops(pol, O, q, wg, wi, g, t, a);
+    }
+  }
+}
+
+// The block in 3xTF32 (launched by launch_tf32): block's roles, policy
+// and skew, with
+//   * stages of tf32::kChunk = 32 field rows; T (policy P's form_t_tf32)
+//     and every operator tile in hi and lo planes, and each k8 step of a
+//     product as three wgmma, lo*hi + hi*lo + hi*hi (3xTF32, as the
+//     mma.sync engine psf_mma.cuh).  Stage 1 sums hi*hi in S and the two
+//     corrections in C, added in float32 at the strip's end: the tensor
+//     cores' sums round toward zero, so each wgmma on a large sum takes a
+//     bias; with all three on S, B1 erred 3.9e-6 of the peak at R=512
+//     (NVIDIA H100 80GB HBM3, 700 W), and C's sums are 2^-11 as large;
+//   * stage 1's operator streamed with the maps, a chunk's tile a
+//     stage, so that shared memory does not grow with R (held whole, as
+//     the bf16 block holds it, it took no less time at R=128); a stage is
+//     freed once the products that read it are done, by each consumer
+//     warp (its wgmma.wait);
+//   * stage 2's operator streamed a strip at a time into two slots of
+//     its own: its K rows are the strip's columns in the order the
+//     accumulator's column pairs (2 t, 2 t + 1) take as the register
+//     fragments' K indices (t, t + 4), so that S's registers are the A
+//     fragments as they stand, split into hi and lo (crop_rows_tf32);
+//   * each field's strip of stage 2 summed on the tensor cores into a
+//     partial P from zero, and added to O in float32:
+//     the tensor cores' sums round toward zero, and a chain over every
+//     strip errs more at large R (as psf_mma.cuh found for mma.sync).
+template <class P>
+__device__ __forceinline__ void block_tf32(const Inputs<P>& in,
+                                           const P& pol, const Args& a) {
+  constexpr int kMaps = maps<P>();
+  using tf32::kColTile;
+  using tf32::kOpTile;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t full[kMaxStages], empty[kMaxStages];
+  __shared__ uint64_t col_full[tf32::kColSlots], col_empty[tf32::kColSlots];
+  __shared__ uint64_t skew;
+  constexpr unsigned kStageBytes = tf32::stage_bytes<P>();
+  unsigned char* const base =
+      smem_raw + (kAlign - smem_addr(smem_raw) % kAlign) % kAlign;
+  unsigned char* const tbuf = base + a.stages * kStageBytes;
+  unsigned char* const cols = tbuf + 2 * kConsumers * tf32::kTBytes;
+  const int R = a.R;
+  const int strips = (R + kStrip - 1) / kStrip;
+  const int chunks = tf32::padded(R) / tf32::kChunk;
+  const int pairs = pol.pairs();
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], a.tma ? 1 : 32);
+      mbar_init(&empty[s], 4 * kConsumers);      // each consumer warp
+    }
+    for (int c = 0; c < tf32::kColSlots; ++c) {
+      mbar_init(&col_full[c], 1);
+      mbar_init(&col_empty[c], 4 * kConsumers);
+    }
+    mbar_init(&skew, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ------------------------------------------------------- producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (__shfl_sync(0xffffffffu, threadIdx.x / 32 % 4, 0) != 0) return;
+    int stage = 0, slot = 0;
+    unsigned phase = 0, col_phase = 0;
+    for (int q = blockIdx.x; q < pairs; q += gridDim.x) {
+      for (int s = 0; s < strips; ++s) {
+        // the strip's stage-2 operator tile
+        mbar_wait(&col_empty[slot], col_phase ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&col_full[slot], kColTile);
+          bulk_copy(cols + slot * kColTile, a.cols + s * kColTile, kColTile,
+                    &col_full[slot]);
+        }
+        if (++slot == tf32::kColSlots) {
+          slot = 0;
+          col_phase ^= 1;
+        }
+        for (int kc = 0; kc < chunks; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* const dst = base + stage * kStageBytes;
+          float* const mp = reinterpret_cast<float*>(dst + kOpTile);
+          const int y0 = s * kStrip, x0 = kc * tf32::kChunk;
+          if (a.tma) {
+            if (lane == 0) {
+              mbar_expect_tx(&full[stage], kStageBytes);
+              bulk_copy(dst, a.rows + kc * kOpTile, kOpTile, &full[stage]);
 #pragma unroll
-      for (int d = 0; d < kFields; ++d) {
-        float* const o = pol.crop(q, wg, d, a.w);
-        if (o == nullptr) continue;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int v = a.v0 + 8 * k + 2 * t + e;
-            if (u < a.w && v < a.w) {
-              // rows rr_u (+0), ri_u (+2); columns are_v (2k), aim_v (2k+1)
-              const float orr = O[d][4 * (2 * k) + e] -
-                                O[d][4 * (2 * k + 1) + e + 2];
-              const float oi = O[d][4 * (2 * k + 1) + e] +
-                               O[d][4 * (2 * k) + e + 2];
-              o[u * a.w + v] = (orr * orr + oi * oi) * a.scale;
+              for (int m = 0; m < kMaps; ++m) {
+                tma_3d(mp + m * tf32::kMapTile, &in.map[P::input(m)], y0, x0,
+                       pol.plane(m, q), &full[stage]);
+              }
             }
+          } else {
+            if (lane == 0) {
+              mbar_expect_tx_only(&full[stage], kOpTile);
+              bulk_copy(dst, a.rows + kc * kOpTile, kOpTile, &full[stage]);
+            }
+            // rows not 16-byte aligned: 4-byte copies, zero outside R x R
+#pragma unroll 1
+            for (int m = 0; m < kMaps; ++m) {
+              const float* src = in.ptr[0];
+#pragma unroll
+              for (int i = 1; i < P::kInputs; ++i) {
+                if (P::input(m) == i) src = in.ptr[i];
+              }
+              src += static_cast<size_t>(pol.plane(m, q)) * R * R;
+#pragma unroll 4
+              for (int i = 0; i < tf32::kMapTile / 32; ++i) {
+                const int e = lane + 32 * i;
+                const int x = x0 + e / kStrip, y = y0 + e % kStrip;
+                const bool ok = x < R && y < R;
+                cp_async4(mp + m * tf32::kMapTile + e,
+                          src + (ok ? static_cast<size_t>(x) * R + y : 0),
+                          ok ? 4u : 0u);
+              }
+            }
+            asm volatile(
+                "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                    smem_addr(&full[stage])) : "memory");
+          }
+          if (++stage == a.stages) {
+            stage = 0;
+            phase ^= 1;
           }
         }
       }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+  } else {
+    // ------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    const int tid = threadIdx.x % 128, wi = tid / 32;
+    const int g = lane / 4, t = lane % 4;
+    const int fy = tid % kStrip, fxg = tid / kStrip;   // forming role
+    const int own = (P::kShared + wg * P::kOwn) * tf32::kMapTile;
+    unsigned char* const my_t = tbuf + wg * 2 * tf32::kTBytes;
+    // descriptor offsets (16-byte units): a k8 step, a lo atom, T's lo
+    // plane, stage 2's lo K
+    constexpr uint64_t kStep = 32 >> 4, kOpLo = tf32::kAtomBytes >> 4;
+    constexpr uint64_t kTLo = tf32::kPlane >> 4, kColLo = 64 >> 4;
+    // stage 1's hi*hi sums, and its lo*hi + hi*lo corrections apart
+    float S[48], C[48], O[kFields][32];
+    int stage = 0, tile = 0, slot = 0;
+    unsigned phase = 0, col_phase = 0;
+    if (wg == 1) mbar_wait(&skew, 0);
+    for (int q = blockIdx.x; q < pairs; q += gridDim.x) {
+#pragma unroll
+      for (int d = 0; d < kFields; ++d) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) O[d][i] = 0.f;
+      }
+      for (int s = 0; s < strips; ++s) {
+        // S and C are rewritten here, so that they are dead during stage 2
+#pragma unroll
+        for (int i = 0; i < 48; ++i) S[i] = C[i] = 0.f;
+        int prev = 0;
+        for (int kc = 0; kc < chunks; ++kc, ++tile) {
+          mbar_wait(&full[stage], phase);
+          unsigned char* const st = base + stage * kStageBytes;
+          const float* mp = reinterpret_cast<const float*>(st + kOpTile);
+          unsigned char* const tb = my_t + (tile & 1) * tf32::kTBytes;
+          P::form(mp, mp + own, tb, fy, fxg);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          warpgroup_sync(wg);
+          if (tid == 0 && wg == 0 && tile == 0) mbar_arrive(&skew);
+          const uint64_t ad = desc(st);
+          const uint64_t bt = desc(tb);
+          fence_regs(S);
+          fence_regs(C);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < tf32::kChunk / 8; ++j) {
+            const uint64_t ak = ad + j * kStep, bk = bt + j * kStep;
+            wgmma_tf32_n96(C, ak + kOpLo, bk, 1);          // lo * hi
+            wgmma_tf32_n96(C, ak, bk + kTLo, 1);           // hi * lo
+            wgmma_tf32_n96(S, ak, bk, 1);                  // hi * hi
+          }
+          wgmma_commit();
+          // the previous stage's products are done: its T buffer is free,
+          // and so is the stage
+          wgmma_wait<1>();
+          if (kc > 0 && lane == 0) mbar_arrive(&empty[prev]);
+          prev = stage;
+          if (++stage == a.stages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+        // stage 2 of the strip: the crop's rows from S, a field's
+        // products at a time into P, added to O
+        fence_regs(S);
+        fence_regs(C);
+#pragma unroll
+        for (int i = 0; i < 48; ++i) S[i] += C[i];
+        uint32_t hi[kFields][2][4], lo[kFields][2][4];
+        crop_rows_tf32<P::kRecombine>(S, hi, lo);
+        mbar_wait(&col_full[slot], col_phase);
+        const uint64_t bc = desc(cols + slot * kColTile);
+#pragma unroll
+        for (int d = 0; d < kFields; ++d) {
+          float Pd[32];
+#pragma unroll
+          for (int i = 0; i < 32; ++i) Pd[i] = 0.f;
+          wgmma_fence();
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const uint64_t bh = bc + h * kStep;
+            wgmma_rs_tf32_n64(Pd, lo[d][h], bh, 1);        // lo * hi
+            wgmma_rs_tf32_n64(Pd, hi[d][h], bh + kColLo, 1);   // hi * lo
+            wgmma_rs_tf32_n64(Pd, hi[d][h], bh, 1);        // hi * hi
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(Pd);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) O[d][i] += Pd[i];
+        }
+        if (lane == 0) mbar_arrive(&col_empty[slot]);
+        if (++slot == tf32::kColSlots) {
+          slot = 0;
+          col_phase ^= 1;
+        }
+      }
+      store_crops(pol, O, q, wg, wi, g, t, a);
     }
   }
 }
@@ -724,16 +1170,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A float32 (planes, R, R) input whose boxes are 16 columns x 64 rows x 1
-// plane; zeros outside it.
-inline bool encode(CUtensorMap* map, const float* p, int R, int planes) {
+// A float32 (planes, R, R) input whose boxes are 16 columns x `rows` rows
+// x 1 plane; zeros outside it.
+inline bool encode(CUtensorMap* map, const float* p, int R, int planes,
+                   int rows = kChunk) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(R),
                               static_cast<cuuint64_t>(R),
                               static_cast<cuuint64_t>(planes)};
   const cuuint64_t strides[2] = {dims[0] * 4, dims[0] * dims[1] * 4};
-  const cuuint32_t box[3] = {kStrip, kChunk, 1}, elem[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {kStrip, static_cast<cuuint32_t>(rows), 1},
+                   elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(p),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -746,14 +1194,10 @@ inline bool encode(CUtensorMap* map, const float* p, int R, int planes) {
 // planes of R x R each) once per band pair of the crop, persistent: one
 // block an SM, at most one a pair of items.  On `stream` of the current
 // device; returns the first error.
-template <class P, class Kernel>
-cudaError_t launch(Kernel kernel, const P& pol,
-                   const float* const (&in)[P::kInputs],
-                   const int (&planes)[P::kInputs], const float* are,
-                   const float* aim, void* work, int R, int w, float scale,
-                   cudaStream_t stream) {
-  if (R <= 0 || w <= 0) return cudaErrorInvalidValue;
-  int dev = 0, sms = 0, optin = 0;
+// The current device's SM count and the shared memory a block may opt in
+// to.
+inline cudaError_t device_limits(int& sms, int& optin) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -762,6 +1206,37 @@ cudaError_t launch(Kernel kernel, const P& pol,
     err = cudaDeviceGetAttribute(&optin,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
+  return err;
+}
+
+// The TMA descriptors of a launch's inputs where every input allows them
+// (rows a multiple of 16 bytes, 16-byte aligned), boxes of `rows` rows;
+// inputs.ptr always.  Returns false where a descriptor cannot be made;
+// tma says whether the launch copies by TMA.
+template <class P>
+bool tensor_maps(Inputs<P>& inputs, const float* const (&in)[P::kInputs],
+                 const int (&planes)[P::kInputs], int R, int rows,
+                 int& tma) {
+  tma = R % 4 == 0;
+  for (int i = 0; i < P::kInputs; ++i) {
+    inputs.ptr[i] = in[i];
+    tma = tma && aligned16(in[i]);
+  }
+  for (int i = 0; tma && i < P::kInputs; ++i) {
+    if (!encode(&inputs.map[i], in[i], R, planes[i], rows)) return false;
+  }
+  return true;
+}
+
+template <class P, class Kernel>
+cudaError_t launch(Kernel kernel, const P& pol,
+                   const float* const (&in)[P::kInputs],
+                   const int (&planes)[P::kInputs], const float* are,
+                   const float* aim, void* work, int R, int w, float scale,
+                   cudaStream_t stream) {
+  if (R <= 0 || w <= 0) return cudaErrorInvalidValue;
+  int sms = 0, optin = 0;
+  cudaError_t err = device_limits(sms, optin);
   if (err != cudaSuccess) return err;
   const int nb = (w + kBand - 1) / kBand;
   const int Rp = padded(R);
@@ -771,15 +1246,9 @@ cudaError_t launch(Kernel kernel, const P& pol,
                                                           w, nb);
   Inputs<P> inputs{};
   Args args{};
-  int tma = R % 4 == 0;
-  for (int i = 0; i < P::kInputs; ++i) {
-    inputs.ptr[i] = in[i];
-    tma = tma && aligned16(in[i]);
-  }
-  for (int i = 0; tma && i < P::kInputs; ++i) {
-    if (!encode(&inputs.map[i], in[i], R, planes[i])) {
-      return cudaErrorInvalidValue;
-    }
+  int tma = 0;
+  if (!tensor_maps(inputs, in, planes, R, kChunk, tma)) {
+    return cudaErrorInvalidValue;
   }
   args.R = R;
   args.w = w;
@@ -802,11 +1271,70 @@ cudaError_t launch(Kernel kernel, const P& pol,
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
           static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      args.rows = image + i * band_elems;
-      args.cols = image + j * band_elems;
+      args.rows = reinterpret_cast<const unsigned char*>(image +
+                                                         i * band_elems);
+      args.cols = reinterpret_cast<const unsigned char*>(image +
+                                                         j * band_elems);
       args.u0 = kBand * i;
       args.v0 = kBand * j;
       args.stages = stages;
+      kernel<<<pairs < sms ? pairs : sms, kThreads, smem, stream>>>(
+          inputs, pol, args);
+    }
+  }
+  return cudaGetLastError();
+}
+
+// As launch, for block_tf32: lays the operator's 3xTF32 image out in
+// `work` (bands(w) * tf32::image_bytes(R) bytes, 16-byte aligned,
+// allocated by the caller) and launches `kernel` once per band pair of
+// the crop, persistent.  A launch takes the same shared memory at any R,
+// so no R is refused.
+template <class P, class Kernel>
+cudaError_t launch_tf32(Kernel kernel, const P& pol,
+                        const float* const (&in)[P::kInputs],
+                        const int (&planes)[P::kInputs], const float* are,
+                        const float* aim, void* work, int R, int w,
+                        float scale, cudaStream_t stream) {
+  if (R <= 0 || w <= 0) return cudaErrorInvalidValue;
+  int sms = 0, optin = 0;
+  cudaError_t err = device_limits(sms, optin);
+  if (err != cudaSuccess) return err;
+  const int nb = (w + kBand - 1) / kBand;
+  const int elems = nb * 2 * kRows * tf32::padded(R);
+  unsigned char* const image = static_cast<unsigned char*>(work);
+  operator_image_tf32<<<(elems + 255) / 256, 256, 0, stream>>>(
+      are, aim, reinterpret_cast<uint32_t*>(image), R, w, nb);
+  Inputs<P> inputs{};
+  Args args{};
+  int tma = 0;
+  if (!tensor_maps(inputs, in, planes, R, tf32::kChunk, tma)) {
+    return cudaErrorInvalidValue;
+  }
+  // the static barriers take the last 128 bytes of the opt-in limit
+  const long left = static_cast<long>(optin) - 128 -
+                    static_cast<long>(tf32::smem_bytes<P>(0));
+  const long fit = left < 0 ? 0 : left / tf32::stage_bytes<P>();
+  const int stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  if (stages < 2) return cudaErrorInvalidValue;
+  const size_t smem = tf32::smem_bytes<P>(stages);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  args.R = R;
+  args.w = w;
+  args.tma = tma;
+  args.stages = stages;
+  args.scale = scale;
+  const int pairs = pol.pairs();
+  const size_t band_bytes = tf32::image_bytes(R);
+  for (int i = 0; i < nb; ++i) {
+    for (int j = 0; j < nb; ++j) {
+      args.rows = image + i * band_bytes;
+      args.cols = image + j * band_bytes + tf32::stage1_bytes(R);
+      args.u0 = kBand * i;
+      args.v0 = kBand * j;
       kernel<<<pairs < sms ? pairs : sms, kThreads, smem, stream>>>(
           inputs, pol, args);
     }

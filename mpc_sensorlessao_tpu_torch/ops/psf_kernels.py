@@ -14,16 +14,17 @@ On a CUDA tensor each wrapper launches its hand-written kernel (built with
 nvcc at first use, bound with ctypes, counted in ``<wrapper>.launches``)
 or raises; on a CPU tensor it runs its plain PyTorch version
 ``<wrapper>_ref``.  There is no other fallback.  All four run both DFT
-stages on the tensor cores in 3xTF32 (float32 accuracy) on one engine,
-``csrc/psf_mma.cuh``, at any crop width w (the Pallas kernels' range).
+stages on the tensor cores in 3xTF32 (float32 accuracy), at any crop
+width w (the Pallas kernels' range): B1 on the Hopper engine
+``csrc/psf_wgmma.cuh`` (wgmma with persistent blocks), B2-B4 on
+``csrc/psf_mma.cuh`` (mma.sync).
 
 Each also takes ``compute_dtype="bfloat16"``, the Pallas kernels' branch
 that rounds the DFT stages' operands to bf16 and sums in float32: on a
 CUDA tensor the library's ``<name>_bf16`` entry point (one bf16 pass,
-counted in ``<wrapper>.launches_bf16``: B4's on the same engine, B1-B3's
-on the Hopper engine ``csrc/psf_wgmma.cuh``, wgmma with persistent
-blocks, one field policy each), on a CPU tensor the plain version
-rounding at the same points.
+counted in ``<wrapper>.launches_bf16``: B4's on ``psf_mma.cuh``, B1-B3's
+on ``psf_wgmma.cuh``, one field policy each), on a CPU tensor the plain
+version rounding at the same points.
 """
 
 from __future__ import annotations
@@ -305,13 +306,14 @@ def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
 
 
 def _operator_scratch(R: int, w: int) -> int:
-    """Floats of the scratch in which the engine lays the operator out as
-    32 x 32 tiles of (re, im) in bands of 32 rows:
-    ``2 * 32 * 32 * ceil(R / 32) * ceil(w / 32)``.  The bf16 entries on
-    the wgmma engine (B1-B3's) lay their bf16 image of the stacked
-    operator there, ``32 * ceil(R / 64) * 64 * ceil(w / 32)`` floats'
-    worth, which that never exceeds."""
-    return 2 * MMA_TILE * MMA_TILE * -(-R // MMA_TILE) * -(-w // MMA_TILE)
+    """Floats of the scratch in which a kernel lays its operator out, in
+    bands of 32 rows: B1's 3xTF32 image on the wgmma engine, the stacked
+    operator's 64 rows split into TF32 hi and lo for stage 1 and again
+    for stage 2, ``256 * ceil(R / 32) * 32 * ceil(w / 32)``.  The others
+    need less: the mma.sync engine's 32 x 32 tiles of (re, im) (B2-B4),
+    ``2 * 32 * 32 * ceil(R / 32) * ceil(w / 32)``, and the bf16 entries'
+    bf16 image, ``32 * ceil(R / 64) * 64 * ceil(w / 32)``."""
+    return 8 * MMA_TILE * MMA_TILE * -(-R // MMA_TILE) * -(-w // MMA_TILE)
 
 
 def _sym3_maps(phase, pupil, cos_a, sin_a):

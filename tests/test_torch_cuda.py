@@ -74,27 +74,89 @@ def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
 
 
+# B1 float32's max error against its plain version, of the peak, at
+# R <= 128 and at R=512: the mma.sync design's (ROADMAP C.3, chip_smoke.py
+# B1_F32_ATOL), which its wgmma design keeps
+B1_F32_ATOL = {128: 2.0e-6, 512: 3.8e-6}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,B,c", [(128, 1, 15), (128, 5, 15), (98, 3, 15),
+                                   (512, 4, 15), (128, 3, 20)])
+def test_b1_wgmma_within_the_mma_sync_designs_error(cuda_device, R, B, c):
+    """B1 float32 on the wgmma engine (3xTF32) vs its plain version on the
+    card: one scenario, an odd count (the last pair's second consumer
+    stores nothing), R=98 (rows copied in 4 bytes, not by TMA), R=512
+    and a 41-px crop (two bands) each within the mma.sync design's error
+    (B1_F32_ATOL of the peak), and each call counted once."""
+    args = _b1_args(R, B, c, cuda_device)
+    before = psf_kernels.psf_crop_diversity_sym3.launches
+    got = psf_kernels.psf_crop_diversity_sym3(*args)
+    psf_kernels.psf_crop_diversity_sym3(*args)
+    torch.cuda.synchronize()
+    assert psf_kernels.psf_crop_diversity_sym3.launches == before + 2
+    want = psf_kernels.psf_crop_diversity_sym3_ref(*args)
+    assert got.shape == want.shape == (B, 3, 2 * c + 1, 2 * c + 1)
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    assert err <= B1_F32_ATOL[128 if R <= 128 else 512] * peak, (err, peak)
+
+
+@pytest.mark.gpu
+def test_b1_float32_takes_an_r_its_bf16_entry_refuses(cuda_device):
+    """B1 float32 streams its operator through a fixed shared-memory ring,
+    so no R is past its limit: at R=1152 it launches and meets the
+    float32 limits, while the bf16 entry, which holds the operator whole,
+    is refused there (above R=1088) and its wrapper raises without
+    counting a launch."""
+    args = _b1_args(1152, 1, 15, cuda_device)
+    k = psf_kernels.psf_crop_diversity_sym3
+    before = (k.launches, k.launches_bf16)
+    got = k(*args)
+    torch.cuda.synchronize()
+    want = psf_kernels.psf_crop_diversity_sym3_ref(*args)
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
+    with pytest.raises(RuntimeError, match="psf_div3_sym_bf16"):
+        k(*args, compute_dtype="bfloat16")
+    assert (k.launches, k.launches_bf16) == (before[0] + 1, before[1])
+
+
 MMA_LIBS = ["psf_div3_sym", "psf_div", "psf_crop", "psf_div3_sym_thin"]
 # libraries whose bf16 entry runs the wgmma engine csrc/psf_wgmma.cuh
 WGMMA_LIBS = ("psf_div3_sym", "psf_div", "psf_crop")
+# TF32 warpgroup products (wgmma): B1's float32 entry, csrc/psf_wgmma.cuh
+TF32_HGMMA = re.compile(r"\bHGMMA\.64x\d+x8\.F32\.TF32\b")
+
+
+def _on_wgmma(lib: str, fn: str) -> bool:
+    """Whether kernel ``fn`` of ``lib`` runs the wgmma engine: B1-B3's bf16
+    entries and B1's float32 one."""
+    return lib in WGMMA_LIBS and (f"{lib}_bf16_kernel" in fn or
+                                  "psf_div3_sym_kernel" in fn)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lib", MMA_LIBS)
 def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
-    """The built SASS of B1, and of B2, B3 and B4 on its engine, holds HMMA
-    (tensor-core) instructions, and ptxas reports no spill for any of
-    a library's kernels (its float32 and bf16 entries'), within the 128
-    registers a thread that two resident blocks per SM allow -- but the
-    bf16 kernels of B1-B3 on the wgmma engine, one 384-thread block an
-    SM, within 168 (test_bf16_entries_build_without_spills_on_bf16_mma)."""
+    """The built SASS of B1 holds TF32 warpgroup products
+    (HGMMA.64xNx8.F32.TF32) and no HMMA, that of B2, B3 and B4 on the
+    mma.sync engine HMMA (tensor-core) instructions, and ptxas reports no
+    spill for any of a library's kernels (its float32 and bf16 entries'),
+    within the 128 registers a thread that two resident blocks per SM
+    allow -- but the kernels on the wgmma engine (B1's, B2-B3's bf16), one
+    384-thread block an SM, within 168."""
     res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))
     assert any(f"{lib}_kernel" in fn for fn in res)
     for fn, r in res.items():
         assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (fn, r)
-        wgmma = lib in WGMMA_LIBS and f"{lib}_bf16_kernel" in fn
-        assert r["registers"] <= (168 if wgmma else 128), (fn, r)
-    assert re.findall(r"\bHMMA\.", device_peaks.sass(lib))
+        assert r["registers"] <= (168 if _on_wgmma(lib, fn) else 128), (fn,
+                                                                          r)
+    sass = device_peaks.sass(lib)
+    if lib == "psf_div3_sym":
+        assert TF32_HGMMA.search(sass) and not re.findall(r"\bHMMA\.", sass)
+    else:
+        assert re.findall(r"\bHMMA\.", sass)
 
 
 def _kernel_args(kernel, R, B, c, dev, n_div=3):
@@ -207,6 +269,9 @@ def test_bf16_entries_build_without_spills_on_bf16_mma(cuda_device, lib):
             assert BF16_HGMMA.search(text) and "HMMA" not in text
         elif f"{lib}_bf16_kernel" in fn:
             assert BF16_HMMA in text and "TF32" not in text
+        elif _on_wgmma(lib, fn):
+            assert TF32_HGMMA.search(text) and "HMMA" not in text
+            assert not BF16_HGMMA.search(text)
         elif f"{lib}_kernel" in fn:
             assert BF16_HMMA not in text and "HMMA" in text
             assert not BF16_HGMMA.search(text)

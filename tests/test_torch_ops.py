@@ -336,11 +336,12 @@ def _engine_case(kernel):
 
 @pytest.mark.parametrize("kernel", ["b1", "b2_3", "b2_5", "b3"])
 def test_b1_3xtf32_arithmetic_matches_jax_kernel_and_plain(kernel):
-    """B1's 3xTF32 arithmetic, emulated here, and B2's and B3's on the
-    same engine (``_engine_case``) == the Pallas kernel it replaces
-    (interpret mode) at that kernel's test tolerance (rtol 2e-4, atol
-    2e-4), and == the float32 plain version at rtol 2e-4, atol 1e-5 of
-    the peak.
+    """The mma.sync engine's 3xTF32 arithmetic (csrc/psf_mma.cuh), emulated
+    here, on B1's fields as its old design formed them and on B2's and
+    B3's (``_engine_case``) == the Pallas kernel each replaces (interpret
+    mode) at that kernel's test tolerance (rtol 2e-4, atol 2e-4), and ==
+    the float32 plain version at rtol 2e-4, atol 1e-5 of the peak.  B1's
+    design on the wgmma engine is emulated in tests/test_torch_b1_wgmma.py.
 
     For B1 against the float64 plain version at these inputs (on the
     CPU): 3 passes err 1.0e-7 of the peak (float32's plain version
@@ -613,11 +614,14 @@ def test_plain_versions_match_jax_kernels_at_wide_crops(kernel, w, dtype):
 
 
 def test_operator_scratch_holds_every_crop_band():
-    """The engine lays the operator out as ceil(w / 32) bands of 32 rows,
-    each as ceil(R / 32) tiles of 32 x 32 (re, im) float32 pairs: the
-    wrapper's scratch holds them all, one band up to w = 32 and two at
-    w = 33 and 63."""
-    tile = 2 * 32 * 32
+    """The kernels lay the operator out in ceil(w / 32) bands of 32 rows.
+    The largest layout is B1's 3xTF32 image on the wgmma engine: a
+    band's 64 stacked rows in TF32 hi and lo, once for stage 1 and once
+    for stage 2, 256 floats a row of R rounded up to 32; the mma.sync
+    engine's 32 x 32 (re, im) tiles take a quarter of that.  The
+    wrapper's scratch holds every band: one up to w = 32 and two at w =
+    33 and 63."""
+    tile = 256 * 32
     assert psf_kernels._operator_scratch(128, 31) == tile * 4
     assert psf_kernels._operator_scratch(100, 32) == tile * 4
     for w in (33, 63):
