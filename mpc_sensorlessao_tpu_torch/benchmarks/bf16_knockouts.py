@@ -31,7 +31,8 @@ to the whole.  ``--designs`` takes some of the four designs:
     loads          the TMA copies (the stages arrive empty)
     skeleton       forming and loads both out: wgmma, waits, epilogues
   f32old, the mma.sync engine in 3xTF32, timed on
-  ``psf_div3_sym_thin`` (b4f: B4 float32, B1 float32's old design):
+  ``psf_div3_sym_thin`` (b4f: B4 float32, the old design of B1-B3
+  float32):
     sincosf        as above
     splits         the TF32 hi/lo splits (a bit mix in their place)
     fragments      the shared-memory fragment loads
@@ -39,19 +40,25 @@ to the whole.  ``--designs`` takes some of the four designs:
     barriers       as above
     gstore         the store of each strip's stage-1 rows to shared
                    memory (behind a condition never true)
-  f32new, the wgmma engine in 3xTF32 (``block_tf32``), timed on
-  ``psf_div3_sym`` (b1f: B1 float32):
+  f32new, the wgmma engine in 3xTF32 (``block_tf32``), timed on its
+  three policies' float32 entries ``psf_div3_sym`` (b1f), ``psf_div``
+  (b2f) and ``psf_crop`` (b3f):
     sincosf, forming, stage1, loads, skeleton   as for new
     splits         the TF32 hi/lo splits of the forming
     stage2         stage 2's wgmma (the fragments kept live)
+    stages3        at most 3 ring stages: B1's 4 cut to the 3 that B2's
+                   and B3's larger stages leave room for (no change for
+                   those two; a negative cost is time that 3 stages lose)
 
 ``--parent DIR`` copies DIR -- the ``csrc/`` of a checkout from before
-B1 float32 moved onto ``psf_wgmma.cuh``, where it still ran the old
-design -- and times the f32old builds alone, on b1f and b4f.  With
-``--bitwise`` it times nothing: it builds B1's library whole from DIR
-and from ``csrc/``, runs each entry of b1 once on the same inputs and
-reports ``b1_bits_equal`` (the two outputs hold the same bits) and
-``b1_max_abs_diff``.
+B2 and B3 float32 moved onto ``psf_wgmma.cuh``, where they still ran the
+old design -- and times the f32old builds alone, on b2f, b3f and b4f
+(PARENT_BUILDS adds the knock-outs of texts only the parent holds).
+With ``--bitwise`` it times nothing: it builds each library whole from
+DIR and from ``csrc/``, runs the entries of b1, b2, b3 (bf16), b1f (B1
+float32), b4 and b4f once each on the same inputs and reports
+``<tag>_bits_equal`` (the two outputs hold the same bits) and
+``<tag>_max_abs_diff``.
 
 Prints one JSON line -- ``<build>_<entry>_ms`` (each build's two times,
 e.g. ``old_full_b4_ms``), ``<build>_<entry>_cost_ms`` (a part's cost,
@@ -85,14 +92,18 @@ ENTRIES = {
     "b3": ("psf_crop", "psf_crop_bf16"),
     "b4": ("psf_div3_sym_thin", "psf_div3_sym_thin_bf16"),
     "b1f": ("psf_div3_sym", "psf_div3_sym"),
+    "b2f": ("psf_div", "psf_div"),
+    "b3f": ("psf_crop", "psf_crop"),
     "b4f": ("psf_div3_sym_thin", "psf_div3_sym_thin"),
 }
 # the entries each design's builds are timed on
 DESIGN_ENTRIES = {"old": ("b4",), "new": ("b1", "b2", "b3"),
-                  "f32old": ("b4f",), "f32new": ("b1f",)}
-# the designs' entries in a parent checkout (--parent), where B1 float32
-# still ran the mma.sync engine
-PARENT_ENTRIES = {"f32old": ("b1f", "b4f")}
+                  "f32old": ("b4f",), "f32new": ("b1f", "b2f", "b3f")}
+# the designs' entries in a parent checkout (--parent), where B2 and B3
+# float32 still ran the mma.sync engine
+PARENT_ENTRIES = {"f32old": ("b2f", "b3f", "b4f")}
+# the entries --bitwise holds to the parent's
+BITWISE_TAGS = ("b1", "b2", "b3", "b1f", "b4", "b4f")
 
 _FRAG = ("re.v[r] = bf16x2(v[2 * r].x, v[2 * r + 1].x);\n"
          "      im.v[r] = bf16x2(v[2 * r].y, v[2 * r + 1].y);")
@@ -148,16 +159,22 @@ _NO_LOADS_TF32 = [
      "&full[stage]);", "mbar_expect_tx(&full[stage], 0);"),
     _NO_LOADS[1]]
 
+# the sincosf of the wgmma engine's three policies' bf16 forming (sym3's
+# and crop's also of their 3xTF32 forming)
+_NEW_SINCOSF = [
+    ("psf_div3_sym.cu", "sincosf(ph[e], &s, &c);",
+     "s = ph[e]; c = 1.f - ph[e];"),
+    ("psf_div.cu", "sincosf(ph[e], &s, &c);",
+     "s = ph[e]; c = 1.f - ph[e];"),
+    ("psf_crop.cu", "sincosf(ph[j * kMapTile + e], &s, &c);",
+     "s = ph[j * kMapTile + e]; c = 1.f - s;")]
+
 # build -> [(file, text, replacement)]
 BUILDS = {
     "old_full": [],
     "old_sincosf": [
         ("psf_sym3.cuh", "sincosf(m[0], &s, &c);",
-         "s = m[0]; c = 1.f - m[0];"),
-        ("psf_div.cu", "sincosf(m[0], &s, &c);",
-         "s = m[0]; c = 1.f - m[0];"),
-        ("psf_crop.cu", "sincosf(m[j * kTilePixels], &s, &c);",
-         "s = m[j * kTilePixels]; c = 1.f - s;")],
+         "s = m[0]; c = 1.f - m[0];")],
     "old_fragments": [("psf_mma.cuh", _FRAG, _MIX)] + _OLD_LOADS,
     "old_rounding": [("psf_mma.cuh", _FRAG, _MIX)],
     "old_mma": [
@@ -166,13 +183,7 @@ BUILDS = {
          "b[1]);")],
     "old_barriers": _OLD_BARRIERS,
     "new_full": [],
-    "new_sincosf": [
-        ("psf_div3_sym.cu", "sincosf(ph[e], &s, &c);",
-         "s = ph[e]; c = 1.f - ph[e];"),
-        ("psf_div.cu", "sincosf(ph[e], &s, &c);",
-         "s = ph[e]; c = 1.f - ph[e];"),
-        ("psf_crop.cu", "sincosf(ph[j * kMapTile + e], &s, &c);",
-         "s = ph[j * kMapTile + e]; c = 1.f - s;")],
+    "new_sincosf": _NEW_SINCOSF,
     "new_forming": [("psf_wgmma.cuh", _FORM, "")],
     "new_stage1": [
         ("psf_wgmma.cuh",
@@ -201,14 +212,16 @@ BUILDS = {
                        "        }")],
     "f32new_full": [],
     "f32new_sincosf": [
-        ("psf_div3_sym.cu", "sincosf(ph[e], &s, &c);",
-         "s = ph[e]; c = 1.f - ph[e];")],
+        _NEW_SINCOSF[0],
+        ("psf_div.cu", "sincosf(ph[e], &s[h], &c[h]);",
+         "s[h] = ph[e]; c[h] = 1.f - ph[e];"),
+        _NEW_SINCOSF[2]],
     "f32new_splits": [
         ("psf_wgmma.cuh",
-         "    for (int h = 0; h < 4; ++h) split(v[h][q], hi[h], lo[h]);",
-         "    for (int h = 0; h < 4; ++h) {\n"
-         "      hi[h] = __float_as_uint(v[h][q]);\n"
-         "      lo[h] = hi[h] ^ 0x1000u;\n    }")],
+         "  for (int h = 0; h < 4; ++h) split(v[h], hi[h], lo[h]);",
+         "  for (int h = 0; h < 4; ++h) {\n"
+         "    hi[h] = __float_as_uint(v[h]);\n"
+         "    lo[h] = hi[h] ^ 0x1000u;\n  }")],
     "f32new_forming": [("psf_wgmma.cuh", _FORM_TF32, "")],
     "f32new_stage1": [
         ("psf_wgmma.cuh",
@@ -225,16 +238,32 @@ BUILDS = {
          "hi[d][h][2] ^ lo[d][h][3]);")],
     "f32new_loads": _NO_LOADS_TF32,
     "f32new_skeleton": [("psf_wgmma.cuh", _FORM_TF32, "")] + _NO_LOADS_TF32,
+    "f32new_stages3": [
+        ("psf_wgmma.cuh",
+         "return static_cast<int>(fit < kMaxStages ? fit : kMaxStages);",
+         "return static_cast<int>(fit < 3 ? fit : 3);")],
+}
+# knock-outs of texts that only a parent checkout holds (--parent): the
+# sincosf of B2's and B3's float32 forming on the mma.sync engine
+PARENT_BUILDS = {
+    "f32old_sincosf": [
+        ("psf_div.cu", "sincosf(m[0], &s, &c);",
+         "s = m[0]; c = 1.f - m[0];"),
+        ("psf_crop.cu", "sincosf(m[j * kTilePixels], &s, &c);",
+         "s = m[j * kTilePixels]; c = 1.f - s;")],
 }
 
 
 def patched_sources(build: str, root: Path,
-                    csrc: Path = cuda_build.CSRC) -> Path:
-    """A copy of ``csrc`` under ``root`` with ``build``'s knock-outs;
-    raises if a knocked-out text is not in the sources once."""
+                    csrc: Path = cuda_build.CSRC,
+                    parent: bool = False) -> Path:
+    """A copy of ``csrc`` under ``root`` with ``build``'s knock-outs (and
+    its PARENT_BUILDS ones for a ``parent`` checkout); raises if a
+    knocked-out text is not in the sources once."""
     dest = root / build
     shutil.copytree(csrc, dest)
-    for name, text, new in BUILDS[build]:
+    extra = PARENT_BUILDS.get(build, []) if parent else []
+    for name, text, new in BUILDS[build] + extra:
         src = (dest / name).read_text()
         if src.count(text) != 1:
             raise ValueError(f"{build}: {name} does not hold its knock-out "
@@ -261,7 +290,7 @@ def _arguments(tag: str, inp: dict):
     if tag.rstrip("f") in ("b1", "b4"):
         maps = psf_kernels._sym3_maps(p, pup, inp["cos_a"], inp["sin_a"])
         return p, [m for _, m, _ in maps], (), (B, 3, w, w)
-    if tag == "b2":
+    if tag.rstrip("f") == "b2":
         return (p, [(pup * inp["div_cos"]).contiguous(),
                     (pup * inp["div_sin"]).contiguous()], (3,), (B, 3, w, w))
     return inp["total"], [pup], (), (3 * B, w, w)
@@ -310,7 +339,8 @@ def run(R: int = 128, B: int = 4096, parent: Path | None = None,
     inp = kernel_variants.inputs(R, B, "cuda")
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        srcs = {b: patched_sources(b, root, csrc) for b in builds}
+        srcs = {b: patched_sources(b, root, csrc, parent is not None)
+                for b in builds}
         jobs = [(b, tag) for b in builds for tag in entries[b.split("_")[0]]]
         with concurrent.futures.ThreadPoolExecutor(16) as pool:
             paths = dict(zip(jobs, pool.map(
@@ -333,21 +363,29 @@ def run(R: int = 128, B: int = 4096, parent: Path | None = None,
 
 
 def bitwise(parent: Path, R: int = 128, B: int = 4096,
-            tags: tuple = ("b1",)) -> dict:
+            tags: tuple = BITWISE_TAGS) -> dict:
     """Whether each entry of ``tags`` built whole from ``parent`` and from
     csrc/ gives the same bits on the A/B's inputs at R, B."""
     if not torch.cuda.is_available():
         raise RuntimeError("the bitwise comparison needs a CUDA device")
     inp = kernel_variants.inputs(R, B, "cuda")
     out = {"R": R, "B": B, "w": kernel_variants.CROP, "csrc": str(parent)}
+    sides = {"parent": Path(parent), "change": cuda_build.CSRC}
+    jobs = [(side, lib) for side in sides
+            for lib in sorted({ENTRIES[tag][0] for tag in tags})]
     with tempfile.TemporaryDirectory() as tmp:
+        def build(job):
+            side, lib = job
+            dest = Path(tmp) / f"{side}_{lib}"
+            shutil.copytree(sides[side], dest)
+            return _build(side, lib, dest)
+
+        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+            paths = dict(zip(jobs, pool.map(build, jobs)))
         for tag in tags:
             got = []
-            for side, csrc in (("parent", Path(parent)),
-                               ("change", cuda_build.CSRC)):
-                dest = Path(tmp) / f"{side}_{tag}"
-                shutil.copytree(csrc, dest)
-                call = _caller(_build(side, ENTRIES[tag][0], dest), tag, inp)
+            for side in sides:
+                call = _caller(paths[(side, ENTRIES[tag][0])], tag, inp)
                 call()
                 torch.cuda.synchronize()
                 got.append(call.tensors[-1].clone())

@@ -9,7 +9,8 @@
 //   out[b, d] = |A F_bd A^T|^2 * scale,
 //   F_bd = (c pcd_d - s psd_d, s pcd_d + c psd_d),
 //
-// c, s = cos, sin of the residual phase (taken once per pixel and block)
+// c, s = cos, sin of the residual phase (taken once a pixel and group of
+// up to three diversities)
 // and pcd_d, psd_d = pupil cos, pupil sin of the diversity map d, formed
 // once per call by the wrapper (exact: the pupil is a 0/1 mask) -- the
 // angle-addition identity of the TPU kernel, so the (B, n_div, R, R)
@@ -19,88 +20,54 @@
 // call at R=128, B=4096 on three maps); the maps are shared by all
 // scenarios and stay in L2.
 //
-// Design: the tensor-core DFT engine psf_mma.cuh, one block per
-// scenario and group of up to three diversities, grid (B, ceil(n_div /
-// 3)).  Its field-forming policy loads the phase and the group's pcd and
-// psd a K tile -- 7 maps, 74,752 B of shared memory a block, still two
-// blocks per SM -- and takes one full-precision sincosf per pixel, then
-// angle addition per diversity.  A group of 1 or 2 diversities (the last,
-// when 3 does not divide n_div) reads the missing maps as zeros, so their
-// fields are zero, and stores nothing for them: one instantiation and one
-// warp layout, since the engine's warp roles are cut for three fields,
-// and the loop's route (n_div = 3) has no such group.
+// Design: the Hopper engine psf_wgmma.cuh in 3xTF32 (block_tf32) with
+// the div policy below (Div<true>), two scenarios of one group of up to
+// three diversities a block pass, one a consumer warpgroup.  A stage
+// holds the group's pcd_d and psd_d (shared by both consumers) and each
+// consumer's phase, 8 maps: 32,768 B a stage with its operator tile, so
+// 3 stages fit beside the T buffers (214,016 B), where B1's 5 maps take
+// 4.  The consumers take one full-precision sincosf a pixel (four rows at
+// once), then form the three fields by angle addition one at a time
+// (six parts of four rows at once spilled), split each part into TF32
+// hi and lo (form_field_tf32), and run each k8 step as three wgmma
+// (hi*hi into one accumulator, lo*hi and hi*lo into another, added at
+// the strip's end); no recombination.  A ragged last group (n_div not a multiple of 3)
+// reads a present diversity in place of each absent one and stores
+// nothing for it; an odd B repeats its last scenario in the second
+// consumer, which stores nothing.  It replaced the mma.sync engine
+// psf_mma.cuh (one 256-thread block per scenario and group, two
+// __syncthreads a step), whose float32 design still runs kernel B4.
 //
 // psf_div_bf16 is the TPU kernel's compute_dtype="bfloat16" branch
-// (pallas_kernels.py:85-87, :99-100, :106-107) on the Hopper engine
-// psf_wgmma.cuh, as its div policy (DivBf16 below): wgmma on the stacked
-// (2w, R) operator, the fields formed in float32 and stored once in bf16,
-// the stage-1 rows rounded in registers, persistent blocks with a
-// producer warp.
+// (pallas_kernels.py:85-87, :99-100, :106-107) on the same engine, as
+// Div<false> (block: one bf16 pass, the operator held whole in shared
+// memory): the fields formed in float32 and stored once in bf16, the
+// stage-1 rows rounded in registers.
 //
 // Built with  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (ops/cuda_build.py) and called through ctypes (ops/psf_kernels.py).
 
 #include <cuda_runtime.h>
 
-#include "psf_mma.cuh"
 #include "psf_wgmma.cuh"
 
 namespace {
 
-using psf_mma::kFields;
-using psf_mma::kTilePixels;
-using psf_mma::Precision;
-
-// Block (b, k): scenario b, diversities 3 k, 3 k + 1, 3 k + 2 of the n_div.
-struct DiversityFields {
-  // phase, then (pcd, psd) of each diversity of the group
-  static constexpr int kMaps = 1 + 2 * kFields;
-  static constexpr bool kRecombine = false;
-  const float* phase;                 // (B, R, R)
-  const float* pcd;                   // (n_div, R, R)
-  const float* psd;                   // (n_div, R, R)
-  float* out_;                        // (B, n_div, w, w)
-  int n_div;
-
-  __device__ int first() const { return kFields * blockIdx.y; }
-  __device__ const float* map(int a, int R) const {
-    const size_t plane = static_cast<size_t>(R) * R;
-    if (a == 0) return phase + blockIdx.x * plane;
-    // an absent diversity reads (as zeros) from the last one's plane
-    const int d = min(first() + (a - 1) / 2, n_div - 1);
-    return (a % 2 ? pcd : psd) + d * plane;
-  }
-  __device__ bool present(int a) const {
-    return a == 0 || first() + (a - 1) / 2 < n_div;
-  }
-  __device__ int fields() const { return min(kFields, n_div - first()); }
-  __device__ float* out(int w) const {
-    return out_ +
-           (static_cast<size_t>(blockIdx.x) * n_div + first()) * w * w;
-  }
-  __device__ void form(const float* m, float2 (&f)[kFields]) const {
-    float s, c;
-    sincosf(m[0], &s, &c);
-#pragma unroll
-    for (int j = 0; j < kFields; ++j) {
-      const float pc = m[(1 + 2 * j) * kTilePixels],
-                  ps = m[(2 + 2 * j) * kTilePixels];
-      f[j] = make_float2(c * pc - s * ps, s * pc + c * ps);
-    }
-  }
-};
+using psf_wgmma::kFields;
 
 // psf_wgmma.cuh's div policy.  Pair q is group k = q / h of up to three
 // diversities (3 k, 3 k + 1, 3 k + 2 of the n_div) and scenarios 2 (q %
 // h) and 2 (q % h) + 1, h = ceil(B / 2) pairs a group (the last scenario
 // repeated where B is odd); a stage holds the group's pcd_d, psd_d and
 // the two scenarios' phases.  T holds each field's (re, im): each product
-// rounded, then their sum, as the TPU kernel forms the field it rounds to
-// bf16 -- nvcc's fused multiply-add rounds once and flips that rounding
-// now and then, which moved a crop pixel by 1.2e-4 of the peak on random
-// diversity maps.  An absent diversity of the last group reads the last
-// one's maps and stores nothing.
-struct DivBf16 {
+// rounded, then their sum -- as the TPU kernel forms the field it rounds
+// to bf16 (kTf32 false; nvcc's fused multiply-add rounds once and flips
+// that rounding now and then, which moved a crop pixel by 1.2e-4 of the
+// peak on random diversity maps), or splits into TF32 hi and lo (kTf32:
+// float32 accuracy, the plain version's products).  An absent diversity
+// of the last group reads the last one's maps and stores nothing.
+template <bool kTf32>
+struct Div {
   static constexpr int kInputs = 3;    // pcd, psd (n_div, R, R); phase
   static constexpr int kShared = 2 * kFields, kOwn = 1, kIlp = 4;
   static constexpr bool kRecombine = false;
@@ -126,29 +93,49 @@ struct DivBf16 {
   }
   __device__ static void form(const float* st, const float* ph,
                               unsigned char* tb, int y, int xg) {
-    using psf_wgmma::kMapTile;
-    psf_wgmma::form_t<kIlp>(tb, y, xg, [&](int e, float (&v)[6]) {
-      float s, c;
-      sincosf(ph[e], &s, &c);
+    if constexpr (kTf32) {
+      // the four rows' sincosf first, then a field at a time: all six
+      // parts of four rows at once spill beside O, S and C
+      using psf_wgmma::tf32::kMapTile;
+      float s[4], c[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int e = (4 * xg + h) * psf_wgmma::kStrip + y;
+        sincosf(ph[e], &s[h], &c[h]);
+      }
 #pragma unroll
       for (int d = 0; d < kFields; ++d) {
-        const float pc = st[2 * d * kMapTile + e],
-                    ps = st[(2 * d + 1) * kMapTile + e];
-        v[2 * d] = __fmul_rn(c, pc) - __fmul_rn(s, ps);
-        v[2 * d + 1] = __fmul_rn(s, pc) + __fmul_rn(c, ps);
+        psf_wgmma::form_field_tf32(
+            tb, 2 * d, y, xg, [&](int h, int e, float& re, float& im) {
+              const float pc = st[2 * d * kMapTile + e],
+                          ps = st[(2 * d + 1) * kMapTile + e];
+              re = __fmul_rn(c[h], pc) - __fmul_rn(s[h], ps);
+              im = __fmul_rn(s[h], pc) + __fmul_rn(c[h], ps);
+            });
       }
-    });
+    } else {
+      using psf_wgmma::kMapTile;
+      psf_wgmma::form_t<kIlp>(tb, y, xg, [&](int e, float (&v)[6]) {
+        float s, c;
+        sincosf(ph[e], &s, &c);
+#pragma unroll
+        for (int d = 0; d < kFields; ++d) {
+          const float pc = st[2 * d * kMapTile + e],
+                      ps = st[(2 * d + 1) * kMapTile + e];
+          v[2 * d] = __fmul_rn(c, pc) - __fmul_rn(s, ps);
+          v[2 * d + 1] = __fmul_rn(s, pc) + __fmul_rn(c, ps);
+        }
+      });
+    }
   }
 };
+using DivTf32 = Div<true>;
+using DivBf16 = Div<false>;
 
-// Dynamic shared memory a block of the float32 kernel takes.
-constexpr size_t kSmemBytes =
-    psf_mma::smem_bytes(DiversityFields::kMaps, Precision::kTf32x3);
-
-__global__ void __launch_bounds__(psf_mma::kThreads, 2)
-psf_div_kernel(DiversityFields fields, psf_mma::Band band, int R, int w,
-               float scale, int vec16) {
-  psf_mma::crop_block<Precision::kTf32x3>(fields, band, R, w, scale, vec16);
+__global__ void __launch_bounds__(psf_wgmma::kThreads, 1)
+psf_div_kernel(const __grid_constant__ psf_wgmma::Inputs<DivTf32> in,
+               const DivTf32 pol, const psf_wgmma::Args a) {
+  psf_wgmma::block_tf32(in, pol, a);
 }
 
 __global__ void __launch_bounds__(psf_wgmma::kThreads, 1)
@@ -162,26 +149,22 @@ psf_div_bf16_kernel(
 
 extern "C" {
 
-// Lays the operator out in `work` -- ceil(w / 32) * ceil(R / 32) * 32 *
-// 32 * 2 floats, 16-byte aligned, allocated by the caller -- and launches
-// the kernel (once per band pair of a crop wider than 32 px), all on
-// `stream` (a cudaStream_t) of CUDA device `device`.  Returns the first
-// error: 0 when every launch was accepted.
+// Lays the operator's 3xTF32 image out in `work` -- ceil(w / 32) * 256 *
+// (R rounded up to 32) floats, 16-byte aligned, allocated by the caller
+// -- and launches the kernel (once per band pair of a crop wider than 32
+// px), all on `stream` (a cudaStream_t) of CUDA device `device`.  Returns
+// the first error: 0 when every launch was accepted.
 int psf_div(const float* phase, const float* pcd, const float* psd,
             const float* are, const float* aim, float* work, float* out,
             int batch, int n_div, int R, int w, float scale, int device,
             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch <= 0 || n_div <= 0) return 0;
-  using psf_mma::aligned16;
-  const int vec16 =
-      R % 4 == 0 && aligned16(phase) && aligned16(pcd) && aligned16(psd);
-  const dim3 grid(batch, (n_div + kFields - 1) / kFields);
-  return static_cast<int>(psf_mma::launch(
-      psf_div_kernel, grid, kSmemBytes,
-      DiversityFields{phase, pcd, psd, out, n_div}, are, aim, work, R, w,
-      scale, vec16, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(psf_wgmma::launch_tf32(
+      psf_div_kernel, DivTf32{out, batch, n_div}, {pcd, psd, phase},
+      {n_div, n_div, batch}, are, aim, work, R, w, scale,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // As psf_div, with the DFT stages' operands in bf16: the
@@ -201,10 +184,13 @@ int psf_div_bf16(const float* phase, const float* pcd, const float* psd,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Dynamic shared memory a block of either kernel takes, in bytes: for
-// the bf16 kernel at the main path's R=128 and a crop of one band (it
-// grows with R and the crop's bands).
-int psf_div_smem_bytes() { return static_cast<int>(kSmemBytes); }
+// Dynamic shared memory a block of either kernel takes, in bytes: the
+// float32 kernel's at any R on the current device, the bf16 one's at the
+// main path's R=128 and a crop of one band (it grows with R and the
+// crop's bands).
+int psf_div_smem_bytes() {
+  return static_cast<int>(psf_wgmma::tf32::launch_smem<DivTf32>());
+}
 int psf_div_bf16_smem_bytes() {
   return static_cast<int>(
       psf_wgmma::smem_bytes<DivBf16>(128, 1, psf_wgmma::kMaxStages));

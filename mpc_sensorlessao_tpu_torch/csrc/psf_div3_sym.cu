@@ -165,11 +165,11 @@ int psf_div3_sym_bf16(const float* phase, const float* pupil,
 }
 
 // Dynamic shared memory a block of either kernel takes, in bytes: the
-// float32 kernel's at any R, the bf16 one's at the main path's R=128 and
-// a crop of one band (it grows with R and the crop's bands).
+// float32 kernel's at any R on the current device, the bf16 one's at the
+// main path's R=128 and a crop of one band (it grows with R and the
+// crop's bands).
 int psf_div3_sym_smem_bytes() {
-  return static_cast<int>(
-      psf_wgmma::tf32::smem_bytes<Sym3Tf32>(psf_wgmma::kMaxStages));
+  return static_cast<int>(psf_wgmma::tf32::launch_smem<Sym3Tf32>());
 }
 int psf_div3_sym_bf16_smem_bytes() {
   return static_cast<int>(

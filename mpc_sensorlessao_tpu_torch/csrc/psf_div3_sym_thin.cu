@@ -18,14 +18,15 @@
 // and G_+a = G_P - G_Q, before stage 2: the same sums the TPU kernel forms
 // on its rows, and the same tensor-core work as B1.
 //
-// What bounds it, and the design: the mma.sync engine psf_mma.cuh that B1
-// ran until it moved to psf_wgmma.cuh, with the field-forming policy of
-// psf_sym3.cuh, recombining in both precisions: 3 TF32 passes of 62.0
-// GFLOP of DFT stages per call at R=128, B=4096.  It stays on this engine
-// as the yardstick of B1's old design in the kernel A/B.  The FP32 design this replaced ran the six products'
-// first stage as scalar fmaf chains (48 row accumulators a thread) and
-// took 2.3298 ms there (NVIDIA H100 80GB HBM3, 700 W), 16.1% of the
-// tensor bound.
+// What bounds it, and the design: the mma.sync engine psf_mma.cuh that
+// B1, B2 and B3 ran until they moved to psf_wgmma.cuh, with the
+// field-forming policy of psf_sym3.cuh, recombining in both precisions:
+// 3 TF32 passes of 62.0 GFLOP of DFT stages per call at R=128, B=4096.
+// It stays on this engine, the only kernel there, as the yardstick of
+// their old design in the kernel A/B.  The FP32 design this replaced ran
+// the six products' first stage as scalar fmaf chains (48 row
+// accumulators a thread) and took 2.3298 ms there (NVIDIA H100 80GB
+// HBM3, 700 W), 16.1% of the tensor bound.
 //
 // psf_div3_sym_thin_bf16 is the TPU kernel's compute_dtype="bfloat16"
 // branch on the same engine (Precision::kBf16: one bf16 pass, f32 sums),

@@ -1,16 +1,15 @@
-// The tensor-core DFT engine of the PSF-measurement kernels B2
-// (psf_div.cu), B3 (psf_crop.cu) and B4 (psf_div3_sym_thin.cu), and of
-// B4's bf16 entry; B1 (psf_div3_sym.cu) ran on it until both its entries,
-// like B2 and B3's bf16 ones, moved to psf_wgmma.cuh.  For the three
-// complex fields F_d (R x R) of
-// one block it computes
+// The tensor-core DFT engine of kernel B4 (psf_div3_sym_thin.cu), both
+// its float32 and its bf16 entry; B1 (psf_div3_sym.cu), B2 (psf_div.cu)
+// and B3 (psf_crop.cu) ran on it until all their entries moved to
+// psf_wgmma.cuh.  B4 stays on it as the yardstick of their old design.
+// For the three complex fields F_d (R x R) of one block it computes
 //
 //   out[d] = |A F_d A^T|^2 * scale,      A the (w, R) partial DFT, any w,
 //
 // with both DFT stages on the tensor cores at float32 accuracy (3xTF32).
-// The kernels differ only in how their three fields are formed from the
-// maps of a tile, which a field-forming policy says (below); the DFT
-// stages, the tiling and the prefetch are this header's.
+// How the three fields are formed from the maps of a tile is a
+// field-forming policy's (below; psf_sym3.cuh's); the DFT stages, the
+// tiling and the prefetch are this header's.
 //
 // What bounds it.  Nearly all the work is the two complex matrix products
 // (stage 1 G_d = A F_d, stage 2 G_d A^T): 62.0 GFLOP per 3 x 4096 fields
@@ -60,7 +59,7 @@
 //     column band) pair of the output, the pair's operator bands and
 //     offsets a kernel argument (Band), read from the constant bank: as a
 //     value the loops kept (the pair from a third grid axis) it spilled
-//     B3 at 128 registers.  Each block forms its fields, runs stage 1 on
+//     a kernel at 128 registers.  Each block forms its fields, runs stage 1 on
 //     its row band of A and stage 2 on its column band.  A w <= 32 crop
 //     (nb = 1) is one launch; a wider one forms each field nb^2 times and
 //     runs stage 1 nb times over (stage 2 once), the price of keeping each
@@ -96,30 +95,27 @@
 // and the complex parts' mma -- are one trait each, so each DFT stage
 // has one loop body for both precisions.
 // The G a warp holds in stage 1 is one column tile of all three fields,
-// for kBf16 and for a policy that recombines, so that the policy can
-// recombine them in registers before G is stored.
+// so that the policy can recombine them in registers before G is
+// stored.
 // The result O waits in shared memory between strips (kOSlots floats a
 // thread, read and written by that thread alone): in registers it
 // spilled beside the bf16 loops' operands at 128 registers.
 //
 // A field-forming policy F is a small struct, built by its kernel from
 // the kernel's arguments, with
-//   static constexpr int kMaps;       (R, R) maps a K tile loads
-//   static constexpr bool kRecombine; recombine() is called
-//   const float* map(int a, int R);   map a's plane for this block: any
-//                                     readable plane where !present(a)
-//   bool present(int a);              false: map a reads as zeros
-//   int fields();                     fields with an output, <= kFields
+//   static constexpr int kMaps;       (R, R) maps a K tile loads (held in
+//                                     registers: 4 fit at 128)
+//   const float* map(int a, int R);   map a's plane for this block
 //   float* out(int w);                the first field's (w, w) output;
 //                                     field d's follows at d w^2
 //   void form(const float* m, float2 (&f)[kFields]);
 //                                     the three fields at one pixel, where
 //                                     m[a * kTile * kTile] is map a's value
 //   void recombine(float (&g)[kFields][4]);
-//                                     where kRecombine, in either
-//                                     precision: the float32 stage-1 rows
-//                                     of the formed fields at 4 pixels ->
-//                                     those of the fields measured
+//                                     in either precision: the float32
+//                                     stage-1 rows of the formed fields at
+//                                     4 pixels -> those of the fields
+//                                     measured
 // (all const __device__ members).
 
 #pragma once
@@ -374,34 +370,14 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
   const int g = lane / 4, t = lane % 4;
   const int nk = (R + kTile - 1) / kTile;
   const int steps = nk * (nk + 1);          // per strip: nk K tiles + 1
-  // the block's map planes: held in registers across the K loop for 4
-  // maps (B1, B3, which run slower reading them from a table), read from
-  // shared memory at each load for more (B2's 7 pointers spill at 128
-  // registers)
-  constexpr bool kTable = F::kMaps > 4;
-  __shared__ const float* table[F::kMaps];
-  const float* held[F::kMaps];
-  if constexpr (kTable) {
-    if (threadIdx.x < F::kMaps) {
-      table[threadIdx.x] = fields.map(threadIdx.x, R);
-    }
-    __syncthreads();
-  } else {
+  // the block's map planes, held in registers across the K loop
+  const float* plane[F::kMaps];
 #pragma unroll
-    for (int a = 0; a < F::kMaps; ++a) held[a] = fields.map(a, R);
-  }
-  auto plane = [&](int a) { return kTable ? table[a] : held[a]; };
+  for (int a = 0; a < F::kMaps; ++a) plane[a] = fields.map(a, R);
 
-  // stage 1 roles: m16 tile m1 of the band's 32 crop rows, three n8
-  // tiles j of the 12 (3 fields x 4) of the strip's 96 columns -- 3 n1 ..
-  // 3 n1 + 2; for kBf16 or a policy that recombines, column tile n1 of
-  // each field j, which recombine needs
+  // stage 1 roles: m16 tile m1 of the band's 32 crop rows, column tile n1
+  // of each field j (of the strip's 96 columns), which recombine needs
   const int m1 = warp & 1, n1 = warp >> 1;
-  constexpr bool kColumnTile = kBf16 || F::kRecombine;
-  auto field_of = [&](int j) { return kColumnTile ? j : (3 * n1 + j) / 4; };
-  auto column_of = [&](int j) {
-    return kColumnTile ? 8 * n1 : ((3 * n1 + j) % 4) * 8;
-  };
   // stage 2 roles: m16 tile m2 of the output rows u, n8 tile n2 of v
   const int m2 = warp & 1, n2 = warp >> 1;
 
@@ -434,7 +410,7 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
     }
   };
   // the maps of field tile rows 32 kt.., columns 32 strip.. into raw,
-  // zero outside the R x R grid and for absent maps
+  // zero outside the R x R grid
   auto load_raw = [&](int kt, int strip) {
     const int x0 = kt * kTile, y0 = strip * kTile;
     if (vec16) {
@@ -445,8 +421,8 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
       const size_t idx = ok ? static_cast<size_t>(x) * R + y : 0;
 #pragma unroll
       for (int a = 0; a < F::kMaps; ++a) {
-        cp_async16_fill(raw + (a * kTile + i) * kTile + c, plane(a) + idx,
-                        ok && fields.present(a) ? 16u : 0u);
+        cp_async16_fill(raw + (a * kTile + i) * kTile + c, plane[a] + idx,
+                        ok ? 16u : 0u);
       }
     } else {
 #pragma unroll
@@ -457,7 +433,7 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
 #pragma unroll
         for (int a = 0; a < F::kMaps; ++a) {
           cp_async4_fill(raw + (a * kTile + i) * kTile + lane,
-                         plane(a) + idx, ok && fields.present(a) ? 4u : 0u);
+                         plane[a] + idx, ok ? 4u : 0u);
         }
       }
     }
@@ -473,11 +449,9 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
     const bool stage1 = kt < nk;
 
     if (stage1) {
-      // the field tiles from raw: rows i, column lane.  An unrolled step
-      // holds its rows' map values in registers: all 4 rows where a row
-      // takes 4 maps, 2 for B2's 7 maps, whose 4 rows spill at 128
-      // registers
-#pragma unroll (F::kMaps > 4 ? 2 : kTile / kWarps)
+      // the field tiles from raw: rows i, column lane, all 4 rows' map
+      // values in registers
+#pragma unroll
       for (int r = 0; r < kTile / kWarps; ++r) {
         const int i = warp + kWarps * r;
         float2 f[kFields];
@@ -490,15 +464,13 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
     } else {
       // the strip's G from the stage-1 accumulators: rows u, u + 8,
       // columns yo, yo + 1 as two (re, im) pairs a store
-      if constexpr (F::kRecombine) {
-        fields.recombine(g_re);
-        fields.recombine(g_im);
-      }
+      fields.recombine(g_re);
+      fields.recombine(g_im);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        const int d = field_of(j), yo = column_of(j) + 2 * t;
+        const int yo = 8 * n1 + 2 * t;
         float4* row = reinterpret_cast<float4*>(
-            fbuf + (d * kCrop + 16 * m1 + g) * kStride + yo);
+            fbuf + (j * kCrop + 16 * m1 + g) * kStride + yo);
         row[0] = make_float4(g_re[j][0], g_im[j][0], g_re[j][1], g_im[j][1]);
         row[4 * kStride] =
             make_float4(g_re[j][2], g_im[j][2], g_re[j][3], g_im[j][3]);
@@ -534,8 +506,7 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
         for (int j = 0; j < 3; ++j) {
           // B fragments of the field rows x = kK ks + t.., column g
           const Frag<P, 2> f = b_frag<P>(
-              fbuf + (field_of(j) * kTile + kK<P> * ks + t) * kStride +
-                  column_of(j) + g,
+              fbuf + (j * kTile + kK<P> * ks + t) * kStride + 8 * n1 + g,
               kStride);
           const auto nf = f.neg_im();
           mma(g_re[j], a.re, f.re);
@@ -599,7 +570,6 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
     }
   }
   float* o = fields.out(w);
-  const int live = fields.fields();
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int u = band.u0 + 16 * m2 + g + 8 * (r / 2);
@@ -607,10 +577,8 @@ __device__ __forceinline__ void crop_block(const F& fields, const Band& band,
     if (u < w && v < w) {
 #pragma unroll
       for (int d = 0; d < kFields; ++d) {
-        if (d < live) {
-          o[(d * w + u) * w + v] =
-              (o_re[d][r] * o_re[d][r] + o_im[d][r] * o_im[d][r]) * scale;
-        }
+        o[(d * w + u) * w + v] =
+            (o_re[d][r] * o_re[d][r] + o_im[d][r] * o_im[d][r]) * scale;
       }
     }
   }

@@ -38,7 +38,6 @@ using psf_mma::Precision;
 template <Precision P>
 struct Fields {
   static constexpr int kMaps = 4;     // phase, pupil, pcd, psd
-  static constexpr bool kRecombine = true;
   const float* phase;                 // (B, R, R)
   const float* pupil;                 // (R, R)
   const float* pcd;                   // (R, R)
@@ -51,8 +50,6 @@ struct Fields {
            : a == 2 ? pcd
                     : psd;
   }
-  __device__ bool present(int) const { return true; }
-  __device__ int fields() const { return kFields; }
   __device__ float* out(int w) const {
     return out_ + static_cast<size_t>(blockIdx.x) * kFields * w * w;
   }

@@ -1,24 +1,25 @@
-// The Hopper engine of the PSF kernels' bf16 entries and of B1 in
-// float32: B1's psf_div3_sym_bf16 and psf_div3_sym (psf_div3_sym.cu), B2's
-// psf_div_bf16 (psf_div.cu) and B3's psf_crop_bf16 (psf_crop.cu), the
-// compute_dtype="bfloat16" branches of the TPU kernels
-// mpc_sensorlessao_tpu/ops/pallas_kernels.py `_psf_div3_sym_kernel`
-// (:115-175, pallas_call :309), `_psf_div_kernel` (:65-112, pallas_call
-// :365) and `_psf_kernel` (:26-62, pallas_call :408), and the float32
-// branch of the first, on warpgroup matrix products (wgmma), asynchronous
-// copies completing on mbarriers, and persistent blocks.  For the three
-// fields F_d of every work item it computes
+// The Hopper engine of the PSF kernels B1-B3, both entries of each: B1's
+// psf_div3_sym and psf_div3_sym_bf16 (psf_div3_sym.cu), B2's psf_div and
+// psf_div_bf16 (psf_div.cu) and B3's psf_crop and psf_crop_bf16
+// (psf_crop.cu), the float32 and compute_dtype="bfloat16" branches of
+// the TPU kernels mpc_sensorlessao_tpu/ops/pallas_kernels.py
+// `_psf_div3_sym_kernel` (:115-175, pallas_call :309), `_psf_div_kernel`
+// (:65-112, pallas_call :365) and `_psf_kernel` (:26-62, pallas_call
+// :408), on warpgroup matrix products (wgmma), asynchronous copies
+// completing on mbarriers, and persistent blocks (B4 alone stays on the
+// mma.sync engine psf_mma.cuh).  For the three fields F_d of every work
+// item it computes
 //
 //   out[item, d] = |A F_d A^T|^2 * scale,
 //
 // with A the (w, R) partial centered DFT.  In bf16 (block) it rounds
 // where the TPU kernel rounds: the operator, the six bf16 parts a field
 // policy forms a pixel, and each field's stage-1 rows G = [rr; ri] once;
-// every sum in float32.  In 3xTF32 (block_tf32, B1 float32) every
-// operand is split into TF32 hi and lo, x = hi + lo to float32 accuracy,
-// and each product is lo*hi + hi*lo + hi*hi, as the mma.sync engine
-// psf_mma.cuh takes it; its differences from the bf16 block are listed
-// above block_tf32.
+// every sum in float32.  In 3xTF32 (block_tf32, the float32 entries)
+// every operand is split into TF32 hi and lo, x = hi + lo to float32
+// accuracy, and each product is lo*hi + hi*lo + hi*hi, as the mma.sync
+// engine psf_mma.cuh takes it; its differences from the bf16 block are
+// listed above block_tf32.
 //
 // The policies (a struct beside each entry; what the engine asks of one
 // is listed above `block`).  Each says which maps a pipeline stage holds,
@@ -39,17 +40,21 @@
 //     s pcd_d + c psd_d), each product rounded (__fmul_rn: a fused
 //     multiply-add rounds once and flips bf16 roundings), their sum in
 //     float32, then rounded once, as pup (cp cd - sp sd) in the TPU kernel
-//     (exact: the pupil is a 0/1 mask).  No recombination.  A ragged last
-//     group reads a present diversity in place of an absent one and
-//     stores nothing for it;
+//     (exact: the pupil is a 0/1 mask); in 3xTF32 that sum is split into
+//     hi and lo, the four rows' sincosf first and then a field at a time
+//     (form_field_tf32).  No recombination.  A ragged last group
+//     reads a present diversity in place of an absent one and stores
+//     nothing for it;
 //   * crop (B3): an item is three consecutive planes of the (N, R, R)
 //     total phases (on the loop's route one scenario's diversities); a
 //     stage holds the pupil (shared) and each consumer's three phases, 7
 //     maps.  The parts are pupil (cos, sin) of each phase, three sincosf
-//     a pixel, rounded once, formed one field at a time (form_field):
+//     a pixel, rounded once, formed a field at a time (form_field, the
+//     loop unrolled by two):
 //     all three at once, 12 sincosf chains beside O and S, took 0.78 ms
-//     where this takes 0.61.  No recombination.  Planes at or past N
-//     read a present plane and store nothing.
+//     where this takes 0.61; in 3xTF32 likewise, split into hi and lo
+//     (form_field_tf32).  No recombination.  Planes at or past N read a
+//     present plane and store nothing.
 //
 // What bounds them.  At R=128, B=4096, w=31 the two DFT stages are 62.0
 // GFLOP a kernel (0.063 ms at the card's published 989 TFLOP/s bf16).
@@ -127,15 +132,21 @@
 // (sym3), 896 (div), 960 (crop) for a crop of one band, above R = 512,
 // 448, 448 for a wider one.
 // 3xTF32 (block_tf32) keeps 2 x 24 KB of T buffers a consumer, streams
-// both stages' operator tiles, and takes 222,208 B at any R: no R is
+// both stages' operator tiles with the maps (16 KB a stage beside 2 KB a
+// map), and takes the same shared memory at any R: 4 stages for sym3
+// (222,208 B), 3 for div (214,016) and crop (207,872), which 4 stages
+// (246,784 and 238,592) would take past the H100's 232,448; no R is
 // refused.  At R=128, B=4096 it does 3 x 62.0 GFLOP (0.3759 ms at the
 // published 495 TFLOP/s TF32), and its stage-1 operand reads alone keep
 // the shared memory ~80% busy.
 // Measured (NVIDIA H100 80GB HBM3, 700 W; benchmarks/kernel_variants.py,
 // benchmarks/bf16_knockouts.py, PERF.md) at R=128, B=4096, w=31, against
 // the mma.sync design in the same call: sym3 0.35 ms (0.66), div 0.37-
-// 0.38 (0.84), crop 0.61-0.62 (0.92); sym3 in 3xTF32 0.78 (1.34), its
-// forming ~0.24 and stage 1's wgmma ~0.25 of it, little overlapped.  Knock-out builds split them: the
+// 0.38 (0.84), crop 0.61-0.62 (0.92); in 3xTF32 sym3 0.78 (1.34), div
+// 0.89-0.90 (1.43), crop 1.03 (1.53), their forming ~0.25 / 0.30 / 0.43
+// and stage 1's wgmma ~0.19-0.26 of it, little overlapped: without
+// forming and loads ~0.50 ms of products and waits remain, near the
+// measured TF32 ceiling.  Knock-out builds split the bf16 ones: the
 // field forming costs about 0.19 / 0.16 / 0.30 ms (its sincosf 0.09 /
 // 0.06 / 0.26), stage 1's wgmma 0.02-0.04, the TMA loads 0.01-0.03; with
 // forming and loads both out about 0.13 ms remain, the products and the
@@ -660,12 +671,27 @@ __device__ __forceinline__ void crop_rows_tf32(
   });
 }
 
-// T of one 3xTF32 stage: as form_t, for field rows x = 4 xg..4 xg + 3 of
-// column y, all four at once, each part split into hi and lo (x = hi + lo
-// to float32 accuracy, both TF32) and stored once in its plane of the
-// swizzled K-major layout: a 128-byte row per n = 16 part + y, 32 K
-// values, one 16-byte store a part and plane (chunk xg of row n, at xg ^
-// (n % 8)).
+// Part q of a 3xTF32 stage's T at field rows x = 4 xg..4 xg + 3 of column
+// y, v[h] at row 4 xg + h: each value split into hi and lo (x = hi + lo to
+// float32 accuracy, both TF32) and stored once in its plane of the
+// swizzled K-major layout: a 128-byte row per n = 16 q + y, 32 K values,
+// one 16-byte store a plane (chunk xg of row n, at xg ^ (n % 8)).
+__device__ __forceinline__ void store_part_tf32(unsigned char* tb, int q,
+                                                int y, int xg,
+                                                const float (&v)[4]) {
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) split(v[h], hi[h], lo[h]);
+  const int n = kStrip * q + y;
+  unsigned char* const at = tb + n * 128 + (xg ^ (n % 8)) * 16;
+  *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(at + tf32::kPlane) =
+      make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
+
+// T of one 3xTF32 stage: the six parts that `part` (e, v) forms in
+// float32 for field rows x = 4 xg..4 xg + 3 of column y, all four at
+// once, each stored by store_part_tf32.
 template <class Part>
 __device__ __forceinline__ void form_t_tf32(unsigned char* tb, int y, int xg,
                                             Part part) {
@@ -674,15 +700,24 @@ __device__ __forceinline__ void form_t_tf32(unsigned char* tb, int y, int xg,
   for (int h = 0; h < 4; ++h) part((4 * xg + h) * kStrip + y, v[h]);
 #pragma unroll
   for (int q = 0; q < kParts; ++q) {
-    uint32_t hi[4], lo[4];
-#pragma unroll
-    for (int h = 0; h < 4; ++h) split(v[h][q], hi[h], lo[h]);
-    const int n = kStrip * q + y;
-    unsigned char* const at = tb + n * 128 + (xg ^ (n % 8)) * 16;
-    *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-    *reinterpret_cast<uint4*>(at + tf32::kPlane) =
-        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    const float p[4] = {v[0][q], v[1][q], v[2][q], v[3][q]};
+    store_part_tf32(tb, q, y, xg, p);
   }
+}
+
+// Parts q0 and q0 + 1 of a 3xTF32 stage's T (one field's re and im) as
+// `part` (h, e, re, im) forms them in float32 for the thread's row h at
+// element e; otherwise as form_t_tf32.
+template <class Part>
+__device__ __forceinline__ void form_field_tf32(unsigned char* tb, int q0,
+                                                int y, int xg, Part part) {
+  float re[4], im[4];
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    part(h, (4 * xg + h) * kStrip + y, re[h], im[h]);
+  }
+  store_part_tf32(tb, q0, y, xg, re);
+  store_part_tf32(tb, q0 + 1, y, xg, im);
 }
 
 // Consumer wg's output of pair q from its stage-2 sums O (rows rr_u, ri_u
@@ -907,8 +942,9 @@ __device__ __forceinline__ void block(const Inputs<P>& in, const P& pol,
 
 // The block in 3xTF32 (launched by launch_tf32): block's roles, policy
 // and skew, with
-//   * stages of tf32::kChunk = 32 field rows; T (policy P's form_t_tf32)
-//     and every operator tile in hi and lo planes, and each k8 step of a
+//   * stages of tf32::kChunk = 32 field rows; T (policy P's form, on
+//     form_t_tf32 or form_field_tf32) and every operator tile in hi and
+//     lo planes, and each k8 step of a
 //     product as three wgmma, lo*hi + hi*lo + hi*hi (3xTF32, as the
 //     mma.sync engine psf_mma.cuh).  Stage 1 sums hi*hi in S and the two
 //     corrections in C, added in float32 at the strip's end: the tensor
@@ -1285,6 +1321,29 @@ cudaError_t launch(Kernel kernel, const P& pol,
   return cudaGetLastError();
 }
 
+namespace tf32 {
+// Ring stages of policy P where a block may opt in to `optin` bytes of
+// shared memory: as many as fit, at most kMaxStages (the static barriers
+// take the last 128 bytes).  At the H100's 232,448: 4 for sym3 (5 maps a
+// stage), 3 for div (8) and crop (7).
+template <class P>
+int stages(int optin) {
+  const long left = static_cast<long>(optin) - 128 -
+                    static_cast<long>(smem_bytes<P>(0));
+  const long fit = left < 0 ? 0 : left / stage_bytes<P>();
+  return static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+}
+// Dynamic shared memory a launch of policy P takes on the current device
+// (at any R), or 0 where fewer than 2 stages fit.
+template <class P>
+size_t launch_smem() {
+  int sms = 0, optin = 0;
+  if (device_limits(sms, optin) != cudaSuccess) return 0;
+  const int n = stages<P>(optin);
+  return n < 2 ? 0 : smem_bytes<P>(n);
+}
+}  // namespace tf32
+
 // As launch, for block_tf32: lays the operator's 3xTF32 image out in
 // `work` (bands(w) * tf32::image_bytes(R) bytes, 16-byte aligned,
 // allocated by the caller) and launches `kernel` once per band pair of
@@ -1311,11 +1370,7 @@ cudaError_t launch_tf32(Kernel kernel, const P& pol,
   if (!tensor_maps(inputs, in, planes, R, tf32::kChunk, tma)) {
     return cudaErrorInvalidValue;
   }
-  // the static barriers take the last 128 bytes of the opt-in limit
-  const long left = static_cast<long>(optin) - 128 -
-                    static_cast<long>(tf32::smem_bytes<P>(0));
-  const long fit = left < 0 ? 0 : left / tf32::stage_bytes<P>();
-  const int stages = static_cast<int>(fit < kMaxStages ? fit : kMaxStages);
+  const int stages = tf32::stages<P>(optin);
   if (stages < 2) return cudaErrorInvalidValue;
   const size_t smem = tf32::smem_bytes<P>(stages);
   err = cudaFuncSetAttribute(kernel,

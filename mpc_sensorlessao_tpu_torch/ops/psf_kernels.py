@@ -15,9 +15,9 @@ nvcc at first use, bound with ctypes, counted in ``<wrapper>.launches``)
 or raises; on a CPU tensor it runs its plain PyTorch version
 ``<wrapper>_ref``.  There is no other fallback.  All four run both DFT
 stages on the tensor cores in 3xTF32 (float32 accuracy), at any crop
-width w (the Pallas kernels' range): B1 on the Hopper engine
-``csrc/psf_wgmma.cuh`` (wgmma with persistent blocks), B2-B4 on
-``csrc/psf_mma.cuh`` (mma.sync).
+width w (the Pallas kernels' range): B1-B3 on the Hopper engine
+``csrc/psf_wgmma.cuh`` (wgmma with persistent blocks, one field policy
+each), B4 alone on ``csrc/psf_mma.cuh`` (mma.sync).
 
 Each also takes ``compute_dtype="bfloat16"``, the Pallas kernels' branch
 that rounds the DFT stages' operands to bf16 and sums in float32: on a
@@ -307,12 +307,12 @@ def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
 
 def _operator_scratch(R: int, w: int) -> int:
     """Floats of the scratch in which a kernel lays its operator out, in
-    bands of 32 rows: B1's 3xTF32 image on the wgmma engine, the stacked
-    operator's 64 rows split into TF32 hi and lo for stage 1 and again
-    for stage 2, ``256 * ceil(R / 32) * 32 * ceil(w / 32)``.  The others
-    need less: the mma.sync engine's 32 x 32 tiles of (re, im) (B2-B4),
-    ``2 * 32 * 32 * ceil(R / 32) * ceil(w / 32)``, and the bf16 entries'
-    bf16 image, ``32 * ceil(R / 64) * 64 * ceil(w / 32)``."""
+    bands of 32 rows: B1-B3's 3xTF32 image on the wgmma engine, the
+    stacked operator's 64 rows split into TF32 hi and lo for stage 1 and
+    again for stage 2, ``256 * ceil(R / 32) * 32 * ceil(w / 32)``.  The
+    others need less: the mma.sync engine's 32 x 32 tiles of (re, im)
+    (B4), ``2 * 32 * 32 * ceil(R / 32) * ceil(w / 32)``, and the bf16
+    entries' bf16 image, ``32 * ceil(R / 64) * 64 * ceil(w / 32)``."""
     return 8 * MMA_TILE * MMA_TILE * -(-R // MMA_TILE) * -(-w // MMA_TILE)
 
 

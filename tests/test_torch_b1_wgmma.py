@@ -223,16 +223,25 @@ def _wgmma_b1_tf32(phase, pupil, cos_a, sin_a, dft_op, scale, rtz=True,
     im = torch.stack([S[:, 1] + S[:, 5], S[:, 3], S[:, 1] - S[:, 5]], 1)
     rr = re[:, :, 0] - im[:, :, 1]                              # (B,3,w,R)
     ri = im[:, :, 0] + re[:, :, 1]
-    G = torch.stack([rr, ri], dim=2)[:, :, :, None]            # (B,3,2,1,w,R)
+    return _stage2_tf32(rr, ri, A2, scale, rtz, stage1 == ("hh",))
+
+
+def _stage2_tf32(rr, ri, A2, scale, rtz, one_pass=False):
+    """Stage 2 and the epilogue of the 3xTF32 block from the float32
+    stage-1 rows rr, ri (..., w, R) and the stacked operator A2 (2, w, R):
+    a 16-column strip at a time, its K in the fragments' order (_PI),
+    each strip's chain (lo*hi, hi*lo, hi*hi; hi*hi alone with
+    ``one_pass``) from zero added to O in float32, then (orr^2 + oi^2)
+    scale."""
+    G = torch.stack([rr, ri], dim=-3)[..., None, :, :]         # (...,2,1,w,R)
     AT = A2.transpose(-1, -2)                                   # (2,R,w)
-    R = phase.shape[-1]
-    products2 = "hh" if stage1 == ("hh",) else "lh hl hh"
+    products2 = "hh" if one_pass else "lh hl hh"
     O = 0.0
-    for y0 in range(0, R, 16):
+    for y0 in range(0, rr.shape[-1], 16):
         cols = [y0 + 8 * (j // 8) + _PI[j % 8] for j in range(16)]
         O = O + _chain_tf32(G[..., cols], AT[:, cols], rtz, products2)
-    orr = O[:, :, 0, 0] - O[:, :, 1, 1]
-    oi = O[:, :, 0, 1] + O[:, :, 1, 0]
+    orr = O[..., 0, 0, :, :] - O[..., 1, 1, :, :]
+    oi = O[..., 0, 1, :, :] + O[..., 1, 0, :, :]
     return (orr * orr + oi * oi) * scale
 
 

@@ -122,29 +122,89 @@ def test_b1_float32_takes_an_r_its_bf16_entry_refuses(cuda_device):
     assert (k.launches, k.launches_bf16) == (before[0] + 1, before[1])
 
 
+# B2's and B3's float32 max error against their plain versions, of the
+# peak, at R <= 128 and at R=512: the mma.sync design's on chip_smoke.py's
+# inputs (its F32_ATOL; NVIDIA H100 80GB HBM3, 700 W), which their wgmma
+# design keeps -- on the triple (B2, B3) and on random maps (B2)
+B2_B3_F32_ATOL = {"triple": {128: 2.01e-6, 512: 3.78e-6},
+                  "random": {128: 2.08e-6, 512: 4.41e-6}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,n_div", [("b2", 3), ("b2", 5), ("b3", 3)])
+@pytest.mark.parametrize("R,B,c", [(128, 1, 15), (128, 5, 15), (98, 3, 15),
+                                   (512, 4, 15), (128, 3, 20), (128, 3, 31)])
+def test_b2_b3_wgmma_within_the_mma_sync_designs_error(cuda_device, kernel,
+                                                       n_div, R, B, c):
+    """B2 (on the symmetric triple, and on 5 random maps: a group of 3 and
+    a ragged one of 2) and B3 (on the 3 B total phases) float32 on the
+    wgmma engine (3xTF32) vs their plain versions on the card: one
+    scenario, an odd count (the last pair's second consumer stores
+    nothing), R=98 (rows copied in 4 bytes, not by TMA), R=512, and 41-
+    and 63-px crops (two bands), each within the mma.sync design's error
+    (B2_B3_F32_ATOL of the peak), and each call counted once."""
+    wrapper, plain, args = _kernel_args(kernel, R, B, c, cuda_device, n_div)
+    before = wrapper.launches
+    got = wrapper(*args)
+    wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    want = plain(*args)
+    assert got.shape == want.shape
+    assert got.shape[-2:] == (2 * c + 1, 2 * c + 1)
+    peak = float(want.abs().max())
+    err = float((got - want).abs().max())
+    limit = B2_B3_F32_ATOL["triple" if n_div == 3 else "random"]
+    assert err <= limit[128 if R <= 128 else 512] * peak, (err, peak)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,entry", [("b2", "psf_div_bf16"),
+                                          ("b3", "psf_crop_bf16")])
+def test_b2_b3_float32_take_an_r_their_bf16_entries_refuse(cuda_device,
+                                                           kernel, entry):
+    """B2 and B3 float32 stream their operator through the same fixed
+    shared-memory ring as B1, so at R=1152 they launch and meet the
+    float32 limits, while their bf16 entries, which hold the operator
+    whole, are refused there (above R=896 and 960) and the wrapper raises
+    without counting a launch."""
+    wrapper, plain, args = _kernel_args(kernel, 1152, 1, 15, cuda_device)
+    before = (wrapper.launches, wrapper.launches_bf16)
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    peak = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
+    with pytest.raises(RuntimeError, match=entry):
+        wrapper(*args, compute_dtype="bfloat16")
+    assert (wrapper.launches, wrapper.launches_bf16) == (before[0] + 1,
+                                                         before[1])
+
+
 MMA_LIBS = ["psf_div3_sym", "psf_div", "psf_crop", "psf_div3_sym_thin"]
-# libraries whose bf16 entry runs the wgmma engine csrc/psf_wgmma.cuh
+# libraries whose float32 and bf16 entries run the wgmma engine
+# csrc/psf_wgmma.cuh (B4's run the mma.sync engine csrc/psf_mma.cuh)
 WGMMA_LIBS = ("psf_div3_sym", "psf_div", "psf_crop")
-# TF32 warpgroup products (wgmma): B1's float32 entry, csrc/psf_wgmma.cuh
+# TF32 warpgroup products (wgmma): B1-B3's float32 entries
 TF32_HGMMA = re.compile(r"\bHGMMA\.64x\d+x8\.F32\.TF32\b")
 
 
 def _on_wgmma(lib: str, fn: str) -> bool:
-    """Whether kernel ``fn`` of ``lib`` runs the wgmma engine: B1-B3's bf16
-    entries and B1's float32 one."""
-    return lib in WGMMA_LIBS and (f"{lib}_bf16_kernel" in fn or
-                                  "psf_div3_sym_kernel" in fn)
+    """Whether kernel ``fn`` of ``lib`` runs the wgmma engine: B1-B3's
+    float32 and bf16 entries (not their operator-image kernels)."""
+    return lib in WGMMA_LIBS and (f"{lib}_kernel" in fn or
+                                  f"{lib}_bf16_kernel" in fn)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("lib", MMA_LIBS)
 def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
-    """The built SASS of B1 holds TF32 warpgroup products
-    (HGMMA.64xNx8.F32.TF32) and no HMMA, that of B2, B3 and B4 on the
-    mma.sync engine HMMA (tensor-core) instructions, and ptxas reports no
-    spill for any of a library's kernels (its float32 and bf16 entries'),
+    """The built SASS of B1, B2 and B3 holds TF32 warpgroup products
+    (HGMMA.64xNx8.F32.TF32) and no HMMA, that of B4 on the mma.sync
+    engine HMMA (tensor-core) instructions, and ptxas reports no spill
+    for any of a library's kernels (its float32 and bf16 entries'),
     within the 128 registers a thread that two resident blocks per SM
-    allow -- but the kernels on the wgmma engine (B1's, B2-B3's bf16), one
+    allow -- but the kernels on the wgmma engine (B1-B3's), one
     384-thread block an SM, within 168."""
     res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))
     assert any(f"{lib}_kernel" in fn for fn in res)
@@ -153,7 +213,7 @@ def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
         assert r["registers"] <= (168 if _on_wgmma(lib, fn) else 128), (fn,
                                                                           r)
     sass = device_peaks.sass(lib)
-    if lib == "psf_div3_sym":
+    if lib in WGMMA_LIBS:
         assert TF32_HGMMA.search(sass) and not re.findall(r"\bHMMA\.", sass)
     else:
         assert re.findall(r"\bHMMA\.", sass)
@@ -213,11 +273,11 @@ def test_b2_b3_b4_cuda_kernels_match_plain(cuda_device, kernel, n_div, R, B,
                                           ("b3", 1), ("b3", 7)])
 def test_b2_b3_ragged_groups_match_plain(cuda_device, kernel, count, R):
     """B2 on n_div = 1, 2, 4 random maps and B3 on N = 1, 7 total phases:
-    a group of fewer than three diversities, or a last block of fewer
-    than three items, reads its missing fields as zeros and stores
-    nothing for them.  R=98 is a ragged edge of the 32-px tile and not a
-    multiple of 4 (4-byte map copies).  rtol 2e-4; atol 1e-5 of the
-    peak (as B1)."""
+    a group of fewer than three diversities, or a last triple of fewer
+    than three items, reads a present map in place of each missing one
+    and stores nothing for it.  R=98 is a ragged edge of the 32-px stage
+    and not a multiple of 4 (4-byte map copies).  rtol 2e-4; atol 1e-5
+    of the peak (as B1)."""
     phase, pupil, _, _, op, scale = _b1_args(R, 3, 15, cuda_device)
     rng = np.random.default_rng(8)
     maps = torch.as_tensor((rng.normal(size=(count, R, R)) * 0.8).astype(

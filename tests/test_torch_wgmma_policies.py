@@ -1,13 +1,14 @@
-"""Kernels B2 and B3's bf16 entries on the Hopper engine
-(csrc/psf_wgmma.cuh, its div and crop policies): their arithmetic
-emulated on the CPU and held against the Pallas kernels'
-compute_dtype="bfloat16" branches in interpret mode.
+"""Kernels B2 and B3 on the Hopper engine (csrc/psf_wgmma.cuh, its div
+and crop policies), bf16 and float32 entries: their arithmetic emulated
+on the CPU and held against the Pallas kernels' compute_dtype="bfloat16"
+branches and float32 branches in interpret mode (the float32 ones also
+against the plain versions; see _wgmma_tf32).
 
-Both policies round where their TPU kernels round: the operator, each
-field's (re, im) as formed in float32 -- B2's from rounded products,
-c pcd - s psd and s pcd + c psd (pcd, psd = pupil cos, pupil sin of the
-diversity map), B3's pupil (cos, sin) of each total phase -- and each
-field's stage-1 rows.  Stage 1 sums the stacked operator's rows (are,
+In bf16 both policies round where their TPU kernels round: the
+operator, each field's (re, im) as formed in float32 -- B2's from
+rounded products, c pcd - s psd and s pcd + c psd (pcd, psd = pupil cos,
+pupil sin of the diversity map), B3's pupil (cos, sin) of each total
+phase -- and each field's stage-1 rows.  Stage 1 sums the stacked operator's rows (are,
 aim) against each part, chained over K in k16 slices as one wgmma
 accumulator takes them (test_torch_b1_wgmma._chain); rr = S[are][re] -
 S[aim][im] and ri = S[are][im] + S[aim][re] in float32, rounded to bf16
@@ -25,7 +26,7 @@ from mpc_sensorlessao_tpu.ops import dft as jdft
 from mpc_sensorlessao_tpu.ops import pallas_kernels as jpk
 from mpc_sensorlessao_tpu.ops import psf as jpsf
 from mpc_sensorlessao_tpu_torch.ops import dft, psf, psf_kernels, zernike
-from test_torch_b1_wgmma import BF16_ATOL, _chain
+from test_torch_b1_wgmma import BF16_ATOL, _chain, _chain_tf32, _stage2_tf32
 
 torch.set_num_threads(1)
 
@@ -195,3 +196,101 @@ def test_fused_forming_flips_the_fields_bf16_rounding():
     for g, f, w in zip(got, fused, want):
         assert torch.equal(bf(g), w)
         assert int((bf(f) != w).sum()) > 0
+
+
+# B2's and B3's float32 entries on the same engine in 3xTF32
+# (psf_wgmma.cuh's block_tf32, the div and crop policies' Div<true> and
+# Crop<true>): the parts formed in float32 as above, every operand split
+# into TF32 hi and lo, no recombination, and otherwise B1 float32's
+# arithmetic (test_torch_b1_wgmma._wgmma_b1_tf32)
+
+
+def _wgmma_tf32(fre: torch.Tensor, fim: torch.Tensor, dft_op: torch.Tensor,
+                scale: float, rtz: bool = True, stage1=("hh", "lh hl")):
+    """The engine's 3xTF32 arithmetic for fields that are not
+    recombined: their float32 parts fre, fim (..., R, R) -> crops (...,
+    w, w).  Stage 1 as separate chains of the stacked operator's rows
+    (are, aim) with each part over K = R, one chain a product group of
+    ``stage1`` (the kernel's: hi*hi in S, lo*hi and hi*lo in C), added in
+    float32; rr = S[are][re] - S[aim][im], ri = S[are][im] + S[aim][re];
+    stage 2 and the epilogue as _stage2_tf32 (one TF32 pass, hi*hi
+    alone, where ``stage1`` is ("hh",))."""
+    T = torch.stack([fre, fim], dim=-3)[..., None, :, :]       # (...,2,1,R,R)
+    A2 = torch.stack([dft_op.real, dft_op.imag])                # (2,w,R)
+    S = sum(_chain_tf32(A2, T, rtz, p) for p in stage1)         # (...,2,2,w,R)
+    re, im = S[..., 0, :, :, :], S[..., 1, :, :, :]            # rows are, aim
+    rr = re[..., 0, :, :] - im[..., 1, :, :]
+    ri = im[..., 0, :, :] + re[..., 1, :, :]
+    return _stage2_tf32(rr, ri, A2, scale, rtz, stage1 == ("hh",))
+
+
+def _case32(kind: str, c: int):
+    """(the policy's float32 parts, the operator, the scale, the float32
+    plain version's output, the JAX kernel's float32 branch in interpret
+    mode) on _case's inputs."""
+    rng = np.random.default_rng(3)
+    phase = (rng.normal(size=(B, R, R)) * 0.4).astype(np.float32)
+    z4 = zernike.make_basis(6, R, device="cpu").stack[4].numpy()
+    triple = np.stack([-A * z4, 0.0 * z4, A * z4]).astype(np.float32)
+    scale = 1.0 / float(jpsf.pupil_mask_np(R).sum()) ** 2
+    jop, op = (jdft.centered_partial_dft(R, c),
+               dft.centered_partial_dft(R, c, device="cpu"))
+    jpupil, pupil = jpsf.pupil_mask(R), psf.pupil_mask(R, device="cpu")
+    if kind == "b3":
+        total = (phase[:, None] + triple).reshape(-1, R, R)[:7]
+        want = jpk.psf_crop_intensity(jnp.asarray(total), jpupil, jop, scale,
+                                      interpret=True)
+        args = (torch.as_tensor(total), pupil, op, scale)
+        return (_crop_fields(*args[:2]), op, scale,
+                psf_kernels.psf_crop_intensity_ref(*args), np.asarray(want))
+    div = (triple if kind == "b2_triple" else
+           (rng.normal(size=(5, R, R)) * 0.8).astype(np.float32))
+    div_cos, div_sin = np.cos(div), np.sin(div)
+    want = jpk.psf_crop_diversity(
+        jnp.asarray(phase), jpupil, jnp.asarray(div_cos),
+        jnp.asarray(div_sin), jop, scale, interpret=True)
+    args = (torch.as_tensor(phase), pupil, torch.as_tensor(div_cos),
+            torch.as_tensor(div_sin), op, scale)
+    return (_div_fields(*args[:4]), op, scale,
+            psf_kernels.psf_crop_diversity_ref(*args), np.asarray(want))
+
+
+@pytest.fixture(scope="module", params=[
+    ("b2_triple", 15), ("b2_random5", 15), ("b3", 15),
+    ("b2_triple", 20), ("b2_random5", 20), ("b3", 20)],
+    ids=lambda p: f"{p[0]}-w{2 * p[1] + 1}")
+def case32(request):
+    return request.param[0], _case32(*request.param)
+
+
+@pytest.mark.parametrize("rtz", [True, False], ids=["rtz", "nearest"])
+def test_tf32_policy_arithmetic_matches_jax_kernel_and_plain(case32, rtz):
+    """B2's and B3's float32 arithmetic on the engine, emulated (the
+    parts formed in float32, the TF32 splits, hi*hi and lo*hi + hi*lo in
+    separate stage-1 sums, the fragments' K order, stage 2's partial sums
+    a strip), == the Pallas kernel it replaces in interpret mode at that
+    kernel's test tolerance (rtol 2e-4, atol 2e-4), and == the float32
+    plain version within rtol 2e-4 and atol 1e-5 of the peak
+    (chip_smoke.py's limit), whichever way the tensor cores' sums round,
+    at w = 31 and 41 (two crop bands on the card); B2 on the real triple
+    and on 5 random maps (a ragged group of 2 on the card), B3 on 7 total
+    phases (a ragged triple).  It errs 2.1e-7 to 5.6e-7 of the peak
+    against the plain version here."""
+    kind, (fields, op, scale, plain, want) = case32
+    got = _wgmma_tf32(*fields, op, scale, rtz=rtz)
+    assert got.shape == plain.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    peak = float(plain.abs().max())
+    torch.testing.assert_close(got, plain, rtol=2e-4, atol=1e-5 * peak)
+
+
+@pytest.mark.parametrize("kind", ["b2_triple", "b3"])
+def test_one_tf32_pass_misses_the_float32_limit_b2_b3(kind):
+    """The same arithmetic with hi*hi alone (one TF32 pass) misses the
+    float32 plain version by more than 1e-5 of the peak, for B2 and for
+    B3 at w = 31 (6.0e-5 and 2.5e-5 here): the limit needs the three
+    products."""
+    fields, op, scale, plain, _ = _case32(kind, 15)
+    got = _wgmma_tf32(*fields, op, scale, stage1=("hh",))
+    peak = float(plain.abs().max())
+    assert float((got - plain).abs().max()) > 1e-5 * peak
