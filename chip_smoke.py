@@ -11,15 +11,14 @@ package):
    psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu, transc_cos.cu)
    with nvcc for sm_90a, one nvcc each, all started together; print each
    build's seconds and ptxas registers, shared memory and spills.  B1,
-   B2, B3 and B4 (3xTF32 on the tensor cores: B1-B3 on the wgmma engine
-   csrc/psf_wgmma.cuh, B4 alone on csrc/psf_mma.cuh's mma.sync), and
-   their bf16 entries in the same libraries (one bf16 pass: B4's on
-   psf_mma.cuh, B1-B3's on psf_wgmma.cuh): each kernel's registers,
-   dynamic shared memory, spills and the tensor-core instructions in its
-   SASS; a spill, an mma.sync float32 kernel without HMMA or with bf16
-   ones, a bf16 mma.sync kernel without HMMA.16816.F32.BF16, or a wgmma
-   kernel without its HGMMA (bf16 HGMMA.64xNx16.F32.BF16; TF32
-   HGMMA.64xNx8.F32.TF32 for B1-B3 float32) or with any HMMA, fails.
+   B2, B3 and B4 (3xTF32 on the tensor cores, on the wgmma engine
+   csrc/psf_wgmma.cuh; B4 on B1's sym3 policy, csrc/psf_wgmma_sym3.cuh),
+   and their bf16 entries in the same libraries (one bf16 pass on the
+   same engine): each kernel's registers, dynamic shared memory, spills
+   and the tensor-core instructions in its SASS; a spill, or a kernel
+   without its HGMMA (bf16 HGMMA.64xNx16.F32.BF16; TF32
+   HGMMA.64xNx8.F32.TF32 for the float32 entries) or with any HMMA,
+   fails.
 3. kernel: each kernel against its plain PyTorch version on the card.
    B1-B4 at R=128, B=4096 (the main path's shapes; B3 at N=12,288) with
    31-px crops and with 41- and 63-px ones (two crop bands of the
@@ -27,12 +26,14 @@ package):
    the real defocus diversity; B2 also on a random 5-map stack, B3 on the
    total phases (rtol 2e-4; atol 1e-5 of the batch's PSF peak, because
    both sum R^2 unit-modulus field terms in float32 in different orders
-   -- an error that scales with the peak amplitude).  B1-B3 float32 at
-   every crop width within the mma.sync design's errors on the same
-   inputs (F32_ATOL, of the peak, at R <= 128 and at R=512; ROADMAP C.3),
-   also at R=98, B=256 (4-byte copies), B=1 and B=5 (an odd count), B3 at
-   N = 5 and 7 (a ragged triple), and at R=1152 (B=1), which the bf16
-   entries refuse (rtol 2e-4, atol 1e-5 of the peak there).  B1-B4's bf16
+   -- an error that scales with the peak amplitude).  B1-B4 float32 at
+   every crop width within the retired mma.sync design's errors on the
+   same inputs (F32_ATOL, of the peak, at R <= 128 and at R=512; ROADMAP
+   C.3; B4 at B1's), also at R=98, B=256 (4-byte copies), B=1 and B=5 (an
+   odd count), B3 at N = 5 and 7 (a ragged triple), and at R=1152 (B=1),
+   which the bf16 entries refuse (rtol 2e-4, atol 1e-5 of the peak
+   there).  B4's outputs equal B1's bit for bit, in both precisions, at
+   R=128, B=4096 and R=512, B=256 (one engine, one policy).  B1-B4's bf16
    entries at the same shapes against their plain versions' bf16 branch:
    atol 4e-5 of the peak on the real diversity (B1, B4, B2 on the triple,
    B3), 2e-4 on the 5 random maps (the tensor cores' stage-1 sums round
@@ -42,15 +43,16 @@ package):
    function).  The 4e-5 must catch a B1 kernel that rounds its +- fields
    instead of its four products: B2's bf16 plain version on the triple
    rounds those fields, and at R=128 (31 px) it must miss B1's by more.
-   B1-B3's bf16 entries also at R=98, B=256 (B2 on the triple and on
+   B1-B4's bf16 entries also at R=98, B=256 (B2 on the triple and on
    the 5 random maps), whose rows (392 bytes) their engine copies in 4
    bytes, not by TMA.  B5a/B5b at (4096, 4096) and at the ragged (1000, 1000), k = 8 and 32,
    on the JAX script's inputs (all 0.7) and on seeded U(-3, 3) (atol
    1e-6: both chains contract, so rounding does not grow with k).
 4. variants: the kernel A/B entry point (benchmarks/kernel_variants.py)
    at R=128, B=4096 -- the main path's shapes, B3 at N=12,288 -- and at
-   R=512, B=256, in turns kernels, plain versions, kernels.  Its first
-   run is the path that launches B4 and B4 bf16: every kernel must
+   R=512, B=256, in turns kernels, plain versions, kernels: B1-B4 on one
+   engine, B4 beside B1 as the same design under another entry.  Its
+   first run is the path that launches B4 and B4 bf16: every kernel must
    launch there.  Each time beside its bound (roofline.measure_bound:
    the least time at float32 accuracy, the DFT stages as 3 TF32 passes
    on the tensor cores; for the bf16 variants one bf16 pass) and, for
@@ -387,31 +389,30 @@ BF16_KERNELS = (
      f"{PALLAS}:193", "sym3_thin_bf16", None),
 )
 BF16 = "bfloat16"
-BF16_HMMA = "HMMA.16816.F32.BF16"
 # the bf16 and TF32 warpgroup products (wgmma) of the wgmma engine's
 # entries, any N
 BF16_HGMMA = re.compile(r"\bHGMMA\.64x\d+x16\.F32\.BF16\b")
 TF32_HGMMA = re.compile(r"\bHGMMA\.64x\d+x8\.F32\.TF32\b")
-# bf16 entries on the wgmma engine csrc/psf_wgmma.cuh (B4's runs
-# csrc/psf_mma.cuh's bf16 mma.sync)
-WGMMA_ENTRIES = ("psf_div3_sym_bf16", "psf_div_bf16", "psf_crop_bf16")
+# bf16 entries on the wgmma engine csrc/psf_wgmma.cuh: all of B1-B4's
+WGMMA_ENTRIES = ("psf_div3_sym_bf16", "psf_div_bf16", "psf_crop_bf16",
+                 "psf_div3_sym_thin_bf16")
 # every entry on the wgmma engine, with the products its SASS must show:
-# the bf16 entries, and B1-B3's float32 ones in 3xTF32 (B4's runs
-# psf_mma.cuh's TF32 mma.sync)
+# the bf16 entries, and the float32 ones in 3xTF32
 HGMMA_OF = {**{e: BF16_HGMMA for e in WGMMA_ENTRIES},
             **{e: TF32_HGMMA for e in ("psf_div3_sym", "psf_div",
-                                       "psf_crop")}}
+                                       "psf_crop", "psf_div3_sym_thin")}}
 # max error of each float32 kernel check against its plain version, of
-# the peak, at R <= 128 and at R=512: the mma.sync design's on the same
-# inputs (ROADMAP C.3; NVIDIA H100 80GB HBM3, 700 W; B2's and B3's read
-# by this script's kernel phase on the tree before they left it), which
-# the wgmma design must keep; R=1152 is held to rtol 2e-4 and atol 1e-5
-# of the peak alone
+# the peak, at R <= 128 and at R=512: the retired mma.sync design's on
+# the same inputs (ROADMAP C.3; NVIDIA H100 80GB HBM3, 700 W; B2's and
+# B3's read by this script's kernel phase on the tree before they left
+# it), which the wgmma design must keep; B4, on B1's policy, at B1's;
+# R=1152 is held to rtol 2e-4 and atol 1e-5 of the peak alone
 F32_ATOL = {"B1": {128: 2.0e-6, 512: 3.8e-6},
             "B2 (3 maps)": {128: 2.01e-6, 512: 3.78e-6},
             "B2 (5 random maps)": {128: 2.08e-6, 512: 4.41e-6},
-            "B3 (total phases)": {128: 2.01e-6, 512: 3.78e-6}}
-# (R, B) of B1-B3 float32's extra checks: the ragged grid (4-byte
+            "B3 (total phases)": {128: 2.01e-6, 512: 3.78e-6},
+            "B4": {128: 2.0e-6, 512: 3.8e-6}}
+# (R, B) of B1-B4 float32's extra checks: the ragged grid (4-byte
 # copies), one scenario and an odd count (a consumer with nothing to
 # store); B2 ragged on the 5 random maps (a group of 2)
 F32_SHAPES = ((98, 256), (128, 1), (128, 5))
@@ -429,9 +430,9 @@ WIDE_R = (1152, 1)
 # miss by more than 6e-5, which BF16_ATOL catches.
 BF16_ATOL = 4e-5
 BF16_ATOL_RANDOM_MAPS = 2e-4
-# (label, library) of the kernels on the tensor-core engine
-MMA_KERNELS = (("B1", "psf_div3_sym"), ("B2", "psf_div"), ("B3", "psf_crop"),
-               ("B4", "psf_div3_sym_thin"))
+# (label, library) of the kernels on the wgmma engine
+WGMMA_KERNELS = (("B1", "psf_div3_sym"), ("B2", "psf_div"),
+                 ("B3", "psf_crop"), ("B4", "psf_div3_sym_thin"))
 P = device_peaks
 PEAKS_SRC = "benchmarks/device_peaks.py"
 # (library, wrapper, plain version, kernel body it replaces) of the chain
@@ -690,18 +691,16 @@ def build_phase() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
-    for label, lib in MMA_KERNELS:
-        mma_resources(label, lib, results[names.index(lib)][1])
+    for label, lib in WGMMA_KERNELS:
+        wgmma_resources(label, lib, results[names.index(lib)][1])
 
 
-def mma_resources(label: str, lib: str, log: str) -> None:
-    """Registers, stack and spills (ptxas) of a tensor-core library's
-    kernels, and of its float32 and bf16 kernel the dynamic shared memory
-    and HMMA count (their SASS); fails on a spill, on an mma.sync float32
-    kernel without HMMA or with bf16 ones, on a bf16 mma.sync kernel
-    without bf16 HMMA, or on a kernel of HGMMA_OF (the wgmma engine's)
-    without its HGMMA (bf16, or TF32 for B1-B3 float32) or with any
-    HMMA."""
+def wgmma_resources(label: str, lib: str, log: str) -> None:
+    """Registers, stack and spills (ptxas) of a library's kernels on the
+    wgmma engine, and of its float32 and bf16 kernel the dynamic shared
+    memory and HGMMA and HMMA counts (their SASS); fails on a spill, or
+    on a kernel without its HGMMA (HGMMA_OF: bf16, or TF32 for the
+    float32 entries) or with any HMMA."""
     res = cuda_build.ptxas_resources(log or cuda_build.ptxas_report(lib))
     funcs = device_peaks.sass_functions(device_peaks.sass(lib))
     for fn, r in res.items():
@@ -713,24 +712,15 @@ def mma_resources(label: str, lib: str, log: str) -> None:
     for entry in (lib, f"{lib}_bf16"):
         sass = "".join(t for fn, t in funcs.items() if f"{entry}_kernel" in fn)
         hmma = len(re.findall(r"\bHMMA\.", sass))
-        bf16 = sass.count(BF16_HMMA)
         smem = getattr(cuda_build.load(lib), f"{entry}_smem_bytes")()
-        if entry in HGMMA_OF:
-            kind = "bf16" if entry.endswith("_bf16") else "TF32"
-            hgmma = len(HGMMA_OF[entry].findall(sass))
-            print(f"build: {label} {entry}_kernel: {smem} B dynamic shared "
-                  f"memory a block at R=128; {hgmma} {kind} HGMMA (wgmma) "
-                  f"and {hmma} HMMA instructions in its SASS")
-            if hgmma == 0 or hmma:
-                fail(f"{label}'s {entry}_kernel shows {hgmma} {kind} HGMMA, "
-                     f"{hmma} HMMA; ptxas {res}")
-            continue
+        kind = "bf16" if entry.endswith("_bf16") else "TF32"
+        hgmma = len(HGMMA_OF[entry].findall(sass))
         print(f"build: {label} {entry}_kernel: {smem} B dynamic shared "
-              f"memory a block; {hmma} HMMA (tensor-core) instructions in "
-              f"its SASS, {bf16} of them {BF16_HMMA}")
-        if hmma == 0 or (bf16 > 0) != entry.endswith("_bf16"):
-            fail(f"{label}'s {entry}_kernel shows {hmma} HMMA, {bf16} "
-                 f"{BF16_HMMA}; ptxas {res}")
+              f"memory a block at R=128; {hgmma} {kind} HGMMA (wgmma) "
+              f"and {hmma} HMMA instructions in its SASS")
+        if hgmma == 0 or hmma:
+            fail(f"{label}'s {entry}_kernel shows {hgmma} {kind} HGMMA, "
+                 f"{hmma} HMMA; ptxas {res}")
 
 
 def b1_args(R: int, B: int, dev, crop_half: int = CROP_HALF):
@@ -816,6 +806,24 @@ def misrounded_b1_check(b1: torch.Tensor, fields_rounded: torch.Tensor,
              f"rounding its +- fields ({miss:.2e} of the peak)")
 
 
+def b4_equals_b1(args, R: int, B: int) -> None:
+    """B4's outputs against B1's on the same inputs, in float32 and in
+    bf16: one engine and one policy (csrc/psf_wgmma_sym3.cuh) under two
+    entries, so they must hold the same bits; fails where one differs."""
+    for dtype in (None, BF16):
+        b1 = K.psf_crop_diversity_sym3(*args, compute_dtype=dtype)
+        b4 = K.psf_crop_diversity_sym3_thin(*args, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        same = torch.equal(b1.view(torch.int32), b4.view(torch.int32))
+        diff = float((b1 - b4).abs().max())
+        print(f"kernel B4 vs B1 ({dtype or 'float32'}), R={R} B={B} "
+              f"w={b1.shape[-1]}: bits equal {same}, max abs diff "
+              f"{diff:.3e}")
+        if not same:
+            fail(f"B4's {dtype or 'float32'} output differs from B1's at "
+                 f"R={R} B={B} (max abs diff {diff:.3e})")
+
+
 def float32_check(label: str, lib: str, wrapper, plain, args, R: int,
                   B: int):
     """Max abs error of a float32 kernel against its plain version, and
@@ -850,15 +858,17 @@ def float32_check(label: str, lib: str, wrapper, plain, args, R: int,
 def kernel_phase(dev) -> dict:
     """Max abs error of each kernel against its plain version, and of
     each bf16 entry against its plain version's bf16 branch, at every
-    (R, B, crop width) of KERNEL_SHAPES; B1-B3 float32 also at
-    F32_SHAPES and WIDE_R, B3 at B3_F32_ITEMS."""
+    (R, B, crop width) of KERNEL_SHAPES (B4 also against B1, bit for
+    bit, at the 31-px ones); B1-B4 float32 also at F32_SHAPES and WIDE_R,
+    B3 at B3_F32_ITEMS; the bf16 entries also at RAGGED_BF16."""
     funcs = {k[0]: (k[1], k[2]) for k in KERNELS}
     max_err = {k[0]: 0.0 for k in KERNELS}
     bf16_of = {lib: name for name, lib, *_ in BF16_KERNELS}
     max_err.update({name: 0.0 for name in bf16_of.values()})
     for R, B, crop_half in KERNEL_SHAPES:
         bf16_plain = {}
-        for label, lib, args, bf16_atol in kernel_cases(R, B, dev, crop_half):
+        cases = kernel_cases(R, B, dev, crop_half)
+        for label, lib, args, bf16_atol in cases:
             wrapper, plain = funcs[lib]
             err, want = float32_check(label, lib, wrapper, plain, args, R, B)
             max_err[lib] = max(max_err[lib], err)
@@ -869,6 +879,7 @@ def kernel_phase(dev) -> dict:
         if crop_half == CROP_HALF:
             misrounded_b1_check(bf16_plain["B1"], bf16_plain["B2 (3 maps)"],
                                 R, B)
+            b4_equals_b1(cases[0][2], R, B)       # B1's arguments
     R, B = RAGGED_BF16
     for label, lib, args, bf16_atol in kernel_cases(R, B, dev):
         name = bf16_of[lib]

@@ -15,7 +15,9 @@ protocol scripts repeats.
   recipe (order, ridge VAR, mmse prior, warm start, r_weight 30);
 * ``load_report`` / ``save_report``  the staged-JSON merge and save
   (protocol_sweep.py:129-140): a report is written only to a path the
-  caller names;
+  caller names, and a prior one is resumed only where
+  ``resume_mismatch`` finds nothing (the same device and knobs), and
+  then only its row sections;
 * ``times_ms`` / ``host_times_ms``  a run's ms on the card's clock
   (profiling.cuda_times_ms: CUDA events) and on the host clock after a
   device synchronize -- the two clocks of every port timer.
@@ -30,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -264,20 +267,45 @@ def tuned_cfg(cfg: SystemConfig, d_over_r0: float, radial_order: int = 10,
         mpc=dataclasses.replace(t.mpc, var_max_radius=var_max_radius))
 
 
-def load_report(out_path: str | None, report: dict,
-                sections=None) -> dict:
-    """A staged run: when ``out_path`` holds an earlier report of the same
-    resolution and steps, merge it into ``report`` (all of it, or only
-    the ``sections`` named).  Returns ``report``."""
+def resume_mismatch(prior: dict, report: dict, knobs=(),
+                    nested=None) -> list[str]:
+    """What keeps ``prior``, an earlier report, from being resumed into
+    the fresh ``report``: each knob whose value differs, as "name: prior
+    != fresh".  The knobs are the device (the card's name and power
+    limit, or "cpu") and ``knobs``, keys that both reports hold (the
+    resolution, steps, train and valid sizes, repeats...); ``nested``
+    maps (section, key) to the fresh run's value of a knob that a report
+    records only inside that row section (a batch, say), checked where
+    the prior holds the section.  Empty: the prior may be resumed."""
+    diff = []
+    for key in ("device", *knobs):
+        if prior.get(key) != report.get(key):
+            diff.append(f"{key}: {prior.get(key)!r} != {report.get(key)!r}")
+    for (section, key), value in (nested or {}).items():
+        if section in prior and prior[section].get(key) != value:
+            diff.append(f"{section}.{key}: {prior[section].get(key)!r} != "
+                        f"{value!r}")
+    return diff
+
+
+def load_report(out_path: str | None, report: dict, sections,
+                knobs=("resolution", "n_steps"), nested=None) -> dict:
+    """A staged run: when ``out_path`` holds an earlier report that
+    ``resume_mismatch`` (device, ``knobs``, ``nested``) lets resume,
+    merge its row ``sections`` -- the keys the script's stages write --
+    into ``report``; the fresh run's metadata always stands.  A prior
+    that does not match is named on stderr and not merged: the run
+    starts afresh (and overwrites it).  Returns ``report``."""
     if not out_path or not os.path.exists(out_path):
         return report
     with open(out_path) as f:
         prior = json.load(f)
-    if all(prior.get(k) == report.get(k) for k in ("resolution", "n_steps")):
-        if sections is None:
-            report.update(prior)
-        else:
-            report.update({k: prior[k] for k in sections if k in prior})
+    diff = resume_mismatch(prior, report, knobs, nested)
+    if diff:
+        print(f"not resuming {out_path}: it was made with another "
+              f"{'; '.join(diff)}; running afresh", file=sys.stderr)
+        return report
+    report.update({k: prior[k] for k in sections if k in prior})
     return report
 
 

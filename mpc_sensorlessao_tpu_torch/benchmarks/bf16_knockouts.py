@@ -11,11 +11,13 @@ A/B's inputs (``kernel_variants.inputs``: B1, B2 and B4 on the B
 scenarios, B3 on the 3 B total phases), in two turns, with CUDA events
 (``profiling.cuda_time_ms``, 20 calls).  A part's cost is the full
 build's time less its knock-out's; parts overlap, so they need not sum
-to the whole.  ``--designs`` takes some of the four designs:
+to the whole.  ``--designs`` takes some of the four designs, the first
+and third of which are the retired mma.sync engine (``psf_mma.cuh`` with
+the field policy ``psf_sym3.cuh``) and build only from ``--parent DIR``:
 
-  old, the mma.sync engine (``psf_mma.cuh``, Precision::kBf16), timed on
-  ``psf_div3_sym_thin_bf16`` (b4: B4 bf16, B1 bf16's old instantiation,
-  the one bf16 entry still on it):
+  old, the mma.sync engine in bf16 (Precision::kBf16), timed on the
+  parent's ``psf_div3_sym_thin_bf16`` (b4: B4 bf16 there, B1 bf16's old
+  instantiation):
     sincosf        the field forming's sincosf (a cheap stand-in)
     fragments      the shared-memory fragment loads and their bf16
                    rounding (fragments made from addresses)
@@ -30,8 +32,8 @@ to the whole.  ``--designs`` takes some of the four designs:
     stage1         stage 1's wgmma
     loads          the TMA copies (the stages arrive empty)
     skeleton       forming and loads both out: wgmma, waits, epilogues
-  f32old, the mma.sync engine in 3xTF32, timed on
-  ``psf_div3_sym_thin`` (b4f: B4 float32, the old design of B1-B3
+  f32old, the mma.sync engine in 3xTF32, timed on the parent's
+  ``psf_div3_sym_thin`` (b4f: B4 float32 there, the old design of B1-B4
   float32):
     sincosf        as above
     splits         the TF32 hi/lo splits (a bit mix in their place)
@@ -50,14 +52,16 @@ to the whole.  ``--designs`` takes some of the four designs:
                    and B3's larger stages leave room for (no change for
                    those two; a negative cost is time that 3 stages lose)
 
-``--parent DIR`` copies DIR -- the ``csrc/`` of a checkout from before
-B2 and B3 float32 moved onto ``psf_wgmma.cuh``, where they still ran the
-old design -- and times the f32old builds alone, on b2f, b3f and b4f
-(PARENT_BUILDS adds the knock-outs of texts only the parent holds).
-With ``--bitwise`` it times nothing: it builds each library whole from
-DIR and from ``csrc/``, runs the entries of b1, b2, b3 (bf16), b1f (B1
-float32), b4 and b4f once each on the same inputs and reports
-``<tag>_bits_equal`` (the two outputs hold the same bits) and
+Without ``--parent`` the designs are new and f32new, on the current
+``csrc/``, where every kernel runs the wgmma engine (B4 on B1's policy:
+its timings would be B1's); asking for old or f32old there is refused.
+``--parent DIR`` copies DIR -- the ``csrc/`` of a checkout whose B4
+still runs the mma.sync engine, for example a ``git archive`` of commit
+19f54fa (``OLD_ENGINE_COMMIT``) -- and times the old and f32old builds
+on its b4 and b4f.  With ``--bitwise`` it times nothing: it builds each
+library whole from DIR and from ``csrc/``, runs the entries of b1, b2,
+b3 (bf16) and b1f, b2f, b3f (float32) once each on the same inputs and
+reports ``<tag>_bits_equal`` (the two outputs hold the same bits) and
 ``<tag>_max_abs_diff``.
 
 Prints one JSON line -- ``<build>_<entry>_ms`` (each build's two times,
@@ -96,14 +100,16 @@ ENTRIES = {
     "b3f": ("psf_crop", "psf_crop"),
     "b4f": ("psf_div3_sym_thin", "psf_div3_sym_thin"),
 }
-# the entries each design's builds are timed on
-DESIGN_ENTRIES = {"old": ("b4",), "new": ("b1", "b2", "b3"),
-                  "f32old": ("b4f",), "f32new": ("b1f", "b2f", "b3f")}
-# the designs' entries in a parent checkout (--parent), where B2 and B3
-# float32 still ran the mma.sync engine
-PARENT_ENTRIES = {"f32old": ("b2f", "b3f", "b4f")}
-# the entries --bitwise holds to the parent's
-BITWISE_TAGS = ("b1", "b2", "b3", "b1f", "b4", "b4f")
+# the entries each design's builds are timed on, in the current csrc/
+DESIGN_ENTRIES = {"new": ("b1", "b2", "b3"), "f32new": ("b1f", "b2f", "b3f")}
+# the designs of the retired mma.sync engine and their entries, in a
+# parent checkout (--parent) whose B4 still runs it
+PARENT_ENTRIES = {"old": ("b4",), "f32old": ("b4f",)}
+# the last commit whose csrc/ holds the mma.sync engine
+OLD_ENGINE_COMMIT = "19f54fa"
+# the entries --bitwise holds to the parent's: those on the wgmma engine
+# in both trees
+BITWISE_TAGS = ("b1", "b2", "b3", "b1f", "b2f", "b3f")
 
 _FRAG = ("re.v[r] = bf16x2(v[2 * r].x, v[2 * r + 1].x);\n"
          "      im.v[r] = bf16x2(v[2 * r].y, v[2 * r + 1].y);")
@@ -120,7 +126,8 @@ _MMA_TF32 = """  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));"""
-# the mma.sync engine's fragment loads from shared memory, made from
+# the mma.sync engine's fragment loads from shared memory (a parent's
+# psf_mma.cuh), made from
 # addresses instead (either precision)
 _OLD_LOADS = [
     ("psf_mma.cuh",
@@ -162,14 +169,15 @@ _NO_LOADS_TF32 = [
 # the sincosf of the wgmma engine's three policies' bf16 forming (sym3's
 # and crop's also of their 3xTF32 forming)
 _NEW_SINCOSF = [
-    ("psf_div3_sym.cu", "sincosf(ph[e], &s, &c);",
+    ("psf_wgmma_sym3.cuh", "sincosf(ph[e], &s, &c);",
      "s = ph[e]; c = 1.f - ph[e];"),
     ("psf_div.cu", "sincosf(ph[e], &s, &c);",
      "s = ph[e]; c = 1.f - ph[e];"),
     ("psf_crop.cu", "sincosf(ph[j * kMapTile + e], &s, &c);",
      "s = ph[j * kMapTile + e]; c = 1.f - s;")]
 
-# build -> [(file, text, replacement)]
+# build -> [(file, text, replacement)]; the old and f32old builds patch a
+# parent's csrc/ (PARENT_ENTRIES)
 BUILDS = {
     "old_full": [],
     "old_sincosf": [
@@ -243,27 +251,29 @@ BUILDS = {
          "return static_cast<int>(fit < kMaxStages ? fit : kMaxStages);",
          "return static_cast<int>(fit < 3 ? fit : 3);")],
 }
-# knock-outs of texts that only a parent checkout holds (--parent): the
-# sincosf of B2's and B3's float32 forming on the mma.sync engine
-PARENT_BUILDS = {
-    "f32old_sincosf": [
-        ("psf_div.cu", "sincosf(m[0], &s, &c);",
-         "s = m[0]; c = 1.f - m[0];"),
-        ("psf_crop.cu", "sincosf(m[j * kTilePixels], &s, &c);",
-         "s = m[j * kTilePixels]; c = 1.f - s;")],
-}
+
+
+def parent_only(design: str) -> str:
+    """Why ``design`` cannot build from the current csrc/."""
+    return (f"the {design} design is the retired mma.sync engine "
+            "(psf_mma.cuh): it builds only from --parent DIR, the csrc/ of "
+            "a checkout that still holds it, e.g. a git archive of "
+            f"{OLD_ENGINE_COMMIT}")
 
 
 def patched_sources(build: str, root: Path,
                     csrc: Path = cuda_build.CSRC,
                     parent: bool = False) -> Path:
-    """A copy of ``csrc`` under ``root`` with ``build``'s knock-outs (and
-    its PARENT_BUILDS ones for a ``parent`` checkout); raises if a
-    knocked-out text is not in the sources once."""
+    """A copy of ``csrc`` under ``root`` with ``build``'s knock-outs;
+    raises if ``build`` is of a PARENT_ENTRIES design and ``csrc`` is not
+    a ``parent`` checkout's, or if a knocked-out text is not in the
+    sources once."""
+    design = build.split("_", 1)[0]
+    if design in PARENT_ENTRIES and not parent:
+        raise ValueError(f"{build}: {parent_only(design)}")
     dest = root / build
     shutil.copytree(csrc, dest)
-    extra = PARENT_BUILDS.get(build, []) if parent else []
-    for name, text, new in BUILDS[build] + extra:
+    for name, text, new in BUILDS[build]:
         src = (dest / name).read_text()
         if src.count(text) != 1:
             raise ValueError(f"{build}: {name} does not hold its knock-out "
@@ -407,6 +417,9 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     if args.bitwise and args.parent is None:
         ap.error("--bitwise compares with a --parent DIR")
+    for design in (args.designs or "").split(","):
+        if design in PARENT_ENTRIES and args.parent is None:
+            ap.error(parent_only(design))
     out = (bitwise(args.parent, args.R, args.B) if args.bitwise
            else run(args.R, args.B, args.parent,
                     args.designs and tuple(args.designs.split(","))))

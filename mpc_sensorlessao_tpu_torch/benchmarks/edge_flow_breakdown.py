@@ -30,7 +30,10 @@ synchronized runs (``host_us_per_step``, ``host_iqr_us``).  The JAX
 script's A/B rows of its TPU layout variants have no counterpart here and
 are named under ``"not_ported"`` with the reason.  ``device`` is the
 card's name and power limit.  With out.json given and holding a report
-of the same resolution, finished rows are kept (a staged run).
+of the same device, resolution, steps, repeats and batch, its finished
+rows are kept and only the missing ones measured (a staged run; the
+closed-loop rows a (flow, batch) pair at a time); another report's rows
+are not merged.
 
 Usage: python -m mpc_sensorlessao_tpu_torch.benchmarks.edge_flow_breakdown
        [out.json]
@@ -182,21 +185,24 @@ def loop_cfg(res: int, steps: int, flow: str) -> SystemConfig:
 def loop_marginal(res: int, batches, steps: int, repeats: int, dev,
                   done=None, save=None) -> dict:
     """Per-step closed-loop cost: periodic vs conditional (shared), one
-    build per flow reused across every batch size."""
+    build per flow reused across every batch size.  A (flow, batch) row
+    in ``done`` is kept as it is and not measured again; a flow is built
+    only where one of its rows is missing."""
     out = {f"B={b}": {} for b in batches}
     for b, row in (done or {}).items():  # staged resume
         if b in out:
             out[b].update({k: v for k, v in row.items()
                            if k in ("periodic", "conditional")})
     for flow in ("periodic", "conditional"):
-        if all(flow in out[f"B={b}"] for b in batches):
+        todo = [b for b in batches if flow not in out[f"B={b}"]]
+        if not todo:
             continue
         cfg = loop_cfg(res, steps, flow)
         t0 = time.time()
         system = pipeline.build(cfg, dev)
         P.sync(dev)
         build_s = time.time() - t0
-        for batch in batches:
+        for batch in todo:
             scen = montecarlo.make_scenarios(
                 cfg, torch.Generator().manual_seed(1), batch, device=dev)
             montecarlo.assert_shared_window(scen)
@@ -266,7 +272,7 @@ def main(argv=None, env=None) -> dict:
                  "card (host clock on the CPU); the closed-loop rows also "
                  "by the host clock."),
         "resolution": res, "device": P.device_name(dev),
-        "scan_steps": steps, "repeats": repeats,
+        "scan_steps": steps, "repeats": repeats, "batch": batch,
         "n_layers": model.n_layers,
         "nsub": list(map(list, model.nsub)),
         "operator_build_s": round(build_s, 1),
@@ -274,12 +280,8 @@ def main(argv=None, env=None) -> dict:
         "closed_loop": {},
         "not_ported": not_ported(res),
     }
-    if out_path and os.path.exists(out_path):  # staged run: resume rows
-        with open(out_path) as f:
-            prior = json.load(f)
-        if prior.get("resolution") == res:
-            report["advance_breakdown"] = prior.get("advance_breakdown", {})
-            report["closed_loop"] = prior.get("closed_loop", {})
+    P.load_report(out_path, report, ("advance_breakdown", "closed_loop"),
+                  knobs=("resolution", "scan_steps", "repeats", "batch"))
 
     def _save(rows=None):
         if rows is not None:

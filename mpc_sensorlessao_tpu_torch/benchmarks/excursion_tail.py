@@ -19,8 +19,9 @@ Usage: python -m mpc_sensorlessao_tpu_torch.benchmarks.excursion_tail
        [resolution] [out.json]
 Env:   XT_DR0=15,20  XT_STEPS=500  XT_TRAIN=1000 (n_valid max(50, n/20))
        XT_DEVICE=cuda (the card unless "cpu" is named)
-With out.json given and holding a report of the same resolution and
-steps, its rows are kept and only the missing arms run (resume).  The
+With out.json given and holding a report of the same device,
+resolution, steps and XT_TRAIN, its rows are kept and only the missing
+arms run (resume); another report's rows are not merged.  The
 report is printed, and written only to the out.json given.
 """
 
@@ -90,7 +91,8 @@ def main(argv=None, env=None) -> dict:
         "n_train": cfg0.sim.n_train,
         "device": P.device_name(dev), "rows": {},
     }
-    P.load_report(out_path, report, sections=("rows",))
+    P.load_report(out_path, report, ("rows",),
+                  knobs=("resolution", "n_steps", "n_train"))
 
     for d in d_grid:
         for arm, order, vmr in ARMS:

@@ -25,8 +25,9 @@ Usage: python -m mpc_sensorlessao_tpu_torch.benchmarks.protocol_edge
 Env:   PE_DR0=5,10  PE_STEPS=500  PE_TRAIN=1000 (n_valid max(50, n/20))
        PE_MC_B=32  PE_SKIP_TUNED=1  PE_TUNED_DR0=5,10
        PE_STAGES=ref,mc,periodic,tuned  -- a subset of the stages; with
-       out.json given and holding a report of the same resolution and
-       steps, the run merges into it
+       out.json given and holding a report of the same device,
+       resolution, split, steps and PE_MC_B, the run merges into its
+       rows (SECTIONS); another is not merged
        PE_DEVICE=cuda (the card unless "cpu" is named)
 The report is printed, and written only to the out.json given.
 """
@@ -46,6 +47,13 @@ from ..parallel import montecarlo
 from ..utils.config import SystemConfig
 from . import _protocol as P
 from .protocol_sweep import reference_scenarios, tuned_build, tuned_row
+
+# the report's row sections, which a staged run merges (the rest is the
+# fresh run's metadata)
+SECTIONS = ("conditional_build_s", "conditional_var", "conditional_loop_s",
+            "conditional_solves_per_s", "reference_rows", "monte_carlo",
+            "periodic_build_s", "periodic_loop_s", "periodic_rows",
+            "quality_delta_strehl", "tuned_rows")
 
 
 def sim_cfg(resolution: int, n_steps: int | None, n_train: int | None,
@@ -92,11 +100,13 @@ def main(argv=None, env=None) -> dict:
                      "(telescopeAbstract.m:854-884,335-342; "
                      "ops/edge_flow.py)"),
         "resolution": res, "n_steps": n_steps,
+        "n_train": cfg.sim.n_train, "n_valid": cfg.sim.n_valid,
         "device": P.device_name(dev),
         "reference_rows": {}, "periodic_rows": {}, "tuned_rows": {},
     }
-    P.load_report(out_path, report)
-    report["n_train"], report["n_valid"] = cfg.sim.n_train, cfg.sim.n_valid
+    P.load_report(out_path, report, SECTIONS,
+                  knobs=("resolution", "n_steps", "n_train", "n_valid"),
+                  nested={("monte_carlo", "batch"): mc_b})
     scen = reference_scenarios(cfg, d_grid, dev)
 
     system = None

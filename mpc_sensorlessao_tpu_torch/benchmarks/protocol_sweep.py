@@ -29,8 +29,9 @@ Env:   PROTO_DR0=5,10    the D/r0 grid
        PROTO_STEPS=50    closed-loop steps (default n_test=500)
        PROTO_TRAIN=300   ID train split, with n_valid=50 (default 1000/500)
        PROTO_STAGES=ref,tuned  the stages to run; with out.json given and
-                         holding a report of the same resolution and
-                         steps, the run merges into it
+                         holding a report of the same device,
+                         resolution, split and steps, the run merges
+                         into its rows (SECTIONS); another is not merged
        PROTO_TUNED_DR0   the tuned rows' grid (default PROTO_DR0)
        PROTO_SKIP_TUNED=1  reference rows only
        PROTO_DEVICE=cuda the card unless "cpu" is named
@@ -48,6 +49,11 @@ from ..models import pipeline
 from ..parallel import montecarlo
 from ..utils.config import SystemConfig, mag_conv
 from . import _protocol as P
+
+# the report's row sections, which a staged run merges (the rest is the
+# fresh run's metadata)
+SECTIONS = ("reference_build_s", "reference_var", "reference_loop_s",
+            "reference_solves_per_s", "reference_rows", "tuned_rows")
 
 
 def base_cfg(resolution: int, env) -> SystemConfig:
@@ -142,7 +148,8 @@ def main(argv=None, env=None) -> dict:
         "device": P.device_name(dev),
         "reference_rows": {}, "tuned_rows": {},
     }
-    P.load_report(out_path, report)
+    P.load_report(out_path, report, SECTIONS,
+                  knobs=("resolution", "n_train", "n_valid", "n_steps"))
 
     if "ref" in stages:
         part, _, _ = reference_rows(cfg, d_grid, dev)

@@ -28,7 +28,7 @@
 // added at the strip's end); no recombination.  Items at or past N read
 // a present plane and store nothing.  It replaced the mma.sync engine
 // psf_mma.cuh (one 256-thread block per triple, two __syncthreads a
-// step), whose float32 design still runs kernel B4.
+// step; retired with kernel B4's move to this engine).
 //
 // psf_crop_bf16 is the TPU kernel's compute_dtype="bfloat16" branch
 // (pallas_kernels.py:34-51) on the same engine, as Crop<false> (block:

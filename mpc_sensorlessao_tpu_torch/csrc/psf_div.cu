@@ -36,7 +36,7 @@
 // nothing for it; an odd B repeats its last scenario in the second
 // consumer, which stores nothing.  It replaced the mma.sync engine
 // psf_mma.cuh (one 256-thread block per scenario and group, two
-// __syncthreads a step), whose float32 design still runs kernel B4.
+// __syncthreads a step; retired with kernel B4's move to this engine).
 //
 // psf_div_bf16 is the TPU kernel's compute_dtype="bfloat16" branch
 // (pallas_kernels.py:85-87, :99-100, :106-107) on the same engine, as

@@ -23,7 +23,8 @@
 // diversity alone reaches +-3 rad).
 //
 // The design: the Hopper engine psf_wgmma.cuh in 3xTF32 (block_tf32)
-// with the sym3 policy below, one scenario a consumer warpgroup.  The TPU
+// with its sym3 policy (psf_wgmma_sym3.cuh, which kernel B4 instantiates
+// too), one scenario a consumer warpgroup.  The TPU
 // kernel's stacked (2w, R) operator is stage 1's wgmma A operand, streamed
 // a chunk a stage from an image split into TF32 hi and lo planes; the
 // pseudo-fields P = (t1, t3), F_0 and Q = (t2, -t4) are formed once a
@@ -33,10 +34,10 @@
 // (the TPU kernel's U +- W, pallas_kernels.py:161-171), and fed to stage
 // 2 from registers.  Measured (NVIDIA H100 80GB HBM3, 700 W;
 // benchmarks/kernel_variants.py, PERF.md): 0.78 ms at R=128, B=4096
-// against 1.34 ms for the mma.sync design it replaced (psf_mma.cuh with
-// psf_sym3.cuh's policy, forming F_-a, F_0, F_+a at every pixel; still
-// B4's engine) in the same call, and 0.65 against 1.17 ms at R=512,
-// B=256.  Knock-out builds (benchmarks/bf16_knockouts.py) put ~0.25 ms in
+// against 1.34 ms for the mma.sync design it replaced (the engine
+// psf_mma.cuh with the field policy psf_sym3.cuh, forming F_-a, F_0, F_+a
+// at every pixel; both retired, last held by commit 19f54fa) in the same
+// call, and 0.65 against 1.17 ms at R=512, B=256.  Knock-out builds (benchmarks/bf16_knockouts.py) put ~0.25 ms in
 // the field forming and ~0.25 ms in stage 1's wgmma, which overlap little:
 // the forming's stores and the products' operand reads share the shared
 // memory's bandwidth, which the operand reads alone keep ~80% busy.  Its
@@ -55,62 +56,12 @@
 #include <cuda_runtime.h>
 
 #include "psf_wgmma.cuh"
+#include "psf_wgmma_sym3.cuh"
 
 namespace {
 
-// psf_wgmma.cuh's sym3 policy: pair q is scenarios 2 q and 2 q + 1 (the
-// last repeated where B is odd); a stage holds pupil, pcd, psd and the
-// two scenarios' phases.  T holds the pseudo-fields P = (t1, t3), F_0 and
-// Q = (t2, -t4) -- rounded to bf16 once (kTf32 false: the TPU kernel's
-// bf16 branch, psf_sym3::Fields<kBf16, true>'s rounding) or split into
-// TF32 hi and lo (kTf32: float32 accuracy) -- and their stage-1 sums are
-// recombined in float32 into the triple's fields.
-template <bool kTf32>
-struct Sym3 {
-  static constexpr int kInputs = 4;    // pupil, pcd, psd; phase (B, R, R)
-  static constexpr int kShared = 3, kOwn = 1, kIlp = 4;
-  static constexpr bool kRecombine = true;
-  float* out;                          // (B, 3, w, w)
-  int batch;
-
-  __host__ __device__ static constexpr int input(int m) {
-    return m < kShared ? m : kShared;
-  }
-  __host__ __device__ int pairs() const { return (batch + 1) / 2; }
-  __device__ int plane(int m, int q) const {
-    return m < kShared ? 0 : min(2 * q + m - kShared, batch - 1);
-  }
-  __device__ float* crop(int q, int wg, int d, int w) const {
-    const int b = 2 * q + wg;
-    return b < batch ? out + (static_cast<size_t>(b) * 3 + d) * w * w
-                     : nullptr;
-  }
-  __device__ static void form(const float* st, const float* ph,
-                              unsigned char* tb, int y, int xg) {
-    constexpr int kMapTile =
-        kTf32 ? psf_wgmma::tf32::kMapTile : psf_wgmma::kMapTile;
-    auto part = [&](int e, float (&v)[6]) {
-      const float p = st[e], pc = st[kMapTile + e],
-                  ps = st[2 * kMapTile + e];
-      float s, c;
-      sincosf(ph[e], &s, &c);
-      const float t1 = c * pc, t2 = s * ps, t3 = s * pc, t4 = c * ps;
-      v[0] = t1;
-      v[1] = t3;
-      v[2] = p * c;
-      v[3] = p * s;
-      v[4] = t2;
-      v[5] = -t4;
-    };
-    if constexpr (kTf32) {
-      psf_wgmma::form_t_tf32(tb, y, xg, part);
-    } else {
-      psf_wgmma::form_t<kIlp>(tb, y, xg, part);
-    }
-  }
-};
-using Sym3Tf32 = Sym3<true>;
-using Sym3Bf16 = Sym3<false>;
+using psf_wgmma::Sym3Bf16;
+using psf_wgmma::Sym3Tf32;
 
 __global__ void __launch_bounds__(psf_wgmma::kThreads, 1)
 psf_div3_sym_kernel(const __grid_constant__ psf_wgmma::Inputs<Sym3Tf32> in,
@@ -138,13 +89,9 @@ int psf_div3_sym(const float* phase, const float* pupil, const float* pcd,
                  const float* psd, const float* are, const float* aim,
                  float* work, float* out, int batch, int R, int w,
                  float scale, int device, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch <= 0) return 0;
-  return static_cast<int>(psf_wgmma::launch_tf32(
-      psf_div3_sym_kernel, Sym3Tf32{out, batch}, {pupil, pcd, psd, phase},
-      {1, 1, 1, batch}, are, aim, work, R, w, scale,
-      static_cast<cudaStream_t>(stream)));
+  return psf_wgmma::launch_sym3<true>(psf_div3_sym_kernel, phase, pupil, pcd,
+                                      psd, are, aim, work, out, batch, R, w,
+                                      scale, device, stream);
 }
 
 // As psf_div3_sym, with the DFT stages' operands in bf16: the
@@ -155,25 +102,18 @@ int psf_div3_sym_bf16(const float* phase, const float* pupil,
                       const float* pcd, const float* psd, const float* are,
                       const float* aim, float* work, float* out, int batch,
                       int R, int w, float scale, int device, void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch <= 0) return 0;
-  return static_cast<int>(psf_wgmma::launch(
-      psf_div3_sym_bf16_kernel, Sym3Bf16{out, batch},
-      {pupil, pcd, psd, phase}, {1, 1, 1, batch}, are, aim, work, R, w,
-      scale, static_cast<cudaStream_t>(stream)));
+  return psf_wgmma::launch_sym3<false>(psf_div3_sym_bf16_kernel, phase,
+                                       pupil, pcd, psd, are, aim, work, out,
+                                       batch, R, w, scale, device, stream);
 }
 
 // Dynamic shared memory a block of either kernel takes, in bytes: the
 // float32 kernel's at any R on the current device, the bf16 one's at the
 // main path's R=128 and a crop of one band (it grows with R and the
 // crop's bands).
-int psf_div3_sym_smem_bytes() {
-  return static_cast<int>(psf_wgmma::tf32::launch_smem<Sym3Tf32>());
-}
+int psf_div3_sym_smem_bytes() { return psf_wgmma::sym3_smem_bytes<true>(); }
 int psf_div3_sym_bf16_smem_bytes() {
-  return static_cast<int>(
-      psf_wgmma::smem_bytes<Sym3Bf16>(128, 1, psf_wgmma::kMaxStages));
+  return psf_wgmma::sym3_smem_bytes<false>();
 }
 
 const char* psf_div3_sym_error_string(int err) {

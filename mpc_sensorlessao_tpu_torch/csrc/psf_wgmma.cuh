@@ -1,13 +1,16 @@
-// The Hopper engine of the PSF kernels B1-B3, both entries of each: B1's
-// psf_div3_sym and psf_div3_sym_bf16 (psf_div3_sym.cu), B2's psf_div and
-// psf_div_bf16 (psf_div.cu) and B3's psf_crop and psf_crop_bf16
-// (psf_crop.cu), the float32 and compute_dtype="bfloat16" branches of
+// The Hopper engine of the PSF kernels B1-B4, both entries of each: B1's
+// psf_div3_sym and psf_div3_sym_bf16 (psf_div3_sym.cu), B4's
+// psf_div3_sym_thin and psf_div3_sym_thin_bf16 (psf_div3_sym_thin.cu, on
+// B1's policy: `_psf_div3_sym_thin_kernel`, :178-234, pallas_call :257,
+// computes B1's function), B2's psf_div and psf_div_bf16 (psf_div.cu)
+// and B3's psf_crop and psf_crop_bf16 (psf_crop.cu), the float32 and compute_dtype="bfloat16" branches of
 // the TPU kernels mpc_sensorlessao_tpu/ops/pallas_kernels.py
 // `_psf_div3_sym_kernel` (:115-175, pallas_call :309), `_psf_div_kernel`
 // (:65-112, pallas_call :365) and `_psf_kernel` (:26-62, pallas_call
 // :408), on warpgroup matrix products (wgmma), asynchronous copies
-// completing on mbarriers, and persistent blocks (B4 alone stays on the
-// mma.sync engine psf_mma.cuh).  For the three fields F_d of every work
+// completing on mbarriers, and persistent blocks.  It replaced the
+// mma.sync engine psf_mma.cuh (retired with its last kernel, B4; last
+// held by commit 19f54fa).  For the three fields F_d of every work
 // item it computes
 //
 //   out[item, d] = |A F_d A^T|^2 * scale,
@@ -17,16 +20,17 @@
 // policy forms a pixel, and each field's stage-1 rows G = [rr; ri] once;
 // every sum in float32.  In 3xTF32 (block_tf32, the float32 entries)
 // every operand is split into TF32 hi and lo, x = hi + lo to float32
-// accuracy, and each product is lo*hi + hi*lo + hi*hi, as the mma.sync
-// engine psf_mma.cuh takes it; its differences from the bf16 block are
+// accuracy, and each product is lo*hi + hi*lo + hi*hi, as the retired
+// mma.sync engine took it; its differences from the bf16 block are
 // listed above block_tf32.
 //
 // The policies (a struct beside each entry; what the engine asks of one
 // is listed above `block`).  Each says which maps a pipeline stage holds,
 // how a work item maps to its phase planes and output crops, how the six
 // parts of T are formed, and whether P +- Q is recombined:
-//   * sym3 (B1): an item is a scenario; a stage holds pupil, pcd, psd
-//     (shared by both consumers) and each consumer's phase, 5 maps.  The
+//   * sym3 (B1 and B4, psf_wgmma_sym3.cuh): an item is a scenario; a
+//     stage holds pupil, pcd, psd (shared by both consumers) and each
+//     consumer's phase, 5 maps.  The
 //     parts are the pseudo-fields P = (t1, t3), F_0 and Q = (t2, -t4),
 //     t1 = c pcd, t2 = s psd, t3 = s pcd, t4 = c psd and F_0 = pupil (c,
 //     s) (c, s = cos, sin of the phase, one sincosf a pixel), each
@@ -62,11 +66,11 @@
 // take 67 M sincosf (about 0.07 ms); B3 reads the 3B total-phase planes,
 // 805 MB, 0.2545 ms, and takes 201 M sincosf, about as long: each is
 // bound by its bytes and its field forming, which the design overlaps.
-// The mma.sync design they replace (psf_mma.cuh, Precision::kBf16, still
-// B4's bf16 entry) re-read and re-rounded the operator at every use, kept
-// the fields and G in shared memory as float32, ended each of its 20
-// steps a block in a full barrier, and sent the result through shared
-// memory every strip.
+// The mma.sync design they replaced (psf_mma.cuh, Precision::kBf16, B4's
+// bf16 entry until it was retired) re-read and re-rounded the operator at
+// every use, kept the fields and G in shared memory as float32, ended
+// each of its 20 steps a block in a full barrier, and sent the result
+// through shared memory every strip.
 //
 // The design follows the TPU kernels' algebra, S1 = A2 [fr | fi] with the
 // stacked operator A2 = [are; aim] (2w, R), written so in `_psf_div_kernel`
@@ -74,7 +78,7 @@
 // fi is S1[are][fr] - S1[aim][fi] all the same:
 //   * A2 is the wgmma A operand of stage 1: M = 64 rows, one crop band of
 //     32 rows u (a wider crop is cut into bands of 32 rows and columns,
-//     one launch a band pair, as psf_mma.cuh does).  Its rows are
+//     one launch a band pair, as the mma.sync engine did).  Its rows are
 //     permuted: in each 16-row slice (one warp's rows of the accumulator)
 //     rows 0-7 are are[u..u+7] and rows 8-15 aim[u..u+7], so that the
 //     thread holding S1[are_u][.] also holds S1[aim_u][.] (accumulator
@@ -946,7 +950,7 @@ __device__ __forceinline__ void block(const Inputs<P>& in, const P& pol,
 //     form_t_tf32 or form_field_tf32) and every operator tile in hi and
 //     lo planes, and each k8 step of a
 //     product as three wgmma, lo*hi + hi*lo + hi*hi (3xTF32, as the
-//     mma.sync engine psf_mma.cuh).  Stage 1 sums hi*hi in S and the two
+//     retired mma.sync engine).  Stage 1 sums hi*hi in S and the two
 //     corrections in C, added in float32 at the strip's end: the tensor
 //     cores' sums round toward zero, so each wgmma on a large sum takes a
 //     bias; with all three on S, B1 erred 3.9e-6 of the peak at R=512
@@ -964,7 +968,8 @@ __device__ __forceinline__ void block(const Inputs<P>& in, const P& pol,
 //   * each field's strip of stage 2 summed on the tensor cores into a
 //     partial P from zero, and added to O in float32:
 //     the tensor cores' sums round toward zero, and a chain over every
-//     strip errs more at large R (as psf_mma.cuh found for mma.sync).
+//     strip errs more at large R (as the retired mma.sync engine
+//     found).
 template <class P>
 __device__ __forceinline__ void block_tf32(const Inputs<P>& in,
                                            const P& pol, const Args& a) {

@@ -15,16 +15,16 @@ nvcc at first use, bound with ctypes, counted in ``<wrapper>.launches``)
 or raises; on a CPU tensor it runs its plain PyTorch version
 ``<wrapper>_ref``.  There is no other fallback.  All four run both DFT
 stages on the tensor cores in 3xTF32 (float32 accuracy), at any crop
-width w (the Pallas kernels' range): B1-B3 on the Hopper engine
-``csrc/psf_wgmma.cuh`` (wgmma with persistent blocks, one field policy
-each), B4 alone on ``csrc/psf_mma.cuh`` (mma.sync).
+width w (the Pallas kernels' range), on the Hopper engine
+``csrc/psf_wgmma.cuh`` (wgmma with persistent blocks), one field policy
+each: B4 computes B1's function and instantiates B1's sym3 policy
+(``csrc/psf_wgmma_sym3.cuh``), so that their outputs agree bit for bit.
 
 Each also takes ``compute_dtype="bfloat16"``, the Pallas kernels' branch
 that rounds the DFT stages' operands to bf16 and sums in float32: on a
-CUDA tensor the library's ``<name>_bf16`` entry point (one bf16 pass,
-counted in ``<wrapper>.launches_bf16``: B4's on ``psf_mma.cuh``, B1-B3's
-on ``psf_wgmma.cuh``, one field policy each), on a CPU tensor the plain
-version rounding at the same points.
+CUDA tensor the library's ``<name>_bf16`` entry point (one bf16 pass on
+the same engine and policy, counted in ``<wrapper>.launches_bf16``), on
+a CPU tensor the plain version rounding at the same points.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ import torch
 
 from . import cuda_build, dft
 
-MMA_TILE = 32          # K tile and crop band of the engine: its operator
-                       # scratch holds whole tiles of whole bands
+BAND = 32              # crop band of the engine (rows and columns of a
+                       # launch), and the unit its operator image pads R to
 
 
 COMPUTE_DTYPES = (None, "bfloat16")
@@ -292,7 +292,8 @@ def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
                                  compute_dtype: str | None = None
                                  ) -> torch.Tensor:
     """Kernel B4: B1's function and arguments, with the +- recombination
-    on the thin row intermediate.  Same arguments as
+    on the thin row intermediate (its own library and launch counts, on
+    B1's engine policy: the same bits as B1).  Same arguments as
     ``psf_crop_diversity_sym3_thin_ref``."""
     _check_compute_dtype(compute_dtype)
     if phase.device.type == "cpu":
@@ -307,13 +308,12 @@ def psf_crop_diversity_sym3_thin(phase: torch.Tensor, pupil: torch.Tensor,
 
 def _operator_scratch(R: int, w: int) -> int:
     """Floats of the scratch in which a kernel lays its operator out, in
-    bands of 32 rows: B1-B3's 3xTF32 image on the wgmma engine, the
-    stacked operator's 64 rows split into TF32 hi and lo for stage 1 and
-    again for stage 2, ``256 * ceil(R / 32) * 32 * ceil(w / 32)``.  The
-    others need less: the mma.sync engine's 32 x 32 tiles of (re, im)
-    (B4), ``2 * 32 * 32 * ceil(R / 32) * ceil(w / 32)``, and the bf16
-    entries' bf16 image, ``32 * ceil(R / 64) * 64 * ceil(w / 32)``."""
-    return 8 * MMA_TILE * MMA_TILE * -(-R // MMA_TILE) * -(-w // MMA_TILE)
+    bands of 32 rows: the float32 entries' 3xTF32 image on the wgmma
+    engine, the stacked operator's 64 rows split into TF32 hi and lo for
+    stage 1 and again for stage 2, ``256 * ceil(R / 32) * 32 *
+    ceil(w / 32)``.  The bf16 entries' bf16 image needs less, ``32 *
+    ceil(R / 64) * 64 * ceil(w / 32)``."""
+    return 8 * BAND * BAND * -(-R // BAND) * -(-w // BAND)
 
 
 def _sym3_maps(phase, pupil, cos_a, sin_a):

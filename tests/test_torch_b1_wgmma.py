@@ -19,6 +19,10 @@ docstring: the same pseudo-fields, sums and recombination, every operand
 split into TF32 hi and lo instead of rounded.
 """
 
+import io
+import subprocess
+import tarfile
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -319,12 +323,45 @@ def test_split_stage1_sums_err_less_than_one_chain(R, B):
     assert err["split"] <= 1e-6 and err["one"] >= 4 * err["split"], err
 
 
+@pytest.fixture(scope="module")
+def old_csrc(tmp_path_factory):
+    """csrc/ as the last commit that holds the mma.sync engine left it
+    (bf16_knockouts.OLD_ENGINE_COMMIT), from the repository's history;
+    None in a checkout without that history."""
+    root = cuda_build.CSRC.parents[1]
+    rel = cuda_build.CSRC.relative_to(root)
+    try:
+        blob = subprocess.run(
+            ["git", "-C", str(root), "archive",
+             bf16_knockouts.OLD_ENGINE_COMMIT, str(rel)],
+            capture_output=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    dest = tmp_path_factory.mktemp("old_engine")
+    with tarfile.open(fileobj=io.BytesIO(blob)) as tar:
+        tar.extractall(dest, filter="data")
+    return dest / rel
+
+
 @pytest.mark.parametrize("build", sorted(bf16_knockouts.BUILDS))
-def test_knockout_builds_patch_the_current_sources(build, tmp_path):
+def test_knockout_builds_patch_the_current_sources(build, tmp_path,
+                                                   old_csrc):
     """Each knock-out build of benchmarks/bf16_knockouts.py finds its text
-    once in the current csrc/ and changes it (nvcc runs only on the
-    card): the split stays tied to the sources it measures."""
-    dest = bf16_knockouts.patched_sources(build, tmp_path)
-    changed = [src.name for src in cuda_build.CSRC.iterdir()
+    once in the sources it measures and changes it (nvcc runs only on the
+    card): the split stays tied to them.  The new and f32new builds patch
+    the current csrc/.  The old and f32old builds, of the retired mma.sync
+    engine, are refused on the current csrc/ with the --parent message,
+    and patch the engine's last csrc/ (commit 19f54fa) where the
+    repository's history holds it."""
+    csrc, parent = cuda_build.CSRC, False
+    design = build.split("_", 1)[0]
+    if design in bf16_knockouts.PARENT_ENTRIES:
+        with pytest.raises(ValueError, match="--parent DIR"):
+            bf16_knockouts.patched_sources(build, tmp_path)
+        if old_csrc is None:
+            return
+        csrc, parent = old_csrc, True
+    dest = bf16_knockouts.patched_sources(build, tmp_path, csrc, parent)
+    changed = [src.name for src in csrc.iterdir()
                if (dest / src.name).read_text() != src.read_text()]
     assert bool(changed) == (not build.endswith("_full"))

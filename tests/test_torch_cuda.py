@@ -76,8 +76,11 @@ def test_b1_cuda_kernel_matches_plain(cuda_device, R, B, c):
 
 # B1 float32's max error against its plain version, of the peak, at
 # R <= 128 and at R=512: the mma.sync design's (ROADMAP C.3, chip_smoke.py
-# B1_F32_ATOL), which its wgmma design keeps
+# F32_ATOL), which its wgmma design keeps, and B4's on the same policy
 B1_F32_ATOL = {128: 2.0e-6, 512: 3.8e-6}
+# B1's and B4's bf16 entries against their bf16 plain versions, of the
+# peak (chip_smoke.py's BF16_ATOL)
+BF16_ATOL = 4e-5
 
 
 @pytest.mark.gpu
@@ -100,6 +103,40 @@ def test_b1_wgmma_within_the_mma_sync_designs_error(cuda_device, R, B, c):
     peak = float(want.abs().max())
     err = float((got - want).abs().max())
     assert err <= B1_F32_ATOL[128 if R <= 128 else 512] * peak, (err, peak)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,B,c", [(128, 1, 15), (128, 5, 15), (98, 3, 15),
+                                   (512, 4, 15), (128, 3, 20)])
+def test_b4_wgmma_within_b1s_limits_and_equal_to_b1(cuda_device, R, B, c):
+    """B4 on the wgmma engine, B1's sym3 policy under its own entries:
+    its float32 output within B1's limit of its plain version
+    (B1_F32_ATOL of the peak) and its bf16 output within BF16_ATOL of its
+    bf16 plain version, on B1's shapes, each equal to B1's output on the
+    same inputs bit for bit, and each call counted in B4's wrapper, not
+    in B1's."""
+    args = _b1_args(R, B, c, cuda_device)
+    b1, b4 = (psf_kernels.psf_crop_diversity_sym3,
+              psf_kernels.psf_crop_diversity_sym3_thin)
+    for dtype, limit in ((None, B1_F32_ATOL[128 if R <= 128 else 512]),
+                         ("bfloat16", BF16_ATOL)):
+        before = (b1.launches, b1.launches_bf16, b4.launches,
+                  b4.launches_bf16)
+        got = b4(*args, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        bf = dtype is not None
+        assert (b1.launches, b1.launches_bf16, b4.launches,
+                b4.launches_bf16) == (before[0], before[1],
+                                      before[2] + (not bf), before[3] + bf)
+        want = psf_kernels.psf_crop_diversity_sym3_thin_ref(
+            *args, compute_dtype=dtype)
+        assert got.shape == want.shape == (B, 3, 2 * c + 1, 2 * c + 1)
+        peak = float(want.abs().max())
+        err = float((got - want).abs().max())
+        assert err <= limit * peak, (dtype, err, peak)
+        same = b1(*args, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got.view(torch.int32), same.view(torch.int32))
 
 
 @pytest.mark.gpu
@@ -181,31 +218,27 @@ def test_b2_b3_float32_take_an_r_their_bf16_entries_refuse(cuda_device,
                                                          before[1])
 
 
-MMA_LIBS = ["psf_div3_sym", "psf_div", "psf_crop", "psf_div3_sym_thin"]
 # libraries whose float32 and bf16 entries run the wgmma engine
-# csrc/psf_wgmma.cuh (B4's run the mma.sync engine csrc/psf_mma.cuh)
-WGMMA_LIBS = ("psf_div3_sym", "psf_div", "psf_crop")
-# TF32 warpgroup products (wgmma): B1-B3's float32 entries
+# csrc/psf_wgmma.cuh: B1-B4's (B4 on B1's sym3 policy)
+WGMMA_LIBS = ["psf_div3_sym", "psf_div", "psf_crop", "psf_div3_sym_thin"]
+# TF32 warpgroup products (wgmma): the float32 entries
 TF32_HGMMA = re.compile(r"\bHGMMA\.64x\d+x8\.F32\.TF32\b")
 
 
 def _on_wgmma(lib: str, fn: str) -> bool:
-    """Whether kernel ``fn`` of ``lib`` runs the wgmma engine: B1-B3's
-    float32 and bf16 entries (not their operator-image kernels)."""
-    return lib in WGMMA_LIBS and (f"{lib}_kernel" in fn or
-                                  f"{lib}_bf16_kernel" in fn)
+    """Whether kernel ``fn`` of ``lib`` is one of its entries on the
+    wgmma engine, float32 or bf16 (not its operator-image kernels)."""
+    return f"{lib}_kernel" in fn or f"{lib}_bf16_kernel" in fn
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lib", MMA_LIBS)
+@pytest.mark.parametrize("lib", WGMMA_LIBS)
 def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
-    """The built SASS of B1, B2 and B3 holds TF32 warpgroup products
-    (HGMMA.64xNx8.F32.TF32) and no HMMA, that of B4 on the mma.sync
-    engine HMMA (tensor-core) instructions, and ptxas reports no spill
-    for any of a library's kernels (its float32 and bf16 entries'),
-    within the 128 registers a thread that two resident blocks per SM
-    allow -- but the kernels on the wgmma engine (B1-B3's), one
-    384-thread block an SM, within 168."""
+    """The built SASS of B1, B2, B3 and B4 holds TF32 warpgroup products
+    (HGMMA.64xNx8.F32.TF32) and no HMMA, and ptxas reports no spill for
+    any of a library's kernels: its float32 and bf16 entries, one
+    384-thread block an SM, within 168 registers a thread, its
+    operator-image kernels within 128."""
     res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))
     assert any(f"{lib}_kernel" in fn for fn in res)
     for fn, r in res.items():
@@ -213,10 +246,7 @@ def test_b1_runs_on_the_tensor_cores_without_spills(cuda_device, lib):
         assert r["registers"] <= (168 if _on_wgmma(lib, fn) else 128), (fn,
                                                                           r)
     sass = device_peaks.sass(lib)
-    if lib in WGMMA_LIBS:
-        assert TF32_HGMMA.search(sass) and not re.findall(r"\bHMMA\.", sass)
-    else:
-        assert re.findall(r"\bHMMA\.", sass)
+    assert TF32_HGMMA.search(sass) and not re.findall(r"\bHMMA\.", sass)
 
 
 def _kernel_args(kernel, R, B, c, dev, n_div=3):
@@ -301,39 +331,31 @@ def test_b2_b3_ragged_groups_match_plain(cuda_device, kernel, count, R):
     torch.testing.assert_close(got, want, rtol=2e-4, atol=1e-5 * peak)
 
 
-BF16_HMMA = "HMMA.16816.F32.BF16"
-# bf16 warpgroup products (wgmma): B1-B3's bf16 entries, csrc/psf_wgmma.cuh
+# bf16 warpgroup products (wgmma): the bf16 entries, csrc/psf_wgmma.cuh
 BF16_HGMMA = re.compile(r"\bHGMMA\.64x\d+x16\.F32\.BF16\b")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lib", MMA_LIBS)
+@pytest.mark.parametrize("lib", WGMMA_LIBS)
 def test_bf16_entries_build_without_spills_on_bf16_mma(cuda_device, lib):
-    """Each library's bf16 kernel builds without a spill.  B4's, on the
-    mma.sync engine, within 128 registers (two blocks an SM), and its
-    SASS holds bf16 tensor-core products (HMMA.16816.F32.BF16) and no
-    TF32 ones; B1-B3's, on the wgmma engine, within the 168 a thread of
-    their 384-thread block starts with (setmaxnreg then moves them
-    between its warpgroups), and their SASS holds bf16 warpgroup products
-    (HGMMA.64xNx16.F32.BF16) and no HMMA.  The float32 kernel beside each
-    holds no bf16 product."""
+    """Each library's bf16 kernel builds without a spill, on the wgmma
+    engine within the 168 registers a thread of its 384-thread block
+    starts with (setmaxnreg then moves them between its warpgroups), and
+    its SASS holds bf16 warpgroup products (HGMMA.64xNx16.F32.BF16) and
+    no HMMA -- B4's as B1's, on the same policy.  The float32 kernel
+    beside each holds TF32 ones and no bf16 product."""
     res = cuda_build.ptxas_resources(cuda_build.ptxas_report(lib))
     bf16 = [fn for fn in res if f"{lib}_bf16_kernel" in fn]
     assert len(bf16) == 1, res
     r = res[bf16[0]]
     assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
-    assert r["registers"] <= (168 if lib in WGMMA_LIBS else 128), r
+    assert r["registers"] <= 168, r
     funcs = device_peaks.sass_functions(device_peaks.sass(lib))
     for fn, text in funcs.items():
-        if f"{lib}_bf16_kernel" in fn and lib in WGMMA_LIBS:
+        if f"{lib}_bf16_kernel" in fn:
             assert BF16_HGMMA.search(text) and "HMMA" not in text
-        elif f"{lib}_bf16_kernel" in fn:
-            assert BF16_HMMA in text and "TF32" not in text
         elif _on_wgmma(lib, fn):
             assert TF32_HGMMA.search(text) and "HMMA" not in text
-            assert not BF16_HGMMA.search(text)
-        elif f"{lib}_kernel" in fn:
-            assert BF16_HMMA not in text and "HMMA" in text
             assert not BF16_HGMMA.search(text)
 
 

@@ -222,10 +222,12 @@ def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
 
 
 def _crops_tf32(fre, fim, dft_op, scale, passes=3):
-    """The tensor-core engine of kernels B1-B3 (csrc/psf_mma.cuh) on the
-    CPU: fields (..., R, R) formed in float32, then both complex DFT
-    stages as real products through ``_mm_tf32``.  Each field's
-    arithmetic is its own, whatever block it shares with two others."""
+    """The tensor-core engine that kernels B1-B4 ran before the wgmma
+    engine (csrc/psf_mma.cuh, mma.sync; retired, last held by commit
+    19f54fa) on the CPU: fields (..., R, R) formed in float32, then both
+    complex DFT stages as real products through ``_mm_tf32``.  Each
+    field's arithmetic is its own, whatever block it shares with two
+    others.  Kept as the record of how C.3's float32 limits were set."""
     are, aim = dft_op.real.contiguous(), dft_op.imag.contiguous()
 
     def mm(a, b):
@@ -246,7 +248,8 @@ def _rtz_f32(x: torch.Tensor) -> torch.Tensor:
 
 def _mm_bf16_rtz(pairs, rtz=True) -> torch.Tensor:
     """sum of a @ b over (a, b) in ``pairs`` (bf16 values in float32, the
-    same K) as the engine's bf16 stage 1 takes it: one
+    same K) as the retired mma.sync engine's bf16 stage 1 took it (last
+    held by commit 19f54fa): one
     mma.sync.m16n8k16 a pair and k16 slice, in the engine's order (each
     slice, then each pair), each adding its 16 exact products to the
     float32 accumulator and rounding the sum toward zero -- the tensor
@@ -261,8 +264,10 @@ def _mm_bf16_rtz(pairs, rtz=True) -> torch.Tensor:
 
 
 def _crops_bf16_rtz(fre, fim, dft_op, scale, rtz=True):
-    """The engine's bf16 arithmetic (csrc/psf_mma.cuh, Precision::kBf16)
-    on the CPU for fields without recombination (B2, B3): the plain
+    """The retired engine's bf16 arithmetic (csrc/psf_mma.cuh,
+    Precision::kBf16; last held by commit 19f54fa) on the CPU for fields
+    without recombination (B2, B3), the record of how the smoke's bf16
+    limits were set: the plain
     version's rounding points (psf_kernels._intensity_bf16), stage 1
     through ``_mm_bf16_rtz``.  Stage 2 stays float32: no bf16 rounding
     follows its sums, so how they round moves a pixel by float32 error
@@ -336,12 +341,15 @@ def _engine_case(kernel):
 
 @pytest.mark.parametrize("kernel", ["b1", "b2_3", "b2_5", "b3"])
 def test_b1_3xtf32_arithmetic_matches_jax_kernel_and_plain(kernel):
-    """The mma.sync engine's 3xTF32 arithmetic (csrc/psf_mma.cuh), emulated
-    here, on B1's fields as its old design formed them and on B2's and
+    """The retired mma.sync engine's 3xTF32 arithmetic (csrc/psf_mma.cuh,
+    last held by commit 19f54fa), emulated here as the record of how
+    C.3's float32 limits were set, on B1's fields as its old design
+    formed them and on B2's and
     B3's (``_engine_case``) == the Pallas kernel each replaces (interpret
     mode) at that kernel's test tolerance (rtol 2e-4, atol 2e-4), and ==
-    the float32 plain version at rtol 2e-4, atol 1e-5 of the peak.  B1's
-    design on the wgmma engine is emulated in tests/test_torch_b1_wgmma.py.
+    the float32 plain version at rtol 2e-4, atol 1e-5 of the peak.  The
+    wgmma engine's designs of B1-B4 are emulated in
+    tests/test_torch_b1_wgmma.py and tests/test_torch_wgmma_policies.py.
 
     For B1 against the float64 plain version at these inputs (on the
     CPU): 3 passes err 1.0e-7 of the peak (float32's plain version
@@ -615,12 +623,11 @@ def test_plain_versions_match_jax_kernels_at_wide_crops(kernel, w, dtype):
 
 def test_operator_scratch_holds_every_crop_band():
     """The kernels lay the operator out in ceil(w / 32) bands of 32 rows.
-    The largest layout is B1's 3xTF32 image on the wgmma engine: a
-    band's 64 stacked rows in TF32 hi and lo, once for stage 1 and once
-    for stage 2, 256 floats a row of R rounded up to 32; the mma.sync
-    engine's 32 x 32 (re, im) tiles take a quarter of that.  The
-    wrapper's scratch holds every band: one up to w = 32 and two at w =
-    33 and 63."""
+    The largest layout is the float32 entries' 3xTF32 image on the wgmma
+    engine: a band's 64 stacked rows in TF32 hi and lo, once for stage 1
+    and once for stage 2, 256 floats a row of R rounded up to 32; the
+    bf16 entries' image takes less.  The wrapper's scratch holds every
+    band: one up to w = 32 and two at w = 33 and 63."""
     tile = 256 * 32
     assert psf_kernels._operator_scratch(128, 31) == tile * 4
     assert psf_kernels._operator_scratch(100, 32) == tile * 4
@@ -694,8 +701,9 @@ def test_bf16_rtz_emulation_reproduces_card_reading(label, scenario,
                                                     card_err):
     """The engine's bf16 stage-1 sums rounded toward zero
     (``_crops_bf16_rtz``) reproduce the reading of B2's bf16 entry on
-    that engine (psf_mma.cuh, before it moved to psf_wgmma.cuh) on the
-    card in chip_smoke.py's kernel phase at R=128, B=4096 -- max abs error
+    that engine (psf_mma.cuh, before it moved to psf_wgmma.cuh; the
+    engine is retired, last held by commit 19f54fa) on the card in
+    chip_smoke.py's kernel phase at R=128, B=4096 -- max abs error
     1.157e-3 on the triple, 3.820e-3 on the 5 random maps (NVIDIA H100
     80GB HBM3, 700 W) -- in the one scenario where the emulation errs
     most over that batch: one bf16 rounding of a stage-1 element flips.

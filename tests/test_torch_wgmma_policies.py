@@ -1,8 +1,9 @@
 """Kernels B2 and B3 on the Hopper engine (csrc/psf_wgmma.cuh, its div
-and crop policies), bf16 and float32 entries: their arithmetic emulated
-on the CPU and held against the Pallas kernels' compute_dtype="bfloat16"
-branches and float32 branches in interpret mode (the float32 ones also
-against the plain versions; see _wgmma_tf32).
+and crop policies), and B4 on its sym3 policy, bf16 and float32
+entries: their arithmetic emulated on the CPU and held against the
+Pallas kernels' compute_dtype="bfloat16" branches and float32 branches
+in interpret mode (the float32 ones also against the plain versions;
+see _wgmma_tf32; B4's against both branches' plain versions).
 
 In bf16 both policies round where their TPU kernels round: the
 operator, each field's (re, im) as formed in float32 -- B2's from
@@ -26,7 +27,8 @@ from mpc_sensorlessao_tpu.ops import dft as jdft
 from mpc_sensorlessao_tpu.ops import pallas_kernels as jpk
 from mpc_sensorlessao_tpu.ops import psf as jpsf
 from mpc_sensorlessao_tpu_torch.ops import dft, psf, psf_kernels, zernike
-from test_torch_b1_wgmma import BF16_ATOL, _chain, _chain_tf32, _stage2_tf32
+from test_torch_b1_wgmma import (BF16_ATOL, _chain, _chain_tf32, _stage2_tf32,
+                                 _wgmma_b1_bf16, _wgmma_b1_tf32)
 
 torch.set_num_threads(1)
 
@@ -294,3 +296,80 @@ def test_one_tf32_pass_misses_the_float32_limit_b2_b3(kind):
     got = _wgmma_tf32(*fields, op, scale, stage1=("hh",))
     peak = float(plain.abs().max())
     assert float((got - plain).abs().max()) > 1e-5 * peak
+
+
+# Kernel B4 on the same engine: its entries psf_div3_sym_thin and
+# psf_div3_sym_thin_bf16 instantiate B1's sym3 policy
+# (psf_wgmma_sym3.cuh), so their arithmetic is B1's
+# (test_torch_b1_wgmma._wgmma_b1_bf16 and _wgmma_b1_tf32), held here
+# against the Pallas kernel B4 replaces, `_psf_div3_sym_thin_kernel`, in
+# interpret mode and against B4's plain version
+
+
+def _case_b4(c: int):
+    """(numpy-seeded B4 inputs as torch tensors, the JAX thin kernel's
+    float32 and bf16 branches in interpret mode on them, by
+    compute_dtype) at R=64, B=4, the real defocus diversity a = 3, a
+    (2c + 1)-px crop and a unit-peak scale."""
+    rng = np.random.default_rng(4)
+    phase = (rng.normal(size=(B, R, R)) * 0.4).astype(np.float32)
+    z4 = zernike.make_basis(6, R, device="cpu").stack[4].numpy()
+    cos_a = np.cos(A * z4).astype(np.float32)
+    sin_a = np.sin(A * z4).astype(np.float32)
+    scale = 1.0 / float(jpsf.pupil_mask_np(R).sum()) ** 2
+    jargs = (jnp.asarray(phase), jpsf.pupil_mask(R), jnp.asarray(cos_a),
+             jnp.asarray(sin_a), jdft.centered_partial_dft(R, c), scale)
+    want = {dt: np.asarray(jpk.psf_crop_diversity_sym3_thin(
+        *jargs, interpret=True, compute_dtype=dt))
+        for dt in (None, "bfloat16")}
+    args = (torch.as_tensor(phase), psf.pupil_mask(R, device="cpu"),
+            torch.as_tensor(cos_a), torch.as_tensor(sin_a),
+            dft.centered_partial_dft(R, c, device="cpu"), scale)
+    return args, want
+
+
+@pytest.fixture(scope="module", params=[15, 20], ids=["w31", "w41"])
+def case_b4(request):
+    return _case_b4(request.param)
+
+
+@pytest.mark.parametrize("rtz", [True, False], ids=["rtz", "nearest"])
+def test_b4_bf16_on_sym3_matches_jax_thin_kernel_and_plain(case_b4, rtz):
+    """B4 bf16 on the engine, emulated (B1 bf16's arithmetic: P, F_0 and
+    Q rounded once -- the thin kernel's six products, rounded as it
+    rounds them --, their stage-1 sums recombined in float32, then rr /
+    ri rounded once) == the JAX thin kernel's bf16 branch within
+    BF16_ATOL of the peak, at w = 31 and 41 (two crop bands on the card),
+    whichever way the tensor cores' sums round, and == B4's bf16 plain
+    version within the same limit (7.4e-6 of the peak against either
+    with sums rounded toward zero, 7e-8 to nearest, here)."""
+    args, want = case_b4
+    got = _wgmma_b1_bf16(*args, rtz=rtz)
+    jax_bf16 = want["bfloat16"]
+    assert got.shape == jax_bf16.shape == (B, 3) + jax_bf16.shape[-2:]
+    peak = float(np.abs(jax_bf16).max())
+    assert float(np.abs(got.numpy() - jax_bf16).max()) <= BF16_ATOL * peak
+    plain = psf_kernels.psf_crop_diversity_sym3_thin_ref(
+        *args, compute_dtype="bfloat16")
+    peak = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= BF16_ATOL * peak
+
+
+@pytest.mark.parametrize("rtz", [True, False], ids=["rtz", "nearest"])
+def test_b4_tf32_on_sym3_matches_jax_thin_kernel_and_plain(case_b4, rtz):
+    """B4 float32 on the engine, emulated (B1 float32's 3xTF32
+    arithmetic: hi*hi and lo*hi + hi*lo in separate stage-1 sums, P +- Q
+    on the stage-1 rows, stage 2's partial sums a strip) == the JAX thin
+    kernel's float32 branch at that kernel's test tolerance (rtol 2e-4,
+    atol 2e-4), and == B4's float32 plain version within rtol 2e-4 and
+    atol 1e-5 of the peak (chip_smoke.py's limit), whichever way the
+    tensor cores' sums round, at w = 31 and 41 (1.4e-7 to 4.2e-7 of the
+    peak against either here)."""
+    args, want = case_b4
+    got = _wgmma_b1_tf32(*args, rtz=rtz)
+    plain = psf_kernels.psf_crop_diversity_sym3_thin_ref(*args)
+    assert got.shape == plain.shape == want[None].shape
+    np.testing.assert_allclose(got.numpy(), want[None], rtol=2e-4,
+                               atol=2e-4)
+    peak = float(plain.abs().max())
+    torch.testing.assert_close(got, plain, rtol=2e-4, atol=1e-5 * peak)
