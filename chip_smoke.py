@@ -280,8 +280,18 @@ package):
    edge_flow_breakdown.json, scaling.json and oracle_r64.json.
 18. peaks: the device-peaks entry point (benchmarks/device_peaks.py), the
    path of B5a/B5b: every measured ceiling beside the card's name and
-   power limit; each kernel must launch >= k1 + k2 times, and no rate may
-   exceed 105% of its published peak.
+   power limit, and which kernel sets the transcendental rate; each
+   kernel must launch >= k1 + k2 times, and no rate may exceed 105% of
+   its published peak.  Each chain's line reads its built link from the
+   SASS (instructions by opcode, per element and link) and gives the
+   time of each pipe it issues to (FMA, ALU, conversion) and of its
+   issue slots, beside the bound and the recorded yardstick (B5b's also
+   for the recorded cosf mix); a link with MUFU or more instructions than
+   device_peaks.BUILT_LINK_INSTRUCTIONS, or a B5b link that issues no
+   fewer than cosf's 26.5, fails.  Then B5b at k = 1 on all 2^32 float32
+   patterns (device_peaks.cos_sweep): within 2 ulp of the float64 cosine,
+   |v| >= 105615 and infinities torch.cos's cosf bit for bit, NaN for NaN
+   and +-inf, 1 for +-0; the plain torch.cos's largest error beside.
 19. roofline: rows of the roofline entry point (benchmarks/roofline.py)
    on the slice's build -- B1 at R=128 B=4096 and R=512 B=256, the step
    at R=128 B=4096 with 0 and 1 Gauss-Newton iterations, solve_fixed
@@ -1025,9 +1035,9 @@ def peaks_phase(card: str) -> tuple[dict, dict, dict]:
               f"(slope of t_k{e['k1']} {e['t_k1_ms']:.4f} ms, t_k{e['k2']} "
               f"{e['t_k2_ms']:.4f} ms over {e['elements']} elements) "
               f"[{card}]")
-    print(f"peaks: transc_per_s {peaks['transc_per_s'] / 1e9:.2f} G/s (best),"
-          f" transc_torch_per_s {peaks['transc_torch_per_s'] / 1e9:.2f} G/s "
-          f"[{card}]")
+    print(f"peaks: transc_per_s {peaks['transc_per_s'] / 1e9:.2f} G/s (best, "
+          f"{peaks['transc_per_s_from']}), transc_torch_per_s "
+          f"{peaks['transc_torch_per_s'] / 1e9:.2f} G/s [{card}]")
     # one call at the peaks run's shape and depth k2, beside the plain
     # version and the torch chain of k2 torch.cos (no single PyTorch call
     # computes k links; for B5b the chain is its plain version)
@@ -1040,18 +1050,79 @@ def peaks_phase(card: str) -> tuple[dict, dict, dict]:
         plain_ms = (library_ms if lib == "transc_cos" else
                     profiling.cuda_time_ms(lambda: plain(x, P.K2), 3))
         b = P.chain_bound(lib, P.KERNEL_SHAPE, P.K2)
+        link = built_link(lib)
         print(f"chain {lib} {P.KERNEL_SHAPE} k={P.K2}: kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, torch cos chain {library_ms:.4f} "
               f"ms; per element and link {b['fp32']:g} FP32 / "
-              f"{b['issued']:g} issued SASS instructions (recorded); bound "
-              f"{b['bound_ms']:.4f} ms ({b['bound_by']}; FP32 "
+              f"{b['issued']:g} issued SASS instructions (recorded "
+              f"yardstick), {link['fp32']:g} / {link['issued']:g} as built;"
+              f" bound {b['bound_ms']:.4f} ms ({b['bound_by']}; FP32 "
               f"{b['ops_ms']:.4f} ms at {b['sms']} SMs x 128 lanes x "
               f"{b['max_sm_clock_hz'] / 1e6:g} MHz, bytes "
               f"{b['bytes_ms']:.4f} ms, issue {b['issue_ms']:.4f} ms), "
-              f"{100 * b['bound_ms'] / ms:.1f}% of bound [{card}]")
+              f"{100 * b['bound_ms'] / ms:.1f}% of bound; built "
+              f"{pipes_text(link, ms)} [{card}]")
+        if lib == "transc_cos":
+            print(f"chain {lib} yardstick cosf link (recorded mix "
+                  f"{json.dumps(P.COSF_LINK['by_opcode'])} over "
+                  f"{P.COSF_LINK['elements']} elements): "
+                  f"{pipes_text(P.COSF_LINK)} [{card}]")
         line[lib] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+    cos_sweep_phase(card)
     return report, launches, line
+
+
+def built_link(lib: str) -> dict:
+    """The built chain kernel's link (device_peaks.link_instructions of
+    its SASS), printed by opcode; fails on MUFU, on more instructions than
+    BUILT_LINK_INSTRUCTIONS records, and on a B5b link that issues no
+    fewer than the cosf yardstick."""
+    link = P.link_instructions(P.sass(lib))
+    print(f"chain {lib} built link loop: {json.dumps(link['by_opcode'])} "
+          f"over {link['elements']} elements")
+    built = P.BUILT_LINK_INSTRUCTIONS[lib]
+    if ("MUFU" in link["by_opcode"] or link["fp32"] > built["fp32"]
+            or link["issued"] > built["issued"]):
+        fail(f"{lib}'s built link needs {link['fp32']:g} FP32 / "
+             f"{link['issued']:g} issued, more than the recorded "
+             f"{built['fp32']:g} / {built['issued']:g}, or MUFU")
+    yardstick = P.LINK_INSTRUCTIONS[lib]["issued"]
+    if lib == "transc_cos" and not link["issued"] < yardstick:
+        fail(f"B5b's link issues {link['issued']:g} a link, not fewer than "
+             f"cosf's {yardstick:g}")
+    return link
+
+
+def pipes_text(link: dict, ms: float | None = None) -> str:
+    """A link's pipe times (device_peaks.pipe_ms) at the peaks run's shape
+    and depth k2, the issue time as a share of the kernel's ``ms`` where
+    given."""
+    p = P.pipe_ms(link, P.KERNEL_SHAPE, P.K2)
+    per = " / ".join(f"{k} {v:g}" for k, v in p["per_element"].items())
+    share = "" if ms is None else (
+        f"{100 * p['issue_ms'] / ms:.1f}% of the kernel's; ")
+    return (f"pipes a call: FMA {p['fma_ms']:.4f} ms, ALU {p['alu_ms']:.4f} "
+            f"ms, conversion {p['conversion_ms']:.4f} ms, issue "
+            f"{p['issue_ms']:.4f} ms ({share}per element and link {per})")
+
+
+def cos_sweep_phase(card: str) -> None:
+    """B5b at k = 1 on every float32 bit pattern (device_peaks.cos_sweep)
+    beside the plain torch.cos: fails past 2 ulp, or on a large argument,
+    infinity, NaN or zero handled otherwise than cosf."""
+    t0 = time.time()
+    sw = P.cos_sweep()
+    misses = {k: sw[k] for k in ("finite_misses", "big_mismatches",
+                                 "nan_misses", "zero_misses")}
+    print(f"peaks: B5b on all {sw['patterns']} float32 patterns at k=1: max "
+          f"{sw['max_ulp']:.4f} ulp (at {sw['max_ulp_at']!r}), torch.cos "
+          f"float32 max {sw['plain_max_ulp']:.4f} ulp, of the float64 "
+          f"cosine; {json.dumps(misses)} in {time.time() - t0:.2f} s "
+          f"[{card}]")
+    if sw["patterns"] != 1 << 32 or not sw["max_ulp"] <= 2.0 or any(
+            misses.values()):
+        fail(f"the B5b sweep: {json.dumps(sw)}")
 
 
 def slice_cfg(dft_dtype: str = "float32", crop_half: int = CROP_HALF):

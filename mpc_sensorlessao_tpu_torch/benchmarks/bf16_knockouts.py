@@ -1,7 +1,9 @@
-"""Where the PSF kernels' time goes, by knock-out builds, on one CUDA card.
+"""Where the PSF kernels' time goes, by knock-out builds, on one CUDA card;
+and the A/B of the chain kernels against a parent tree.
 
     python -m mpc_sensorlessao_tpu_torch.benchmarks.bf16_knockouts \
-        [R] [B] [out.json] [--designs D,...] [--parent DIR [--bitwise]]
+        [R] [B] [out.json] [--designs D,...] [--parent DIR [--bitwise |
+        --chains]]
 
 Builds copies of ``csrc/`` in a temporary directory, each with one part
 of a kernel knocked out (its results are then wrong: only the time is
@@ -62,7 +64,14 @@ on its b4 and b4f.  With ``--bitwise`` it times nothing: it builds each
 library whole from DIR and from ``csrc/``, runs the entries of b1, b2,
 b3 (bf16) and b1f, b2f, b3f (float32) once each on the same inputs and
 reports ``<tag>_bits_equal`` (the two outputs hold the same bits) and
-``<tag>_max_abs_diff``.
+``<tag>_max_abs_diff``.  With ``--chains`` it times the chain kernels
+B5a and B5b (``CHAIN_LIBS``) built whole from DIR -- for B5b's cosf link,
+a ``git archive`` of 47c9e2e, the last commit that holds it -- and from
+``csrc/`` on the device-peaks run's input (``device_peaks.KERNEL_SHAPE``
+of 0.7) at depths k1 and k2, in turns parent, change, change, parent
+(``<lib>_<side>_k<k>_ms``, one time a turn), and reports each library's
+``<lib>_max_abs_diff_k<k>`` between the two builds on U(-3, 3) at k = 1
+and k2; R and B are not read.
 
 Prints one JSON line -- ``<build>_<entry>_ms`` (each build's two times,
 e.g. ``old_full_b4_ms``), ``<build>_<entry>_cost_ms`` (a part's cost,
@@ -86,7 +95,7 @@ import torch
 
 from ..ops import cuda_build, psf_kernels
 from ..utils import profiling
-from . import kernel_variants
+from . import device_peaks, kernel_variants
 
 # entry tag -> (library, entry point): the bf16 entries, then (tags
 # ending in "f") the float32 ones
@@ -110,6 +119,9 @@ OLD_ENGINE_COMMIT = "19f54fa"
 # the entries --bitwise holds to the parent's: those on the wgmma engine
 # in both trees
 BITWISE_TAGS = ("b1", "b2", "b3", "b1f", "b2f", "b3f")
+# the chain kernels --chains times against the parent's (B5b, B5a)
+CHAIN_LIBS = ("transc_cos", "transc_sincos")
+CHAIN_TURNS = ("parent", "change", "change", "parent")
 
 _FRAG = ("re.v[r] = bf16x2(v[2 * r].x, v[2 * r + 1].x);\n"
          "      im.v[r] = bf16x2(v[2 * r].y, v[2 * r + 1].y);")
@@ -380,21 +392,12 @@ def bitwise(parent: Path, R: int = 128, B: int = 4096,
         raise RuntimeError("the bitwise comparison needs a CUDA device")
     inp = kernel_variants.inputs(R, B, "cuda")
     out = {"R": R, "B": B, "w": kernel_variants.CROP, "csrc": str(parent)}
-    sides = {"parent": Path(parent), "change": cuda_build.CSRC}
-    jobs = [(side, lib) for side in sides
-            for lib in sorted({ENTRIES[tag][0] for tag in tags})]
     with tempfile.TemporaryDirectory() as tmp:
-        def build(job):
-            side, lib = job
-            dest = Path(tmp) / f"{side}_{lib}"
-            shutil.copytree(sides[side], dest)
-            return _build(side, lib, dest)
-
-        with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-            paths = dict(zip(jobs, pool.map(build, jobs)))
+        paths = _build_sides(parent, sorted({ENTRIES[tag][0]
+                                             for tag in tags}), tmp)
         for tag in tags:
             got = []
-            for side in sides:
+            for side in ("parent", "change"):
                 call = _caller(paths[(side, ENTRIES[tag][0])], tag, inp)
                 call()
                 torch.cuda.synchronize()
@@ -405,6 +408,77 @@ def bitwise(parent: Path, R: int = 128, B: int = 4096,
     return out
 
 
+def _build_sides(parent: Path, libs, tmp: str) -> dict:
+    """{(side, lib): library} of each of ``libs`` built whole from
+    ``parent`` and from csrc/, all at once."""
+    sides = {"parent": Path(parent), "change": cuda_build.CSRC}
+    jobs = [(side, lib) for side in sides for lib in libs]
+
+    def build(job):
+        side, lib = job
+        dest = Path(tmp) / f"{side}_{lib}"
+        shutil.copytree(sides[side], dest)
+        return _build(side, lib, dest)
+
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        return dict(zip(jobs, pool.map(build, jobs)))
+
+
+def _chain_caller(path: Path, lib: str, x: torch.Tensor, k: int):
+    """A call of chain kernel ``lib`` in the library at ``path`` on x at
+    depth k, as device_peaks._launch makes it; the output is
+    ``call.out``."""
+    fn = getattr(ctypes.CDLL(str(path)), lib)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = torch.empty_like(x)
+
+    def call():
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), k,
+                 x.device.index, torch.cuda.current_stream(x.device)
+                 .cuda_stream)
+        if err:
+            raise RuntimeError(f"{path.name} {lib} failed: {err}")
+    call.out = out
+    return call
+
+
+def chains(parent: Path, reps: int = 20) -> dict:
+    """B5a and B5b built from ``parent`` and from csrc/, timed in
+    CHAIN_TURNS at depths K1 and K2, and their outputs' largest
+    difference on U(-3, 3)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the chain A/B needs a CUDA device")
+    shape, ks = device_peaks.KERNEL_SHAPE, (device_peaks.K1, device_peaks.K2)
+    x = torch.full(shape, 0.7, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    u = torch.rand(shape, generator=gen, device="cuda") * 6 - 3
+    out = {"shape": list(shape), "csrc": str(parent),
+           "turns": list(CHAIN_TURNS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _build_sides(parent, CHAIN_LIBS, tmp)
+        for lib in CHAIN_LIBS:
+            for k in (1, ks[1]):
+                got = []
+                for side in ("parent", "change"):
+                    call = _chain_caller(paths[(side, lib)], lib, u, k)
+                    call()
+                    got.append(call.out)
+                torch.cuda.synchronize()
+                out[f"{lib}_max_abs_diff_k{k}"] = float(
+                    (got[0] - got[1]).abs().max())
+        calls = {(side, lib, k): _chain_caller(paths[(side, lib)], lib, x, k)
+                 for side in ("parent", "change") for lib in CHAIN_LIBS
+                 for k in ks}
+        for side in CHAIN_TURNS:
+            for lib in CHAIN_LIBS:
+                for k in ks:
+                    out.setdefault(f"{lib}_{side}_k{k}_ms", []).append(
+                        profiling.cuda_time_ms(calls[(side, lib, k)], reps))
+    return out
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("R", nargs="?", type=int, default=128)
@@ -412,17 +486,24 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("out", nargs="?")
     ap.add_argument("--parent", type=Path)
     ap.add_argument("--bitwise", action="store_true")
+    ap.add_argument("--chains", action="store_true")
     ap.add_argument("--designs", help="comma-separated designs to time "
                     "(default: every design of the sources)")
     args = ap.parse_args(argv)
-    if args.bitwise and args.parent is None:
-        ap.error("--bitwise compares with a --parent DIR")
+    if (args.bitwise or args.chains) and args.parent is None:
+        ap.error("--bitwise and --chains compare with a --parent DIR")
+    if args.bitwise and args.chains:
+        ap.error("--bitwise and --chains are two runs")
     for design in (args.designs or "").split(","):
         if design in PARENT_ENTRIES and args.parent is None:
             ap.error(parent_only(design))
-    out = (bitwise(args.parent, args.R, args.B) if args.bitwise
-           else run(args.R, args.B, args.parent,
-                    args.designs and tuple(args.designs.split(","))))
+    if args.chains:
+        out = chains(args.parent)
+    elif args.bitwise:
+        out = bitwise(args.parent, args.R, args.B)
+    else:
+        out = run(args.R, args.B, args.parent,
+                  args.designs and tuple(args.designs.split(",")))
     out["card"] = profiling.card()
     line = json.dumps(out)
     print(line)

@@ -531,6 +531,23 @@ def test_b5_cuda_kernels_match_plain(cuda_device, kernel, shape):
 
 
 @pytest.mark.gpu
+def test_b5b_cos_link_sweeps_every_float32(cuda_device):
+    """Kernel B5b at k = 1 on all 2^32 float32 bit patterns, in chunks of
+    2^28 (device_peaks.cos_sweep): every finite input within 2 ulp of
+    torch.cos of the float64 input; |v| >= 105615 and the infinities
+    torch.cos's float32 cosf bit for bit; NaN and +-inf give NaN, +-0
+    gives 1.  The plain torch.cos's largest error is printed beside."""
+    got = device_peaks.cos_sweep()
+    print(f"B5b sweep: max {got['max_ulp']:.4f} ulp at {got['max_ulp_at']!r}"
+          f"; torch.cos float32 max {got['plain_max_ulp']:.4f} ulp")
+    assert got["patterns"] == 1 << 32
+    assert got["max_ulp"] <= 2.0
+    for key in ("finite_misses", "big_mismatches", "nan_misses",
+                "zero_misses"):
+        assert got[key] == 0, (key, got)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["b5a", "b5b"])
 def test_b5_wrappers_raise_on_bad_input(cuda_device, kernel):
     """float64, 1-D, non-contiguous inputs and k < 0 are refused on the
@@ -552,19 +569,24 @@ def test_b5_wrappers_raise_on_bad_input(cuda_device, kernel):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["b5a", "b5b"])
 def test_b5_link_is_counted_from_the_built_sass(cuda_device, kernel):
-    """The built library's SASS has the link loop link_instructions looks
-    for: one range check per element a thread carries (4), no MUFU
-    (full-precision sincosf / cosf), and no more FP32 or issued
-    instructions per element and link than the recorded counts the B5
-    bound is computed from (device_peaks.LINK_INSTRUCTIONS)."""
+    """The built library's SASS has a link loop link_instructions reads,
+    over the 4 elements a thread carries (B5a: one range check each; B5b:
+    one check of their max), no MUFU (full precision), and no more FP32
+    or issued instructions per element and link than the built links'
+    record (device_peaks.BUILT_LINK_INSTRUCTIONS: B5a's is its yardstick,
+    19 / 32); B5b's own link issues fewer than the cosf yardstick's 26.5
+    that its bound is computed from."""
     _, _, name = CHAINS[kernel]
     text = device_peaks.sass(name)
     assert "MUFU.SIN" not in text and "MUFU.COS" not in text
     got = device_peaks.link_instructions(text)
-    recorded = device_peaks.LINK_INSTRUCTIONS[name]
+    recorded = device_peaks.BUILT_LINK_INSTRUCTIONS[name]
     assert got["elements"] == 4
+    assert "MUFU" not in got["by_opcode"]
     assert 0 < got["fp32"] <= recorded["fp32"]
     assert got["fp32"] < got["issued"] <= recorded["issued"]
+    if kernel == "b5b":
+        assert got["issued"] < device_peaks.LINK_INSTRUCTIONS[name]["issued"]
 
 
 @pytest.mark.gpu
