@@ -1,0 +1,11 @@
+"""solve.ms_per_step: device time a step of the operations launched in the
+program's ``solve`` span (the QP's assembly and its solve, through the
+first-stage command): their summed durations in the traced episode over
+its steps.  Nothing without the program's spans."""
+
+from ao_bench import spans
+
+
+def read(ctx):
+    v = spans.view(ctx)
+    return None if v is None else v.layer_ms_per_step("solve")

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..ops import edge_flow, newton_kkt, phase_screens, zernike
-from ..utils import tree
+from ..utils import profiling, tree
 from ..utils.config import SystemConfig
 from . import dm as dm_model
 from . import estimator as estimator_model
@@ -124,7 +124,10 @@ def track_estimate(models: LoopModels, y: torch.Tensor, x0: torch.Tensor,
     flat = stack.reshape(stack.shape[0], R * R)
 
     def chi2(xc):
-        dy = y - estimator_model.measure(est, (xc @ flat).reshape(-1, R, R))
+        phase = (xc @ flat).reshape(-1, R, R)
+        with profiling.span("measure"):
+            y_x = estimator_model.measure(est, phase)
+        dy = y - y_x
         return torch.mean(dy * dy, dim=-1) / sig2
 
     c_base = chi2(x0)
@@ -285,14 +288,14 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     stack = models.state_stack.reshape(nx, R * R)
     w2 = (2 * est.crop_half + 1) ** 2
     peak_dl = torch.max(est.b_s[w2:2 * w2])
-    # the carry of the JAX scan: u[k-1..k-3], x0[k-1..k-2], DM modes
+    # the carry of the JAX scan: u[k-1..k-3], x0[k-1..k-2] (its DM modes
+    # are u[k-1]'s, made at the start of each step)
     u2 = torch.zeros((B, nu), dtype=torch.float32, device=dev)
     u3 = torch.zeros_like(u2)
     u1 = (u2 if init_u is None
           else init_u.expand(*batch, nu).reshape(B_all, nu)[keep].clone())
     x_pre = torch.zeros((B, nx), dtype=torch.float32, device=dev)
     x_pre2 = torch.zeros_like(x_pre)
-    ad_cor = u1 @ models.influence.T
     fuse = cfg.mpc.est_gain != 1.0 or cfg.mpc.innovation_gate is not None
     track = cfg.estimator.track_gn_iters
     if track > 0:
@@ -309,119 +312,140 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
     warmup = cfg.mpc.var_order    # steps 0..var_order have no history
     steps = []
     for idx in range(n_steps):
-        # -- turbulence + correction (README.md:447-453) --
-        if edge:
-            eflow, raw = edge_flow.advance(
-                edge_model, eflow, turb_start + np.float32(idx),
-                turb_generator,
-                None if edge_eps is None else edge_eps[..., idx, :, :, :],
-                rows=edge_rows)
-        elif shared:
-            raw = phase_screens.phase_at(layers, start + np.float32(idx), R)
-        else:
-            raw = phase_screens.phase_at(layers, start + idx, R)
-        # piston removed BEFORE the mag scaling: shared across scenarios
-        # in shared-window batches
-        pt_unit = zernike.piston_removed_phase_masked(
-            raw, models.mask, models.mask_npix)
-        phase_res = (ad_cor @ stack).reshape(B, R, R)
-        phase_res.addcmul_(mag_b[:, None, None], pt_unit)
+        with profiling.span("loop.step", step=idx):
+            # -- turbulence (README.md:447-453) --
+            with profiling.span("turbulence"):
+                if edge:
+                    eflow, raw = edge_flow.advance(
+                        edge_model, eflow, turb_start + np.float32(idx),
+                        turb_generator,
+                        None if edge_eps is None
+                        else edge_eps[..., idx, :, :, :], rows=edge_rows)
+                elif shared:
+                    raw = phase_screens.phase_at(
+                        layers, start + np.float32(idx), R)
+                else:
+                    raw = phase_screens.phase_at(layers, start + idx, R)
+                # piston removed BEFORE the mag scaling: shared across
+                # scenarios in shared-window batches
+                pt_unit = zernike.piston_removed_phase_masked(
+                    raw, models.mask, models.mask_npix)
+            # -- correction: the DM phase of the last command --
+            with profiling.span("synthesis"):
+                ad_cor = u1 @ models.influence.T
+                phase_res = (ad_cor @ stack).reshape(B, R, R)
+                phase_res.addcmul_(mag_b[:, None, None], pt_unit)
 
-        # -- estimator (README.md:457-480) --
-        if noise_seq is not None:
-            noise = noise_seq[..., idx, :].expand(*batch, est.n_pixels)
-            noise = scale_b * noise.reshape(B_all, est.n_pixels)[keep]
-        else:
-            noise = scale_b * estimator_model.sample_noise(
-                est, generator, (B_all,))[keep]
-        y_clean = estimator_model.measure(est, phase_res)
-        y = y_clean + noise
-        gn = cfg.estimator.gauss_newton_iters
-        if gn > 0:
-            x0 = estimator_model.estimate_gauss_newton(
-                est, y, models.state_stack, gn)
-        else:
-            x0 = estimator_model.estimate(est, y)
-        if track > 0:
-            # continuity seed: the last estimate moved by the applied
-            # command change
-            seed = (x0 if idx <= warmup
-                    else x_pre + (u1 - u2) @ prob.B.T)
-            x0 = track_estimate(models, y, x0, seed, sig2, track)
-        if fuse and idx > warmup:
-            x0 = fuse_estimate(prob, x0, x_pre, x_pre2, u1, u2, u3,
-                               cfg.mpc.est_gain, cfg.mpc.innovation_gate)
+            # -- estimator (README.md:457-480) --
+            with profiling.span("measure"):
+                if noise_seq is not None:
+                    noise = noise_seq[..., idx, :].expand(*batch,
+                                                          est.n_pixels)
+                    noise = scale_b * noise.reshape(B_all,
+                                                    est.n_pixels)[keep]
+                else:
+                    noise = scale_b * estimator_model.sample_noise(
+                        est, generator, (B_all,))[keep]
+                y_clean = estimator_model.measure(est, phase_res)
+                y = y_clean + noise
+            with profiling.span("estimate"):
+                gn = cfg.estimator.gauss_newton_iters
+                if gn > 0:
+                    x0 = estimator_model.estimate_gauss_newton(
+                        est, y, models.state_stack, gn)
+                else:
+                    x0 = estimator_model.estimate(est, y)
+                if track > 0:
+                    # continuity seed: the last estimate moved by the
+                    # applied command change
+                    seed = (x0 if idx <= warmup
+                            else x_pre + (u1 - u2) @ prob.B.T)
+                    x0 = track_estimate(models, y, x0, seed, sig2, track)
+                if fuse and idx > warmup:
+                    x0 = fuse_estimate(prob, x0, x_pre, x_pre2, u1, u2, u3,
+                                       cfg.mpc.est_gain,
+                                       cfg.mpc.innovation_gate)
 
-        # -- QP assembly (README.md:483-501); "hold": first-step
-        # x0_pre = x0 instead of zeros (see MPCConfig.cold_start) --
-        hold = cfg.mpc.cold_start == "hold" and idx == 0
-        x_pre_eff = x0 if hold else x_pre
-        bref = mpc.b_ref(models.mats, u1, u2)
-        r, c, x_free = mpc.gradient_terms(models.mats, x0, x_pre_eff, bref)
+            with profiling.span("solve"):
+                # -- QP assembly (README.md:483-501); "hold": first-step
+                # x0_pre = x0 instead of zeros (see MPCConfig.cold_start)
+                hold = cfg.mpc.cold_start == "hold" and idx == 0
+                x_pre_eff = x0 if hold else x_pre
+                bref = mpc.b_ref(models.mats, u1, u2)
+                r, c, x_free = mpc.gradient_terms(models.mats, x0,
+                                                  x_pre_eff, bref)
 
-        # -- solve (README.md:504-570) --
-        if solver == "fastmpc" and cfg.mpc.newton_steps == 1:
-            # real-time mode: the constant-slack single Newton step
-            state = newton_kkt.solve_fixed(models.prob, models.fixed_op, x0,
-                                           x_pre_eff, bref, horizon=N)
-            U = state.U.reshape(B, N * nu)
-        elif solver in ("fastmpc", "fastmpc_ramp"):
-            # the general Newton solve; fastmpc_ramp adds the VAR_1 ramp
-            # rows with each scenario's running u[k-1]
-            ramp = solver == "fastmpc_ramp"
-            p = dataclasses.replace(prob, u_prev=u1) if ramp else prob
-            state = newton_kkt.solve(p, x0, x_pre_eff, bref, horizon=N,
-                                     n_newton=cfg.mpc.newton_steps,
-                                     ramp=ramp)
-            U = state.U.reshape(B, N * nu)
-        elif solver == "closed_form":
-            U = solvers.closed_form(models.mats, r)
-        else:
-            shift = torch.nn.functional.pad(u1, (0, (N - 1) * nu))
-            U = solvers.admm_condensed(models.mats, r, -U_max, U_max,
-                                       shift - dU_base_max,
-                                       shift + dU_base_max)
+                # -- solve (README.md:504-570) --
+                if solver == "fastmpc" and cfg.mpc.newton_steps == 1:
+                    # real-time mode: the constant-slack single Newton step
+                    state = newton_kkt.solve_fixed(
+                        models.prob, models.fixed_op, x0, x_pre_eff, bref,
+                        horizon=N)
+                    U = state.U.reshape(B, N * nu)
+                elif solver in ("fastmpc", "fastmpc_ramp"):
+                    # the general Newton solve; fastmpc_ramp adds the
+                    # VAR_1 ramp rows with each scenario's running u[k-1]
+                    ramp = solver == "fastmpc_ramp"
+                    p = dataclasses.replace(prob, u_prev=u1) if ramp else prob
+                    state = newton_kkt.solve(p, x0, x_pre_eff, bref,
+                                             horizon=N,
+                                             n_newton=cfg.mpc.newton_steps,
+                                             ramp=ramp)
+                    U = state.U.reshape(B, N * nu)
+                elif solver == "closed_form":
+                    U = solvers.closed_form(models.mats, r)
+                else:
+                    shift = torch.nn.functional.pad(u1, (0, (N - 1) * nu))
+                    U = solvers.admm_condensed(models.mats, r, -U_max, U_max,
+                                               shift - dU_base_max,
+                                               shift + dU_base_max)
+                # -- actuate (README.md:576-601) --
+                u = U[:, :nu]
 
-        # -- actuate (README.md:576-601) --
-        u = U[:, :nu]
-        volts = dm_model.rad_to_volts(u, cfg.dm.coeff_a, cfg.dm.coeff_b,
-                                      cfg.estimator.rad_to_nm)
-        x_pred = mpc.predicted_states(models.mats, U, x_free)
-        cost = mpc.cost(models.mats, U, r, c)
+            with profiling.span("telemetry"):
+                volts = dm_model.rad_to_volts(u, cfg.dm.coeff_a,
+                                              cfg.dm.coeff_b,
+                                              cfg.estimator.rad_to_nm)
+                x_pred = mpc.predicted_states(models.mats, U, x_free)
+                cost = mpc.cost(models.mats, U, r, c)
 
-        # pt_unit is mean-removed, so rms(phase_turb) = mag rms(pt_unit):
-        # one reduction per step in shared-window batches
-        rms_turb = mag_b * _pupil_rms(models, pt_unit)
-        # algebraic residual RMS with p = mag pt + sum_k ad_k Z_k (both
-        # zero outside the pupil, pt pupil-mean-removed):
-        #   mean(p^2) = mag^2 rms(pt)^2 + 2 mag ad.ct + ad'G ad,
-        #   mean(p)   = ad.mbar,  ct_k = mean_pupil(pt Z_k)
-        # -- O(nx^2) per scenario instead of a (B, R^2) reduction
-        ct = pt_unit.reshape(-1, R * R) @ stack.T / models.mask_npix
-        var_res = (rms_turb ** 2
-                   + 2.0 * mag_b * torch.sum(ad_cor * ct, dim=-1)
-                   + torch.sum((ad_cor @ models.mode_gram) * ad_cor, dim=-1)
-                   - (ad_cor @ models.mode_mean) ** 2)
-        rms_res = torch.sqrt(torch.clamp(var_res, min=0.0))
+                # pt_unit is mean-removed, so rms(phase_turb) = mag
+                # rms(pt_unit): one reduction per step in shared-window
+                # batches
+                rms_turb = mag_b * _pupil_rms(models, pt_unit)
+                # algebraic residual RMS with p = mag pt + sum_k ad_k Z_k
+                # (both zero outside the pupil, pt pupil-mean-removed):
+                #   mean(p^2) = mag^2 rms(pt)^2 + 2 mag ad.ct + ad'G ad,
+                #   mean(p)   = ad.mbar,  ct_k = mean_pupil(pt Z_k)
+                # -- O(nx^2) per scenario instead of a (B, R^2) reduction
+                ct = pt_unit.reshape(-1, R * R) @ stack.T / models.mask_npix
+                var_res = (rms_turb ** 2
+                           + 2.0 * mag_b * torch.sum(ad_cor * ct, dim=-1)
+                           + torch.sum((ad_cor @ models.mode_gram) * ad_cor,
+                                       dim=-1)
+                           - (ad_cor @ models.mode_mean) ** 2)
+                rms_res = torch.sqrt(torch.clamp(var_res, min=0.0))
 
-        # exact Strehl from the zd=0 crop (the middle w^2 block of y_clean;
-        # diversity order is (-a, 0, +a))
-        strehl_exact = y_clean[:, w2:2 * w2].amax(dim=-1) / peak_dl
-        steps.append(StepOutputs(
-            u=u, du=u - u1, volts=volts, x_est=x0,
-            x_est_norm=torch.linalg.vector_norm(x0, dim=-1),
-            x_pred_norm=torch.linalg.vector_norm(x_pred[:, :nx], dim=-1),
-            cost=cost, rms_res=rms_res, rms_turb=rms_turb,
-            strehl=torch.exp(-rms_res ** 2), strehl_exact=strehl_exact))
-        u1, u2, u3 = u, u1, u2
-        x_pre, x_pre2 = x0, x_pre
-        ad_cor = u @ models.influence.T
+                # exact Strehl from the zd=0 crop (the middle w^2 block of
+                # y_clean; diversity order is (-a, 0, +a))
+                strehl_exact = y_clean[:, w2:2 * w2].amax(dim=-1) / peak_dl
+                steps.append(StepOutputs(
+                    u=u, du=u - u1, volts=volts, x_est=x0,
+                    x_est_norm=torch.linalg.vector_norm(x0, dim=-1),
+                    x_pred_norm=torch.linalg.vector_norm(x_pred[:, :nx],
+                                                         dim=-1),
+                    cost=cost, rms_res=rms_res, rms_turb=rms_turb,
+                    strehl=torch.exp(-rms_res ** 2),
+                    strehl_exact=strehl_exact))
+            u1, u2, u3 = u, u1, u2
+            x_pre, x_pre2 = x0, x_pre
 
     out_batch = batch if rows is None else (B,)
-    return StepOutputs(*(
-        torch.stack(col, dim=1).reshape(*out_batch, n_steps,
-                                        *col[0].shape[1:])
-        for col in zip(*steps)))
+    with profiling.span("telemetry"):
+        return StepOutputs(*(
+            torch.stack(col, dim=1).reshape(*out_batch, n_steps,
+                                            *col[0].shape[1:])
+            for col in zip(*steps)))
 
 
 ROLLOUT_CHUNK = 32      # steps per batched window gather

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops import dft, psf, zernike
+from ..utils import profiling
 from ..utils.config import EstimatorConfig
 
 
@@ -132,7 +133,9 @@ def estimate_gauss_newton(model: EstimatorModel, y: torch.Tensor,
     flat = mode_stack.reshape(nx, R * R)
     for _ in range(n_iters):
         phase = (x @ flat).reshape(*x.shape[:-1], R, R)
-        x = x + (y - measure(model, phase)) @ model.solve_op.T
+        with profiling.span("measure"):
+            y_x = measure(model, phase)
+        x = x + (y - y_x) @ model.solve_op.T
     return x
 
 

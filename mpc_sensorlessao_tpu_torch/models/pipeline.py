@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops import edge_flow, phase_screens, zernike, zernike_stats
-from ..utils import tree
+from ..utils import profiling, tree
 from ..utils.config import SystemConfig
 from . import closed_loop, dm, estimator, mpc, solvers, var
 
@@ -86,49 +86,59 @@ def build(cfg: SystemConfig, device: torch.device | str = "cuda") -> System:
     R = cfg.resolution
     tel = dataclasses.replace(cfg.telescope, resolution=R)
 
-    basis = zernike.make_basis(cfg.zernike.radial_order, R, device=device)
-    prior_cov = None
-    if cfg.estimator.method == "mmse":
-        # analytic Von Karman Zernike-coefficient covariance as the
-        # residual-aberration prior (piston excluded; the magnification
-        # scales coefficients linearly, so the covariance by mag^2)
-        C = zernike_stats.covariance_analytic(
-            cfg.atmosphere, cfg.telescope.diameter, cfg.zernike.radial_order)
-        prior_cov = (C[1:, 1:] * cfg.sim.magnification ** 2
-                     * cfg.estimator.prior_scale ** 2)
-    est = estimator.build(cfg.estimator, basis, prior_cov=prior_cov,
-                          device=device)
-    dm_model = dm.build(cfg.dm, basis, device=device)
+    with profiling.span("setup.operators"):
+        basis = zernike.make_basis(cfg.zernike.radial_order, R,
+                                   device=device)
+        prior_cov = None
+        if cfg.estimator.method == "mmse":
+            # analytic Von Karman Zernike-coefficient covariance as the
+            # residual-aberration prior (piston excluded; the
+            # magnification scales coefficients linearly, so the
+            # covariance by mag^2)
+            C = zernike_stats.covariance_analytic(
+                cfg.atmosphere, cfg.telescope.diameter,
+                cfg.zernike.radial_order)
+            prior_cov = (C[1:, 1:] * cfg.sim.magnification ** 2
+                         * cfg.estimator.prior_scale ** 2)
+        est = estimator.build(cfg.estimator, basis, prior_cov=prior_cov,
+                              device=device)
+        dm_model = dm.build(cfg.dm, basis, device=device)
+        mask_npix = torch.tensor(float(basis.mask.sum()),
+                                 dtype=torch.float32, device=device)
 
     # open-loop pre-pass over train+valid (the closed loop runs on the
     # test window, README.md:112-115,429-430), magnified as
     # README.md:283-284
-    mask_npix = torch.tensor(float(basis.mask.sum()), dtype=torch.float32,
-                             device=device)
     n_id = cfg.sim.n_train + cfg.sim.n_valid
     layers = edge_model = edge_state = None
-    if flow == "conditional":
-        edge_model, state0 = edge_flow.build(
-            int(cfg.sim.seed), cfg.atmosphere, tel,
-            op_dtype=cfg.atmosphere.edge_op_dtype, device=device)
-        gen = torch.Generator(device=device)
-        gen.manual_seed(int(cfg.sim.seed))
-        edge_state, coeffs = edge_flow.rollout(
-            edge_model, state0, gen, n_id, basis.fit_full, basis.mask,
-            mask_npix, mag=cfg.sim.magnification)
-    else:
-        layers = phase_screens.make_layers(int(cfg.sim.seed), cfg.atmosphere,
-                                           tel, device=device)
-        coeffs = closed_loop.turbulence_rollout(
-            layers, basis.fit_full, basis.mask, mask_npix, n_steps=n_id,
-            resolution=R, mag=cfg.sim.magnification)
+    with profiling.span("setup.screens"):
+        if flow == "conditional":
+            edge_model, state0 = edge_flow.build(
+                int(cfg.sim.seed), cfg.atmosphere, tel,
+                op_dtype=cfg.atmosphere.edge_op_dtype, device=device)
+        else:
+            layers = phase_screens.make_layers(
+                int(cfg.sim.seed), cfg.atmosphere, tel, device=device)
+    with profiling.span("setup.rollout"):
+        if flow == "conditional":
+            gen = torch.Generator(device=device)
+            gen.manual_seed(int(cfg.sim.seed))
+            edge_state, coeffs = edge_flow.rollout(
+                edge_model, state0, gen, n_id, basis.fit_full, basis.mask,
+                mask_npix, mag=cfg.sim.magnification)
+        else:
+            coeffs = closed_loop.turbulence_rollout(
+                layers, basis.fit_full, basis.mask, mask_npix, n_steps=n_id,
+                resolution=R, mag=cfg.sim.magnification)
 
-    # VAR fit on the training window, piston removed (README.md:110-130)
-    vmodel = var.fit(coeffs[:cfg.sim.n_train, 1:].double(),
-                     cfg.mpc.var_order, ridge=cfg.mpc.var_ridge)
-    if cfg.mpc.var_max_radius is not None:
-        vmodel = var.stabilize(vmodel, cfg.mpc.var_max_radius)
-    mats, loop = _controller(cfg, vmodel, basis, est, dm_model)
+    with profiling.span("setup.operators"):
+        # VAR fit on the training window, piston removed
+        # (README.md:110-130)
+        vmodel = var.fit(coeffs[:cfg.sim.n_train, 1:].double(),
+                         cfg.mpc.var_order, ridge=cfg.mpc.var_ridge)
+        if cfg.mpc.var_max_radius is not None:
+            vmodel = var.stabilize(vmodel, cfg.mpc.var_max_radius)
+        mats, loop = _controller(cfg, vmodel, basis, est, dm_model)
     return System(basis=basis, layers=layers, est=est, dm_model=dm_model,
                   var_model=vmodel, mats=mats, loop=loop,
                   coeff_series=coeffs, edge_model=edge_model,
@@ -181,19 +191,20 @@ def warm_start_command(system: System, cfg: SystemConfig,
     def f64(t):
         return t.detach().cpu().double().numpy()
 
-    states = f64(system.coeff_series[:, 1:])
-    x_pred = f64(system.var_model.coefficient(1)) @ states[start - 1]
-    if cfg.mpc.var_order >= 2:
-        x_pred = x_pred + f64(system.var_model.coefficient(2)) @ states[
-            start - 2]
-    B = f64(system.dm_model.influence)
-    gram = B.T @ B
-    lam = 1e-6 * np.trace(gram) / gram.shape[0]
-    for _ in range(20):
-        u0 = np.linalg.solve(gram + lam * np.eye(gram.shape[0]),
-                             -B.T @ x_pred)
-        if np.abs(u0).max() <= 0.5 * cfg.mpc.u_max:
-            break
-        lam *= 10.0
-    return torch.as_tensor(u0, dtype=torch.float32,
-                           device=system.dm_model.influence.device)
+    with profiling.span("setup.operators"):
+        states = f64(system.coeff_series[:, 1:])
+        x_pred = f64(system.var_model.coefficient(1)) @ states[start - 1]
+        if cfg.mpc.var_order >= 2:
+            x_pred = x_pred + f64(system.var_model.coefficient(2)) @ states[
+                start - 2]
+        B = f64(system.dm_model.influence)
+        gram = B.T @ B
+        lam = 1e-6 * np.trace(gram) / gram.shape[0]
+        for _ in range(20):
+            u0 = np.linalg.solve(gram + lam * np.eye(gram.shape[0]),
+                                 -B.T @ x_pred)
+            if np.abs(u0).max() <= 0.5 * cfg.mpc.u_max:
+                break
+            lam *= 10.0
+        return torch.as_tensor(u0, dtype=torch.float32,
+                               device=system.dm_model.influence.device)

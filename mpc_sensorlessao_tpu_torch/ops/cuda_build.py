@@ -20,12 +20,16 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# nvcc runs in this process: 0 while every library comes from the cache
+compiles = 0
 
 
 def nvcc_path() -> str:
@@ -56,6 +60,8 @@ def _nvcc(name: str, out: str, ptxas_info: bool) -> str:
     if ptxas_info:
         cmd += ["-Xptxas", "-v"]
     cmd += ["-o", out, str(CSRC / f"{name}.cu")]
+    global compiles
+    compiles += 1
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on {name}.cu:\n"
@@ -122,7 +128,8 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build(name)[0]))
+        with profiling.span("setup.kernels"):
+            lib = ctypes.CDLL(str(build(name)[0]))
         _loaded[name] = lib
     return lib
 

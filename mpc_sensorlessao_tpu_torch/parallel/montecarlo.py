@@ -13,17 +13,21 @@ between CPU ranks.
 
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from ..models import closed_loop
+from ..utils import profiling
 from ..utils.config import SystemConfig, mag_conv
 from . import multihost
 
 # mixed into the default border-noise seed of run_batch's conditional flow
 TURB_SEED_SALT = 0x7E5
+# the episode ids of run_batch's spans
+_EPISODES = itertools.count()
 
 
 class MonteCarloStats(NamedTuple):
@@ -156,31 +160,32 @@ def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
     the whole batch's (closed_loop.simulate(rows=...)): a scenario's
     trajectory is the same whichever rows run beside it.
     """
-    dev = models.influence.device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(scen.noise_seed)
-    kw = {}
-    if edge_model is not None:
-        if shared_turbulence and edge_state.phases.dim() != 3:
-            raise ValueError(
-                "shared_turbulence needs ONE unbatched edge_state")
-        if turb_generator is None:
-            turb_generator = torch.Generator(device=dev)
-            turb_generator.manual_seed(
-                (int(cfg.sim.seed) if shared_turbulence else scen.noise_seed)
-                ^ TURB_SEED_SALT)
-        kw = dict(edge_model=edge_model, edge_state=edge_state,
-                  turb_generator=turb_generator)
-        shared_window = shared_turbulence
-    if shared_window:
-        assert_shared_window(scen)
-        start = float(scen.start_step[0])
-    else:
-        start = scen.start_step
-    return closed_loop.simulate(models, layers, cfg, gen, n_steps=n_steps,
-                                start_step=start, solver=solver,
-                                mag=scen.mag, noise_scale=scen.noise_scale,
-                                init_u=init_u, rows=rows, **kw)
+    with profiling.span("loop.episode", episode=next(_EPISODES)):
+        dev = models.influence.device
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(scen.noise_seed)
+        kw = {}
+        if edge_model is not None:
+            if shared_turbulence and edge_state.phases.dim() != 3:
+                raise ValueError(
+                    "shared_turbulence needs ONE unbatched edge_state")
+            if turb_generator is None:
+                turb_generator = torch.Generator(device=dev)
+                turb_generator.manual_seed(
+                    (int(cfg.sim.seed) if shared_turbulence
+                     else scen.noise_seed) ^ TURB_SEED_SALT)
+            kw = dict(edge_model=edge_model, edge_state=edge_state,
+                      turb_generator=turb_generator)
+            shared_window = shared_turbulence
+        if shared_window:
+            assert_shared_window(scen)
+            start = float(scen.start_step[0])
+        else:
+            start = scen.start_step
+        return closed_loop.simulate(
+            models, layers, cfg, gen, n_steps=n_steps, start_step=start,
+            solver=solver, mag=scen.mag, noise_scale=scen.noise_scale,
+            init_u=init_u, rows=rows, **kw)
 
 
 def _local_sums(out: closed_loop.StepOutputs, n_steps: int):

@@ -7,12 +7,27 @@ XLA's cost analysis; ``roofline_row`` places counted work done in a
 measured time against the published and the measured peaks (the one
 roofline of the port: ``roofline`` is ``cost``, a host-clock time and
 ``roofline_row``); ``cuda_time_ms`` times a call with CUDA events;
-``trace`` records a ``torch.profiler`` trace; ``timed`` is a tic/toc;
+``span`` records the program's layers on the profiler's clock (below);
+``trace`` records a ``torch.profiler`` trace with those spans as a track;
 ``card`` names the card and its power limit.
+
+Spans.  ``with span("solve"): ...`` marks a layer of the program.  A span
+is recorded while recording is switched on (``record``) or while a
+``torch.profiler`` session runs, so that every profiler trace can be
+read layer by layer; otherwise it costs one flag test and returns a
+shared no-op context.  A record holds its name, its parent record, its
+start and end in ``time.time_ns()`` -- the clock of the profiler's
+exported trace: an event's ``ts`` (microseconds) plus the trace's
+``baseTimeNanoseconds`` --, and the episode id and step index that it
+or its nearest ancestor was given.  Records stay in memory until
+``take_spans``.  A span never synchronizes the device or reads a tensor,
+so its end is when the host finished enqueueing its work.  The recorder
+is the process's, for spans opened and closed on one thread.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import statistics
@@ -22,6 +37,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
@@ -314,12 +330,105 @@ def roofline(fn, *args, repeats: int = 5) -> RooflineReport:
         peaks=f"{device_kind(device)}: {row['peaks']}")
 
 
+class Span:
+    """One recorded span, and the context that records it."""
+
+    __slots__ = ("name", "parent", "start_ns", "end_ns", "episode", "step")
+
+    def __init__(self, name: str, episode, step):
+        self.name, self.episode, self.step = name, episode, step
+        self.parent = None
+        self.start_ns = self.end_ns = None
+
+    def __enter__(self):
+        parent = self.parent = _SPANS.open
+        if parent is not None:
+            if self.episode is None:
+                self.episode = parent.episode
+            if self.step is None:
+                self.step = parent.step
+        _SPANS.open = self
+        _SPANS.records.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.time_ns()
+        _SPANS.open = self.parent
+        return False
+
+
+class _NoSpan:
+    """The shared context of a span that is not recorded."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+class _Spans:
+    """The process's recorder: the switch, the records in start order and
+    the innermost open span."""
+
+    __slots__ = ("on", "records", "open")
+
+    def __init__(self):
+        self.on = False
+        self.records: list = []
+        self.open: Span | None = None
+
+
+_SPANS = _Spans()
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, episode=None, step=None):
+    """A context that records a span named ``name`` when recording is on
+    or a profiler runs (module docstring); ``episode`` and ``step``
+    default to the enclosing span's."""
+    if not (_SPANS.on or _autograd_profiler._is_profiler_enabled):
+        return _NO_SPAN
+    return Span(name, episode, step)
+
+
+def record(on: bool) -> bool:
+    """Switch recording on or off; returns the previous setting."""
+    was, _SPANS.on = _SPANS.on, bool(on)
+    return was
+
+
+def take_spans() -> list:
+    """The spans recorded since the last call, in start order; they are
+    dropped from the recorder."""
+    out, _SPANS.records = _SPANS.records, []
+    return out
+
+
+def span_events(spans: list, base_ns: int) -> list:
+    """Chrome-trace events of ``spans`` on one track of their own, times
+    relative to ``base_ns`` (a profiler trace's ``baseTimeNanoseconds``).
+    A span left open gets no event."""
+    pid, tid = os.getpid(), 0
+    return [{"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+             "args": {"name": "program spans"}}] + [
+        {"ph": "X", "cat": "span", "name": s.name, "pid": pid, "tid": tid,
+         "ts": (s.start_ns - base_ns) / 1e3,
+         "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"episode": s.episode, "step": s.step}}
+        for s in spans if s.end_ns is not None]
+
+
 @contextmanager
 def trace(log_dir: str):
     """torch.profiler over the CPU and, where there is one, the CUDA
     device; yields the profiler (``key_averages()`` for sums by op and
     kernel) and writes ``<log_dir>/trace.json`` (Chrome trace format) on
-    exit."""
+    exit, with the spans recorded meanwhile (``take_spans``) as one more
+    track."""
     acts = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
@@ -328,14 +437,11 @@ def trace(log_dir: str):
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-@contextmanager
-def timed(label: str, sink=None):
-    """tic/toc equivalent (README.md:445,624) with optional sink list."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if sink is not None:
-        sink.append((label, dt))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    doc["traceEvents"] += span_events(take_spans(),
+                                      int(doc.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as f:
+        json.dump(doc, f)

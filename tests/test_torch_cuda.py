@@ -15,11 +15,13 @@ machine they run without the repo's conftest:
 """
 
 import dataclasses
+import json
 import re
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from mpc_sensorlessao_tpu_torch import reference_config, strong_turbulence
 from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
@@ -29,7 +31,7 @@ from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, edge_flow
 from mpc_sensorlessao_tpu_torch.ops import newton_kkt, psf
 from mpc_sensorlessao_tpu_torch.ops import psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
-from mpc_sensorlessao_tpu_torch.utils import tree
+from mpc_sensorlessao_tpu_torch.utils import profiling, tree
 
 
 @pytest.fixture
@@ -1439,3 +1441,27 @@ def test_latency_step_on_card_matches_cpu(cuda_device):
     row = lb.row(64, 10, 3, 0, cuda_device)
     assert row["b1_launches_per_step"] == 1
     assert row["ms_per_step_b1"] > 0 and row["host_ms_per_step_b1"] > 0
+
+
+@pytest.mark.gpu
+def test_span_encloses_its_launch_in_a_cuda_trace(cuda_device, tmp_path):
+    """Under a profiler of the device activity alone (the benchmark's),
+    a span around one launch encloses that launch's cudaLaunchKernel
+    event: the span's stamps and CUPTI's share one clock."""
+    x = torch.ones(1 << 20, device=cuda_device)
+    x + 1
+    torch.cuda.synchronize()
+    profiling.take_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profiling.span("add"):
+            x + 1
+        torch.cuda.synchronize()
+    (span,) = profiling.take_spans()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    (launch,) = [e for e in doc["traceEvents"]
+                 if e.get("name") == "cudaLaunchKernel"]
+    start = base + launch["ts"] * 1e3
+    assert span.start_ns <= start
+    assert start + launch["dur"] * 1e3 <= span.end_ns

@@ -53,6 +53,9 @@ EXEMPT_NAMES = {
     ("parallel/multihost.py", "global_scenarios"): "assembles a global "
     "jax.Array from process-local shards; torch ranks keep local tensors "
     "and reduce with collectives (montecarlo.run_sharded)",
+    ("utils/profiling.py", "timed"): "a tic/toc that no module called; "
+    "the port's spans (profiling.span) time its layers on the profiler's "
+    "clock",
 }
 # root scripts still to port -> their ROADMAP item (none: every script
 # has its counterpart)
