@@ -7,10 +7,11 @@ non-zero (so does a machine without CUDA, or a directory without the
 package):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: compile kernels B1-B5 (csrc/psf_div3_sym.cu, psf_div.cu,
-   psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu, transc_cos.cu)
-   with nvcc for sm_90a, one nvcc each, all started together; print each
-   build's seconds and ptxas registers, shared memory and spills.  B1,
+2. build: compile kernels B1-B5 and T1 (csrc/psf_div3_sym.cu,
+   psf_div.cu, psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu,
+   transc_cos.cu, phase_window.cu) with nvcc for sm_90a, one nvcc
+   each, all started together; print each build's seconds and ptxas
+   registers, shared memory and spills.  B1,
    B2, B3 and B4 (3xTF32 on the tensor cores, on the wgmma engine
    csrc/psf_wgmma.cuh; B4 on B1's sym3 policy, csrc/psf_wgmma_sym3.cuh),
    and their bf16 entries in the same libraries (one bf16 pass on the
@@ -48,6 +49,14 @@ package):
    bytes, not by TMA.  B5a/B5b at (4096, 4096) and at the ragged (1000, 1000), k = 8 and 32,
    on the JAX script's inputs (all 0.7) and on seeded U(-3, 3) (atol
    1e-6: both chains contract, so rounding does not grow with k).
+   Then T1 (the decorrelated turbulence, csrc/phase_window.cu) at
+   ref512.decorrelated's shapes -- B=2048, R=512, the reference's three
+   layers on 2048-px periodic screens, integer starts over the period
+   plus 0.375 --: one launch a call, 0 outside the pupil, within 2e-6 of
+   the peak of its plain version (the means' sums in other orders); its
+   ms and the plain version's in turns kernel, plain, kernel (CUDA
+   events), beside the bound of its bytes at the measured 3.000 TB/s: a
+   write of the phase, and a read of each scenario's windows.
 4. variants: the kernel A/B entry point (benchmarks/kernel_variants.py)
    at R=128, B=4096 -- the main path's shapes, B3 at N=12,288 -- and at
    R=512, B=256, in turns kernels, plain versions, kernels: B1-B4 on one
@@ -85,7 +94,9 @@ package):
 8. loop R=512: the bench configuration at R=512, B=256 (its own build),
    25 steps through B1 and through B2: both keep lock and settle within
    0.002 of each other in exact Strehl; the B=4 card-vs-CPU check of
-   the slice phase, through B1.
+   the slice phase, through B1.  Then 25 steps with per-scenario
+   windows (starts over [0, 2048)): T1 launches exactly once a step, and
+   the loop keeps lock.
 9. strong: the strong-turbulence recipe (ROADMAP A.7; config.
    strong_turbulence: radial order 10, mmse estimator with the analytic
    Von Karman prior, warm start, var_ridge 1e-2, r_weight 30) at R=512,
@@ -301,7 +312,9 @@ package):
    may exceed 105%), the float32 ones beside the measured-FP32 bound
    (every FLOP on FP32; no bound for bf16 products).
 20. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
-   psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16
+   psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16,
+   then T1 (phase_window: its launches in the R=512 decorrelated run, its
+   ms, plain_ms and bound at T1's shapes)
    (bound_ms and bound_by from measure_bound at the published peaks,
    fp32_bound_ms beside them, null for the bf16 entries; B1's launches
    in the strong and tracking runs as launches_strong and
@@ -455,6 +468,17 @@ CHAINS = (
 )
 CHAIN_SHAPES = ((4096, 4096), (1000, 1000))
 CHAIN_ATOL = 1e-6
+# kernel T1 (csrc/phase_window.cu), which replaces no TPU kernel: the JAX
+# package's windows are vmap + dynamic_slice
+T1_LIB = "phase_window"
+T1_REPLACES = "mpc_sensorlessao_tpu/ops/phase_screens.py:253-290"
+# (B, R) of T1's check and timing: ref512.decorrelated's, on the
+# reference's three layers of 2048-px periodic screens
+T1_SHAPE = (2048, 512)
+# T1 against its plain version, of the phase's peak: the means' gap
+# (their sums in other orders, 1e-6) and the subtraction's rounding
+T1_ATOL = 2e-6
+HBM_TBS = 3.000                  # the card's measured HBM rate (PERF.md)
 MAX_SHARE = 1.05
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "trace"
 CROP_HALF = 15
@@ -671,6 +695,7 @@ def fail(msg: str):
 def reset_launches() -> None:
     for _, wrapper, *_ in KERNELS + CHAINS:
         wrapper.launches = 0
+    phase_screens.piston_removed_phase_at.launches = 0
     for _, _, wrapper, *_ in BF16_KERNELS:
         wrapper.launches_bf16 = 0
 
@@ -692,7 +717,7 @@ def build_phase() -> None:
         path, log = cuda_build.build(name, ptxas_info=True)
         return path, log, time.time() - t0
 
-    names = [k[0] for k in KERNELS + CHAINS]
+    names = [k[0] for k in KERNELS + CHAINS] + [T1_LIB]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         results = list(pool.map(build, names))
     for name, (path, log, secs) in zip(names, results):
@@ -931,6 +956,56 @@ def kernel_phase(dev) -> dict:
                              f"{shape}, {label}, k={k}")
                     max_err[lib] = max(max_err.get(lib, 0.0), err)
     return max_err
+
+
+def turbulence_phase(dev, card) -> dict:
+    """Kernel T1 at ref512.decorrelated's shapes (T1_SHAPE, the
+    reference's layers and screens, integer starts over the screens'
+    period plus a fraction): 0 outside the pupil and within T1_ATOL of its
+    plain version; its ms (median of profiling.cuda_time_ms's repeats) in
+    turns kernel, plain, kernel, beside the bound of its bytes at HBM_TBS
+    (one write of the phase; plus one read of each scenario's windows
+    where L2 serves none)."""
+    B, R = T1_SHAPE
+    cfg = reference_config(resolution=R)
+    layers = phase_screens.make_layers(int(cfg.sim.seed), cfg.atmosphere,
+                                       cfg.telescope, device=dev)
+    mask = zernike.make_basis(1, R, device=dev).mask
+    npix = torch.tensor(float(mask.sum()), device=dev)
+    step = torch.as_tensor(np.random.default_rng(3).integers(0, 2048, B)
+                           .astype(np.float32) + 0.375, device=dev)
+    args = (layers, step, R, mask, npix)
+    kernel = phase_screens.piston_removed_phase_at
+    plain = phase_screens.piston_removed_phase_at_ref
+    reset_launches()
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    if kernel.launches != 1:
+        fail(f"T1 launched {kernel.launches} times in one call")
+    want = plain(*args)
+    if not bool((got[:, ~mask] == 0).all()):
+        fail("T1 left a nonzero pixel outside the pupil")
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    del got, want
+    times = [profiling.cuda_time_ms(lambda: kernel(*args), 20),
+             profiling.cuda_time_ms(lambda: plain(*args), 1),
+             profiling.cuda_time_ms(lambda: kernel(*args), 20)]
+    ms = min(times[0], times[2])
+    L = layers.n_layers
+    write = B * R * R * 4
+    read = B * L * (R + 1) ** 2 * 4
+    lo, hi = write / HBM_TBS / 1e9, (write + read) / HBM_TBS / 1e9
+    print(f"kernel {T1_LIB} vs plain, B={B} R={R} L={L}: max_abs_err "
+          f"{err:.3e} of the peak; tolerance {T1_ATOL:g}")
+    print(f"kernel {T1_LIB} B={B} R={R} L={L}: {times[0]:.4f} / "
+          f"{times[2]:.4f} ms (plain {times[1]:.4f} ms); bound "
+          f"{lo:.4f}-{hi:.4f} ms at {HBM_TBS} TB/s ({100 * lo / ms:.1f}%-"
+          f"{100 * hi / ms:.1f}%) [{card}]")
+    if not err <= T1_ATOL:
+        fail(f"T1 disagrees with its plain version by {err:.3e} of the peak")
+    check_shares(f"kernel {T1_LIB}", {"write bound": 100 * lo / ms})
+    return {"ms": ms, "plain_ms": times[1], "bound_ms": lo,
+            "bound_read_ms": hi, "max_abs_err": err}
 
 
 def check_shares(label: str, shares: dict) -> None:
@@ -1256,13 +1331,15 @@ def wide_phase(system, system_wide, cfg, cfg_wide, dev, card) -> None:
               f"{ts}), {BATCH * STEPS / min(ts):.1f} solves/s [{card}]")
 
 
-def loop_512_phase(dev, card) -> None:
+def loop_512_phase(dev, card) -> int:
     """ROADMAP C.3: the bench configuration at R=512, B=256 (its own
     build, as the roofline entry point's), 25 steps through B1 and B2:
     each keeps lock (settled exact Strehl >= LOCK_STREHL; the bench's
     0.975 is set at R=128), and the two settle within ROUTE_STREHL_TOL of
     each other; the B=4 loop through B1 on the card and on the CPU
-    agree."""
+    agree.  Then 25 steps with per-scenario windows over the screens'
+    period, through B1 and T1: T1 launches once a step and the loop keeps
+    lock; returns those launches."""
     R, B = LOOP_512
     cfg = roofline.bench_cfg(R)
     cfg = cfg.replace(estimator=dataclasses.replace(cfg.estimator,
@@ -1298,6 +1375,22 @@ def loop_512_phase(dev, card) -> None:
     if diff > ROUTE_STREHL_TOL:
         fail(f"the R={R} loops through B1 and B2 differ by {diff:.5f} in "
              "settled exact Strehl")
+    # each scenario its own window: the turbulence through T1, once a step
+    scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(2),
+                                     B, start_range=(0, 2048), device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = montecarlo.run_batch(system.loop, system.layers, cfg, scen, STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    t1 = phase_screens.piston_removed_phase_at.launches
+    if t1 != STEPS:
+        fail(f"the R={R} decorrelated loop launched {T1_LIB} {t1} times in "
+             f"{STEPS} steps")
+    loop_checks(f"loop R={R} B={B} (decorrelated, {T1_LIB} launches {t1}, "
+                f"{secs:.4f} s) [{card}]", out,
+                system.loop.influence.shape[1], B, LOCK_STREHL)
+    return t1
 
 
 def roofline_phase(system, cfg, peaks: dict, times: dict, card: str):
@@ -3327,6 +3420,7 @@ def main() -> None:
     dev = torch.device("cuda:0")
     build_phase()
     max_err = kernel_phase(dev)
+    t1 = turbulence_phase(dev, card)
     times, variant_launches = variants_phase(card)
     cfg = slice_cfg()
     t0 = time.time()
@@ -3352,7 +3446,7 @@ def main() -> None:
     print(f"wide: pipeline.build with crop_half={WIDE_CROP_HALF} in "
           f"{time.time() - t0:.2f} s")
     wide_phase(system, system_wide, cfg, cfg_wide, dev, card)
-    loop_512_phase(dev, card)
+    t1["launches_decorrelated"] = loop_512_phase(dev, card)
     strong_launches = strong_phase(dev, card)
     solver_launches = solvers_phase(system, cfg, fixed, dev, card)
     edge_launches = edge_phase(dev, card)
@@ -3416,6 +3510,14 @@ def main() -> None:
             "name": lib, "route": "cuda", "source": f"{CSRC}/{lib}.cu",
             "replaces": replaces, "launches": chain_launches[lib],
             "max_abs_err": max_err[lib], **chain_line[lib]})
+    kernels.append({
+        "name": T1_LIB, "route": "cuda", "source": f"{CSRC}/{T1_LIB}.cu",
+        "replaces": f"none ({T1_REPLACES}, vmap + dynamic_slice)",
+        "launches": t1["launches_decorrelated"],
+        "max_abs_err": t1["max_abs_err"], "ms": t1["ms"],
+        "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
+        "bound_by": "bytes", "bound_read_ms": t1["bound_read_ms"],
+        "fp32_bound_ms": None, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.time() - t_start:.2f} s")
     print(json.dumps({"ok": True, "device": {

@@ -47,7 +47,7 @@ import numpy as np
 import torch
 
 from ..models import integrator, pipeline, wfs
-from ..ops import phase_screens, psf_kernels, zernike
+from ..ops import phase_screens, psf_kernels
 from ..utils import profiling
 from ..utils.config import SystemConfig, reference_config, strong_turbulence
 
@@ -86,9 +86,9 @@ def turbulence_window(system: pipeline.System, cfg: SystemConfig,
     for lo in range(0, n_steps, WINDOW_CHUNK):
         steps = start + torch.arange(lo, min(lo + WINDOW_CHUNK, n_steps),
                                      dtype=torch.float32, device=dev)
-        raw = phase_screens.phase_at(system.layers, steps, cfg.resolution)
-        out.append(zernike.piston_removed_phase_masked(
-            raw, loop.mask, loop.mask_npix) * cfg.sim.magnification)
+        out.append(phase_screens.piston_removed_phase_at(
+            system.layers, steps, cfg.resolution, loop.mask,
+            loop.mask_npix) * cfg.sim.magnification)
     return torch.cat(out).reshape(n_steps, -1)
 
 

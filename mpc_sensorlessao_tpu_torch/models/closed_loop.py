@@ -324,12 +324,15 @@ def simulate(models: LoopModels, layers: phase_screens.FrozenFlowLayers,
                 elif shared:
                     raw = phase_screens.phase_at(
                         layers, start + np.float32(idx), R)
+                if edge or shared:
+                    # piston removed BEFORE the mag scaling: shared across
+                    # scenarios in shared-window batches
+                    pt_unit = zernike.piston_removed_phase_masked(
+                        raw, models.mask, models.mask_npix)
                 else:
-                    raw = phase_screens.phase_at(layers, start + idx, R)
-                # piston removed BEFORE the mag scaling: shared across
-                # scenarios in shared-window batches
-                pt_unit = zernike.piston_removed_phase_masked(
-                    raw, models.mask, models.mask_npix)
+                    pt_unit = phase_screens.piston_removed_phase_at(
+                        layers, start + idx, R, models.mask,
+                        models.mask_npix)
             # -- correction: the DM phase of the last command --
             with profiling.span("synthesis"):
                 ad_cor = u1 @ models.influence.T
@@ -461,12 +464,11 @@ def turbulence_rollout(layers: phase_screens.FrozenFlowLayers,
     Returns (n_steps, n_modes) coefficients (piston column included)."""
     dev = layers.screens.device
     R = resolution
-    msk = mask.to(torch.float32)
     out = []
     for s in range(0, n_steps, ROLLOUT_CHUNK):
         steps = torch.arange(s, min(s + ROLLOUT_CHUNK, n_steps), device=dev)
-        raw = phase_screens.phase_at(layers, steps + start_step, R)
-        mean = torch.sum(raw * msk, dim=(-2, -1), keepdim=True) / mask_npix
-        ph = (raw - mean) * msk * mag
+        ph = phase_screens.piston_removed_phase_at(
+            layers, (steps + start_step).to(torch.float32), R, mask,
+            mask_npix) * mag
         out.append(ph.reshape(-1, R * R) @ fit_full.T)
     return torch.cat(out)

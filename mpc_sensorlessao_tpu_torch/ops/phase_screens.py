@@ -9,11 +9,15 @@
   screen along the wind vector (an integer window offset plus a 4-tap
   bilinear blend) on the device;
 * the on-axis NGS phase is the plain sum over layers
-  (telescopeAbstract.m:446-447), piston-removed downstream.
+  (telescopeAbstract.m:446-447), piston-removed downstream;
+* at a (B,) tensor of per-scenario steps, ``piston_removed_phase_at``
+  samples, sums and piston-removes each scenario's windows in one pass:
+  kernel T1 (csrc/phase_window.cu) on a CUDA tensor.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from ..utils.config import AtmosphereConfig, TelescopeConfig
-from . import phase_stats
+from . import cuda_build, phase_stats, zernike
 
 # host threads and rows a band for the subharmonic patches
 SCREEN_THREADS = 8
@@ -303,3 +307,72 @@ def phase_at(layers: FrozenFlowLayers, step, resolution: int) -> torch.Tensor:
         out = out + _bilinear_window(layers.screens[i], offsets[i],
                                      resolution)
     return out
+
+
+def piston_removed_phase_at_ref(layers: FrozenFlowLayers,
+                                step: torch.Tensor, resolution: int,
+                                mask: torch.Tensor,
+                                mask_npix) -> torch.Tensor:
+    """Plain PyTorch version of kernel T1: ``phase_at`` at the (B,)
+    per-scenario steps, then ``zernike.piston_removed_phase_masked``."""
+    raw = phase_at(layers, step, resolution)
+    return zernike.piston_removed_phase_masked(raw, mask, mask_npix)
+
+
+def piston_removed_phase_at(layers: FrozenFlowLayers, step: torch.Tensor,
+                            resolution: int, mask: torch.Tensor,
+                            mask_npix) -> torch.Tensor:
+    """Kernel T1: the piston-removed, masked pupil phase (B, R, R) at a
+    (B,) float32 tensor of per-scenario steps -- each scenario's window
+    gather, bilinear blend, layer sum and piston removal in one pass
+    (csrc/phase_window.cu).
+
+    On a CUDA tensor it launches the kernel (counted in
+    ``piston_removed_phase_at.launches``) or raises; on a CPU tensor it
+    runs ``piston_removed_phase_at_ref``.  The kernel's phase inside the
+    pupil is the plain version's but for the rounding of the mean, whose
+    sum it takes in another (fixed) order; outside the pupil it is 0.
+    ``mask`` is the (R, R) bool pupil, ``mask_npix`` its pixel count (a
+    number, or a 0-d tensor on the device).
+    """
+    if step.device.type == "cpu":
+        return piston_removed_phase_at_ref(layers, step, resolution, mask,
+                                           mask_npix)
+    dev = step.device
+    R = resolution
+    L, Ns = layers.screens.shape[0], layers.screens.shape[-1]
+    if step.dim() != 1:
+        raise ValueError(f"step must be (B,), got {tuple(step.shape)}")
+    B = step.shape[0]
+    for label, t, shape, dtype in (
+            ("step", step, (B,), torch.float32),
+            ("screens", layers.screens, (L, Ns, Ns), torch.float32),
+            ("step_px", layers.step_px, (L, 2), torch.float32),
+            ("mask", mask, (R, R), torch.bool)):
+        if t.device != dev:
+            raise ValueError(f"{label} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{label} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{label} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{label} must be contiguous")
+    if Ns <= R + 1:
+        raise ValueError(f"screens of {Ns} px hold no {R}-px window")
+    npix = torch.as_tensor(mask_npix, dtype=torch.float32, device=dev)
+    # scenarios in the order of their steps: neighbours' windows overlap,
+    # so the clusters in flight share their taps in L2
+    order = torch.argsort(step)
+    out = torch.empty((B, R, R), dtype=torch.float32, device=dev)
+    launch = cuda_build.function(
+        "phase_window", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p])
+    launch(*(t.data_ptr() for t in (layers.screens, layers.step_px, step,
+                                    mask, npix, order, out)),
+           B, L, Ns, R, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    piston_removed_phase_at.launches += 1
+    return out
+
+
+piston_removed_phase_at.launches = 0

@@ -28,7 +28,7 @@ from mpc_sensorlessao_tpu_torch.benchmarks import device_peaks
 from mpc_sensorlessao_tpu_torch.models import closed_loop, estimator, mpc
 from mpc_sensorlessao_tpu_torch.models import pipeline, solvers
 from mpc_sensorlessao_tpu_torch.ops import cuda_build, dft, edge_flow
-from mpc_sensorlessao_tpu_torch.ops import newton_kkt, psf
+from mpc_sensorlessao_tpu_torch.ops import newton_kkt, phase_screens, psf
 from mpc_sensorlessao_tpu_torch.ops import psf_kernels
 from mpc_sensorlessao_tpu_torch.ops import zernike
 from mpc_sensorlessao_tpu_torch.utils import profiling, tree
@@ -510,6 +510,91 @@ CHAINS = {"b5a": (device_peaks.transc_sincos_chain,
                   device_peaks.transc_sincos_chain_ref, "transc_sincos"),
           "b5b": (device_peaks.transc_cos_chain,
                   device_peaks.transc_cos_chain_ref, "transc_cos")}
+
+
+# kernel T1's steps: negative, fractional and past the screens' period
+T1_STEPS = (-1234.5, 3.375, 1e5 + 0.25, -0.75, 2047.9, 0.0, 517.125, 4.5e5)
+
+
+def _t1_args(R, B, dev):
+    cfg = reference_config(resolution=R)
+    tel = dataclasses.replace(cfg.telescope, resolution=R)
+    layers = phase_screens.make_layers(3, cfg.atmosphere, tel, device=dev)
+    mask = zernike.make_basis(1, R, device=dev).mask
+    npix = torch.tensor(float(mask.sum()), device=dev)
+    step = torch.tensor(T1_STEPS[:B], dtype=torch.float32, device=dev)
+    return layers, step, R, mask, npix
+
+
+def _t1_kernel_mean(raw, got, mask):
+    """The float32 mean the kernel subtracted in each scenario: of the
+    float32 values next to the median of raw - got over the pupil, the one
+    with which fl(raw - mean) gives the most of the kernel's pixels."""
+    d = (raw.double() - got.double())[:, mask]
+    mid = d.median(dim=1).values.float()
+    cands = [mid]
+    for _ in range(4):
+        cands = ([torch.nextafter(cands[0], cands[0] - 1)] + cands
+                 + [torch.nextafter(cands[-1], cands[-1] + 1)])
+    cands = torch.stack(cands, dim=1)                         # (B, 9)
+    hits = ((raw[:, mask][:, None, :] - cands[..., None])
+            == got[:, mask][:, None, :]).sum(dim=-1)
+    return cands.gather(1, hits.argmax(dim=1, keepdim=True))[:, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,B", [(512, 8), (32, 5), (64, 5), (98, 3),
+                                 (720, 2)])
+def test_t1_cuda_kernel_matches_plain(cuda_device, R, B):
+    """Kernel T1 against its plain version on the card: 0 outside the
+    pupil; inside it the two differ by the difference of their means and
+    the rounding of the subtraction alone (within 1 ulp of the larger
+    value), so the blend and the layer sum are the plain version's; the
+    means agree to 1e-6 of max |raw| (the mean's sum is taken in another
+    order).  R=98 is not a whole number of the kernel's 8-row blocks (its
+    copies go a byte or a float at a time); at R=720 a CTA's rows do not
+    fit in shared memory and are kept in the output."""
+    args = _t1_args(R, B, cuda_device)
+    layers, step, _, mask, npix = args
+    before = phase_screens.piston_removed_phase_at.launches
+    got = phase_screens.piston_removed_phase_at(*args)
+    torch.cuda.synchronize()
+    assert phase_screens.piston_removed_phase_at.launches == before + 1
+    want = phase_screens.piston_removed_phase_at_ref(*args)
+    assert got.shape == want.shape == (B, R, R)
+    assert bool((got[:, ~mask] == 0).all())
+    raw = phase_screens.phase_at(layers, step, R)
+    mean_plain = (torch.sum(raw * mask.float(), dim=(-2, -1)) / npix)
+    mean_kernel = _t1_kernel_mean(raw, got, mask)
+    gap = ((got.double() - want.double())[:, mask]
+           - (mean_plain.double() - mean_kernel.double())[:, None])
+    big = torch.maximum(got.abs(), want.abs())[:, mask]
+    ulp = (torch.nextafter(big, big + 1) - big).double()
+    assert bool((gap.abs() <= ulp).all()), float((gap.abs() / ulp).max())
+    top = raw.abs().amax(dim=(-2, -1)).double()
+    assert bool(((mean_plain.double() - mean_kernel.double()).abs()
+                 <= 1e-6 * top).all())
+
+
+@pytest.mark.gpu
+def test_t1_wrapper_raises_on_bad_input(cuda_device):
+    """On a CUDA tensor T1's entry point launches or raises: a float64,
+    a non-contiguous or a wrongly shaped step, and a mask of another
+    grid, are refused, not rerouted."""
+    layers, step, R, mask, npix = _t1_args(32, 4, cuda_device)
+    f = phase_screens.piston_removed_phase_at
+    before = f.launches
+    with pytest.raises(TypeError, match="float32"):
+        f(layers, step.double(), R, mask, npix)
+    with pytest.raises(ValueError, match="contiguous"):
+        f(layers, torch.stack([step, step], dim=1)[:, 0], R, mask, npix)
+    with pytest.raises(ValueError, match=r"\(B,\)"):
+        f(layers, step[:, None], R, mask, npix)
+    with pytest.raises(ValueError, match="shape"):
+        f(layers, step, R, mask[:-1], npix)
+    with pytest.raises(TypeError, match="bool"):
+        f(layers, step, R, mask.float(), npix)
+    assert f.launches == before
 
 
 @pytest.mark.gpu

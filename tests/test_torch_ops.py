@@ -1048,6 +1048,26 @@ def test_phase_at_identical_to_jax(step):
     np.testing.assert_allclose(batched[1], want2, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("steps", [[0.0, 7.375, 350.0],
+                                   [-3.25, -0.5, 1e4 + 0.125],
+                                   [1234.6]])
+def test_piston_removed_phase_at_plain_is_phase_at_then_piston(steps):
+    """On a CPU tensor kernel T1's entry point is the plain composition:
+    phase_at at per-scenario steps (negative, fractional and past the
+    screens' period), then piston_removed_phase_masked, to the bit."""
+    ours, _ = _small_layers()
+    b = zernike.make_basis(6, 32, device="cpu")
+    npix = torch.tensor(float(b.mask.sum()))
+    step = torch.tensor(steps, dtype=torch.float32)
+    want = zernike.piston_removed_phase_masked(
+        phase_screens.phase_at(ours, step, 32), b.mask, npix)
+    before = phase_screens.piston_removed_phase_at.launches
+    got = phase_screens.piston_removed_phase_at(ours, step, 32, b.mask, npix)
+    assert phase_screens.piston_removed_phase_at.launches == before
+    assert got.shape == (len(steps), 32, 32)
+    np.testing.assert_array_equal(npy(got), npy(want))
+
+
 def test_turbulence_rollout_matches_jax():
     """Open-loop Zernike series: float32 window sums and fit matmul in
     another order, rtol 1e-4 of the series scale."""
