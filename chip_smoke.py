@@ -7,9 +7,9 @@ non-zero (so does a machine without CUDA, or a directory without the
 package):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA.
-2. build: compile kernels B1-B5 and T1 (csrc/psf_div3_sym.cu,
+2. build: compile kernels B1-B5, T1 and L1 (csrc/psf_div3_sym.cu,
    psf_div.cu, psf_crop.cu, psf_div3_sym_thin.cu, transc_sincos.cu,
-   transc_cos.cu, phase_window.cu) with nvcc for sm_90a, one nvcc
+   transc_cos.cu, phase_window.cu, line_search.cu) with nvcc for sm_90a, one nvcc
    each, all started together; print each build's seconds and ptxas
    registers, shared memory and spills.  B1,
    B2, B3 and B4 (3xTF32 on the tensor cores, on the wgmma engine
@@ -56,7 +56,16 @@ package):
    the peak of its plain version (the means' sums in other orders); its
    ms and the plain version's in turns kernel, plain, kernel (CUDA
    events), beside the bound of its bytes at the measured 3.000 TB/s: a
-   write of the phase, and a read of each scenario's windows.
+   write of the phase, and a read of each scenario's windows.  Then L1
+   (the line search's bank, csrc/line_search.cu) at the cells' shapes --
+   B=2048, 144 controls, N=2 over 27 and 65 states, N=32 over 119 -- on
+   solve_fixed's line search of a seeded problem whose scenarios take
+   the full step or backtrack: one launch a call, the same pick and step
+   as its plain version in every scenario, the 17 norms within 1e-5 of
+   their own values; its ms and the plain version's in turns, beside the
+   larger of its bytes at 3.000 TB/s, its issue slots and its MUFU.RCP
+   at the card's maximum SM clock (its SASS's loops printed, whence the
+   instructions a step and element).
 4. variants: the kernel A/B entry point (benchmarks/kernel_variants.py)
    at R=128, B=4096 -- the main path's shapes, B3 at N=12,288 -- and at
    R=512, B=256, in turns kernels, plain versions, kernels: B1-B4 on one
@@ -77,7 +86,8 @@ package):
    Then the same configuration with estimator.dft_dtype="bfloat16" (its
    own build) through the same three routes: the bf16 entries of B1-B3.
    Each run must launch its kernel >= 25 times (a bf16 run its bf16
-   entry, and the float32 entry 0 times), give finite outputs and a
+   entry, and the float32 entry 0 times) and L1 exactly 25 times (the
+   fixed Newton step's line search), give finite outputs and a
    settled exact Strehl >= 0.975, within 0.002 of the float32 B1 run's;
    then the best of 3 timed runs, the six runs in turns.  The same loop
    at B=4 with injected noise on the card and on the CPU (plain
@@ -121,7 +131,9 @@ package):
    each run counted (B1 launches exactly steps x (1 + Gauss-Newton
    passes), and each solver -- solve_fixed, solve, banded_solve (cyclic
    reduction), admm_condensed -- called exactly as often as the run's
-   branch calls it: once a step, banded_solve once a Newton step) and
+   branch calls it: once a step, banded_solve once a Newton step; L1
+   exactly once a line search without ramp rows, so once a Newton step
+   of solve_fixed and solve and never for ADMM and the ramp rows) and
    then timed warm: (a) the bench configuration of the slice phase (its
    build), B=4096, 25 steps, through the general Newton solve
    (newton_steps=2: within 0.002 of the slice phase's fixed-step B1
@@ -314,7 +326,9 @@ package):
 20. one JSON line listing the kernels -- B1-B5b, then the bf16 entries
    psf_div3_sym_bf16, psf_div_bf16, psf_crop_bf16, psf_div3_sym_thin_bf16,
    then T1 (phase_window: its launches in the R=512 decorrelated run, its
-   ms, plain_ms and bound at T1's shapes)
+   ms, plain_ms and bound at T1's shapes), then L1 (line_search: its
+   launches in the slice phase's B1 run, its ms, plain_ms and bound_ms
+   at N=32, and at N=2 under keys named by the shape)
    (bound_ms and bound_by from measure_bound at the published peaks,
    fp32_bound_ms beside them, null for the bf16 entries; B1's launches
    in the strong and tracking runs as launches_strong and
@@ -478,6 +492,17 @@ T1_SHAPE = (2048, 512)
 # T1 against its plain version, of the phase's peak: the means' gap
 # (their sums in other orders, 1e-6) and the subtraction's rounding
 T1_ATOL = 2e-6
+# kernel L1 (csrc/line_search.cu), which replaces no TPU kernel: the JAX
+# package's line search is vmap over its residuals
+L1_LIB = "line_search"
+L1_REPLACES = "mpc_sensorlessao_tpu/ops/newton_kkt.py:299-332"
+# (T, n) of L1's checks and timings: the cells' horizons and states (N=2
+# over 27 and 65 states, N=32 over 119), at their 144 controls and B=2048
+L1_SHAPES = ((2, 27), (2, 65), (32, 119))
+L1_M = 144
+L1_BATCH = 2048
+# L1 against its plain version: the norms' sums in other orders
+L1_RTOL = 1e-5
 HBM_TBS = 3.000                  # the card's measured HBM rate (PERF.md)
 MAX_SHARE = 1.05
 TRACE_DIR = Path(__file__).resolve().parent / "build" / "trace"
@@ -696,6 +721,7 @@ def reset_launches() -> None:
     for _, wrapper, *_ in KERNELS + CHAINS:
         wrapper.launches = 0
     phase_screens.piston_removed_phase_at.launches = 0
+    newton_kkt.line_search_bank.launches = 0
     for _, _, wrapper, *_ in BF16_KERNELS:
         wrapper.launches_bf16 = 0
 
@@ -717,7 +743,7 @@ def build_phase() -> None:
         path, log = cuda_build.build(name, ptxas_info=True)
         return path, log, time.time() - t0
 
-    names = [k[0] for k in KERNELS + CHAINS] + [T1_LIB]
+    names = [k[0] for k in KERNELS + CHAINS] + [T1_LIB, L1_LIB]
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         results = list(pool.map(build, names))
     for name, (path, log, secs) in zip(names, results):
@@ -1008,6 +1034,178 @@ def turbulence_phase(dev, card) -> dict:
             "bound_read_ms": hi, "max_abs_err": err}
 
 
+def l1_args(T: int, n: int, B: int, dev, seed: int = 0) -> tuple:
+    """L1's arguments at ``solve_fixed``'s line search on a seeded VAR(2)
+    fastMPC problem over n states and L1_M controls (the cells' weights
+    and box) at horizon T, float32 on ``dev``, for B scenarios from well
+    inside the box to far past it (blocks of 8 at 0.1, 1, 10 and 100
+    times a normal draw): some take the full step, others backtrack."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.normal(size=shape), device=dev)
+
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    prob = solvers.make_fastmpc_problem(
+        0.6 * eye + 0.08 / np.sqrt(n) * normal(n, n),
+        0.25 * eye + 0.05 / np.sqrt(n) * normal(n, n), 0.4 * normal(n, L1_M),
+        q_weight=15000.0, p_weight=15000.0, r_weight=30.0, u_max=28.0,
+        barrier_k=0.01)
+    op = tree.cast(newton_kkt.precompute_fixed_newton(prob, T), torch.float32)
+    prob = tree.cast(prob, torch.float32)
+    scale = torch.as_tensor(np.resize(np.repeat([0.1, 1.0, 10.0, 100.0], 8),
+                                      B), device=dev)[:, None]
+    x0, x_pre, w = (scale * normal(B, n), scale * normal(B, n),
+                    scale * normal(B, T * n))
+    b = newton_kkt.equality_rhs(prob, x0.float(), x_pre.float(), w.float(), T)
+    terms = newton_kkt.line_search_terms(
+        prob, b, newton_kkt.init_state(prob, T),
+        newton_kkt.fixed_newton_direction(prob, op, b))
+    return (*terms, prob.u_min, prob.u_max, prob.barrier_k)
+
+
+def l1_sass_mix(sass_text: str) -> dict:
+    """Instructions that L1's float32 instance issues for one element and
+    one step t, in its loop over the controls (the one with MUFU.RCP: two
+    __frcp_rn a step, and the index's modulo once an element) and in its
+    loop over the states (FFMA and no MUFU), from a ``device_peaks.sass``
+    listing.  A loop is a backward branch's span; in it the slow path of
+    each __frcp_rn -- the instructions that a taken forward branch skips
+    over a CALL -- is not issued for the loop's values and not counted.
+    Each loop takes one element an iteration (MUFU.RCP // 34 and FFMA //
+    34 are its elements: 34 reciprocals, or 34 FFMA of the two squares,
+    an element).  Returns {"control": {"issued", "mufu", "fma", "alu"},
+    "state": {...}} per element and step, and the function's name."""
+    funcs = device_peaks.sass_functions(sass_text)
+    name = next(k for k in funcs if "line_search_kernel" in k and "IfE" in k)
+    ins = [(int(a, 16), t) for a, t in
+           device_peaks._SASS_INSTR.findall(funcs[name])]
+    steps = newton_kkt.LS_CANDIDATES + 1
+    loops = {}
+    for a, t in ins:
+        m = re.match(r"(?:@!?P\d\s+)?BRA (0x[0-9a-f]+)", t)
+        if not m or int(m.group(1), 16) >= a:
+            continue
+        lo, hi = int(m.group(1), 16), a
+        skips = []
+        for b, u in ins:
+            f = re.match(r"@!?P\d\s+BRA (0x[0-9a-f]+)", u)
+            if f and lo <= b < int(f.group(1), 16) <= hi and any(
+                    b < c < int(f.group(1), 16) and "CALL" in v
+                    for c, v in ins):
+                skips.append((b, int(f.group(1), 16)))
+        body = [t.split()[1 if t.startswith("@") else 0].split(".")[0]
+                for b, t in ins if lo <= b <= hi
+                and not any(s < b < e for s, e in skips)]
+        rcp = sum(t.startswith("MUFU.RCP") for b, t in ins if lo <= b <= hi
+                  and not any(s < b < e for s, e in skips))
+        kind, elements = (("control", rcp // 34) if rcp else
+                          ("state", body.count("FFMA") // 34))
+        if elements and kind not in loops:
+            per = elements * steps
+            loops[kind] = {
+                "issued": len(body) / per, "mufu": body.count("MUFU") / per,
+                **{pipe: sum(body.count(o) for o in ops) / per
+                   for pipe, ops in device_peaks.PIPE_OPCODES.items()
+                   if pipe != "conversion"}}
+    if set(loops) != {"control", "state"}:
+        fail(f"L1's SASS: found the loops {sorted(loops)}, not the control "
+             f"and state loops")
+    return {"function": name, **loops}
+
+
+def l1_device_ms(run, reps: int = 20) -> float:
+    """Mean device time of L1's kernel over ``reps`` calls of ``run``
+    (torch.profiler)."""
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "line_search_kernel" in e.key]
+    if sum(e.count for e in ev) != reps:
+        fail(f"the profiler saw {sum(e.count for e in ev)} L1 kernels in "
+             f"{reps} calls")
+    return sum(e.device_time_total for e in ev) / reps / 1e3
+
+
+def line_search_phase(dev, card) -> dict:
+    """Kernel L1 at the cells' shapes (L1_SHAPES at L1_BATCH scenarios and
+    L1_M controls): one launch a call, the same pick and step as its
+    plain version in every scenario (some full steps, some backtracks)
+    and the norms within L1_RTOL of their own values; its ms (median of
+    profiling.cuda_time_ms's repeats) in turns kernel, plain, kernel,
+    beside its bound: the larger of its bytes at HBM_TBS (the eight
+    vectors read once), its issue slots (``l1_sass_mix``'s instructions
+    over the 4 x 32 an SM issues a clock) and its MUFU (over 16 an SM a
+    clock), at the card's maximum SM clock.  The kernel's ms is device
+    time (the profiler's, a mean of 20 calls): at N=2 CUDA events would
+    time the wrapper's host work.  Returns each shape's entry, keyed
+    "T<T> n<n>", for the kernels line."""
+    mix = l1_sass_mix(device_peaks.sass(L1_LIB))
+    print(f"kernel {L1_LIB} SASS ({mix['function']}), instructions issued "
+          f"an element and step: controls {json.dumps(mix['control'])}, "
+          f"states {json.dumps(mix['state'])}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(profiling.nvidia_smi("clocks.max.sm").split()[0]) * 1e6
+    kernel = newton_kkt.line_search_bank
+    plain = newton_kkt.line_search_bank_ref
+    rows = {}
+    for T, n in L1_SHAPES:
+        B, m = L1_BATCH, L1_M
+        args = l1_args(T, n, B, dev)
+        reset_launches()
+        idx, t, norms = kernel(*args)
+        torch.cuda.synchronize()
+        if kernel.launches != 1:
+            fail(f"L1 launched {kernel.launches} times in one call")
+        want_idx, want_t, want_norms = plain(*args)
+        if not (bool((want_idx == 0).any()) and bool((want_idx > 0).any())):
+            fail(f"L1's check at T={T} n={n} has no full step or no "
+                 f"backtrack")
+        err = float(((norms - want_norms).abs() / want_norms).max())
+        same = (torch.equal(idx.long(), want_idx)
+                and torch.equal(t, want_t))
+        times = [l1_device_ms(lambda: kernel(*args)),
+                 profiling.cuda_time_ms(lambda: plain(*args), 5),
+                 l1_device_ms(lambda: kernel(*args))]
+        ms = min(times[0], times[2])
+        steps = newton_kkt.LS_CANDIDATES + 1
+        vectors = 4 * B * T * (m + n) * 4
+        ctl, st = mix["control"], mix["state"]
+        bound = {
+            "bytes": 1e3 * vectors / (HBM_TBS * 1e12),
+            "issue": 1e3 * steps * B * T * (ctl["issued"] * m
+                                            + st["issued"] * n)
+            / (sms * 128 * clock_hz),
+            "mufu": 1e3 * steps * B * T * m * ctl["mufu"]
+            / (sms * 16 * clock_hz)}
+        by = max(bound, key=bound.get)
+        print(f"kernel {L1_LIB} vs plain, B={B} T={T} m={m} n={n}: same "
+              f"pick and step {same}, norms' max relative error {err:.3e}; "
+              f"tolerance {L1_RTOL:g}")
+        print(f"kernel {L1_LIB} B={B} T={T} n={n}: {times[0]:.4f} / "
+              f"{times[2]:.4f} ms device time (plain {times[1]:.4f} ms, "
+              f"CUDA events); bound "
+              f"{bound[by]:.4f} ms by {by} ({100 * bound[by] / ms:.1f}%; "
+              f"bytes {bound['bytes']:.4f} at {HBM_TBS} TB/s, issue "
+              f"{bound['issue']:.4f}, MUFU {bound['mufu']:.4f} at "
+              f"{sms} SMs x {clock_hz / 1e9:.3f} GHz) [{card}]")
+        if not same:
+            fail(f"L1 picks otherwise than its plain version at T={T} n={n}")
+        if not err <= L1_RTOL:
+            fail(f"L1's norms miss its plain version's by {err:.3e} at "
+                 f"T={T} n={n}")
+        check_shares(f"kernel {L1_LIB} T={T} n={n}",
+                     {"bound": 100 * bound[by] / ms})
+        rows[f"T{T} n{n}"] = {"ms": ms, "plain_ms": times[1],
+                              "bound_ms": bound[by], "bound_by": by,
+                              "max_rel_err": err}
+    return rows
+
+
 def check_shares(label: str, shares: dict) -> None:
     """Fails if any share (in %) of a ceiling exceeds 105%: it can only
     mean a wrong work count or timing."""
@@ -1245,6 +1443,7 @@ def slice_phase(system, system_bf16, cfg, dev,
         return out
     launches = {}
     strehl_b1 = None
+    l1 = newton_kkt.line_search_bank
     for label, name, wrapper, route, sys_, bf16 in runs:
         reset_launches()
         out = run(route, sys_)
@@ -1252,12 +1451,18 @@ def slice_phase(system, system_bf16, cfg, dev,
         if launches[name] < STEPS:
             fail(f"the {label} loop launched {name} {launches[name]} times "
                  f"in {STEPS} steps")
+        # the fixed Newton step's line search: L1 exactly once a step
+        launches.setdefault(L1_LIB, l1.launches)
+        if l1.launches != STEPS:
+            fail(f"the {label} loop launched {L1_LIB} {l1.launches} times "
+                 f"in {STEPS} steps")
         if bf16 and wrapper.launches:
             fail(f"the {label} loop launched the float32 kernel "
                  f"{wrapper.launches} times")
         strehl = loop_checks(
             f"slice ({label}, {name}): R={cfg.resolution} B={BATCH} "
-            f"steps={STEPS}: {name} launches {launches[name]}", out,
+            f"steps={STEPS}: {name} launches {launches[name]}, {L1_LIB} "
+            f"launches {l1.launches}", out,
             sys_.loop.influence.shape[1], BATCH)
         if strehl_b1 is None:
             strehl_b1, fixed = strehl, settled(out)
@@ -2009,10 +2214,11 @@ def solvers_phase(system, cfg, fixed: dict, dev, card) -> dict:
     b1 = K.psf_crop_diversity_sym3
     launches = {}
 
-    def counted(label, run, steps, calls):
-        """run() once with the counts at 0 (B1 launches exactly ``steps``
-        and the solvers are called exactly ``calls`` times, or fail), then
-        once warm; returns the first output."""
+    def counted(label, run, steps, calls, line_searches):
+        """run() once with the counts at 0 (B1 launches exactly ``steps``,
+        the solvers are called exactly ``calls`` times and L1 launches
+        once a line search without ramp rows, ``line_searches``, or fail),
+        then once warm; returns the first output."""
         reset_launches()
         with count_solver_calls() as got:
             t0 = time.perf_counter()
@@ -2020,10 +2226,15 @@ def solvers_phase(system, cfg, fixed: dict, dev, card) -> dict:
             first_s = time.perf_counter() - t0
         launches[label] = b1.launches
         want = {name: calls.get(name, 0) for name in got}
+        l1 = newton_kkt.line_search_bank.launches
         print(f"solvers {label}: solver calls in the first run {got} "
-              f"(expected {want})")
+              f"(expected {want}); {L1_LIB} launches {l1} (expected "
+              f"{line_searches})")
         if got != want:
             fail(f"the {label} run called the solvers {got}, not {want}")
+        if l1 != line_searches:
+            fail(f"the {label} run launched {L1_LIB} {l1} times, not "
+                 f"{line_searches}")
         t0 = time.perf_counter()
         run()
         warm_s = time.perf_counter() - t0
@@ -2046,13 +2257,13 @@ def solvers_phase(system, cfg, fixed: dict, dev, card) -> dict:
     scen = montecarlo.make_scenarios(cfg, torch.Generator().manual_seed(1),
                                      BATCH, device=dev)
     runs = {"newton_steps=2": (solver_cfg(cfg, newton_steps=2),
-                               {"solve": STEPS}),
+                               {"solve": STEPS}, 2 * STEPS),
             "admm": (solver_cfg(cfg, solver="admm"),
-                     {"admm_condensed": STEPS})}
+                     {"admm_condensed": STEPS}, 0)}
     bench = {}
-    for label, (c, calls) in runs.items():
+    for label, (c, calls, line_searches) in runs.items():
         out = counted(label, lambda c=c: run_loop(system, c, scen, STEPS),
-                      STEPS, calls)
+                      STEPS, calls, line_searches)
         bench[label] = settled(out)
         bench[label]["du"] = float(out.du[:, 1:].abs().max())
         print(f"solvers {label}: R={cfg.resolution} B={BATCH} "
@@ -2096,7 +2307,7 @@ def solvers_phase(system, cfg, fixed: dict, dev, card) -> dict:
     gn = c.estimator.gauss_newton_iters
     out = counted("fastmpc_ramp (VAR(1))",
                   lambda: run_loop(ramp_sys, c, scen, RAMP_STEPS),
-                  RAMP_STEPS * (1 + gn), {"solve": RAMP_STEPS})
+                  RAMP_STEPS * (1 + gn), {"solve": RAMP_STEPS}, 0)
     du = float(out.du.abs().max())
     res10 = float(out.rms_res[:, -10:].mean())
     turb10 = float(out.rms_turb[:, -10:].mean())
@@ -2137,7 +2348,8 @@ def solvers_phase(system, cfg, fixed: dict, dev, card) -> dict:
         calls = ({"solve_fixed": n} if newton_steps == 1 else
                  {"solve": n, "banded_solve": n * newton_steps})
         out = counted(label, lambda cn=cn: run_loop(
-            modes_sys, cn, scen, n, init_u), n * (1 + gn), calls)
+            modes_sys, cn, scen, n, init_u), n * (1 + gn), calls,
+            n * newton_steps)
         got = settled(out)
         target = MODES_TARGET[tag]
         print(f"solvers {label}: R={c.resolution} B={MODES_BATCH} steps={n}:"
@@ -3421,6 +3633,7 @@ def main() -> None:
     build_phase()
     max_err = kernel_phase(dev)
     t1 = turbulence_phase(dev, card)
+    l1 = line_search_phase(dev, card)
     times, variant_launches = variants_phase(card)
     cfg = slice_cfg()
     t0 = time.time()
@@ -3517,6 +3730,14 @@ def main() -> None:
         "max_abs_err": t1["max_abs_err"], "ms": t1["ms"],
         "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
         "bound_by": "bytes", "bound_read_ms": t1["bound_read_ms"],
+        "fp32_bound_ms": None, "library_ms": None})
+    n32 = l1[f"T{L1_SHAPES[-1][0]} n{L1_SHAPES[-1][1]}"]
+    kernels.append({
+        "name": L1_LIB, "route": "cuda", "source": f"{CSRC}/{L1_LIB}.cu",
+        "replaces": f"none ({L1_REPLACES}, vmap over residuals)",
+        "launches": loop_launches[L1_LIB], **n32,
+        **{f"{k} {shape}": v for shape, row in l1.items() if row is not n32
+           for k, v in row.items() if k.endswith("ms")},
         "fp32_bound_ms": None, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(f"smoke: {time.time() - t_start:.2f} s")

@@ -15,7 +15,9 @@ Cholesky for short horizons, block cyclic reduction
 (ops/block_tridiag.py) from CR_MIN_HORIZON on.  With the VAR_1 ramp
 rows (``ramp=True``) the u-part of Phi is a per-coordinate tridiagonal
 across stages.  The backtracking line search is a fixed bank of 16
-candidate steps evaluated at once.
+candidate steps evaluated at once: without ramp rows from the residuals'
+affine structure (the linear maps once on the state and once on the
+direction), the bank scored by kernel L1 (csrc/line_search.cu).
 
 In the real-time mode (one Newton step) the step collapses to
 precomputed linear maps (``FixedNewtonOperator``, ``solve_fixed``).
@@ -23,13 +25,14 @@ precomputed linear maps (``FixedNewtonOperator``, ``solve_fixed``).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
 
-from . import block_tridiag
+from . import block_tridiag, cuda_build
 
 # Horizon at which the Schur solve switches from one dense Cholesky to
 # block cyclic reduction (O(log T) depth, O(T n^3) work); the dense
@@ -314,6 +317,131 @@ LS_BETA = 0.5
 LS_CANDIDATES = 16
 
 
+def line_search_terms(prob: FastMPCProblem, b, state: SolverState,
+                      direction):
+    """The data of the line search without ramp rows, as kernel L1 takes
+    it: (U, dU, a_u, l_u, a_x, l_x, a_p, l_p), each (B, T, .) and
+    contiguous over the flattened batch of ``b``, ``state`` and
+    ``direction``, such that the residuals at the candidate
+    state + t direction are
+
+      rd_u(t) = a_u + t l_u + k (1/(u_max - U - t dU) - 1/(U + t dU - u_min)),
+      rd_x(t) = a_x + t l_x,    rp(t) = a_p + t l_p.
+
+    The residuals' linear maps run once on the state, at its own batch
+    shape (one (T, .) row for every scenario in ``solve_fixed``), and once
+    on the direction: three GEMMs each -- nu against -[B | A1 | A2], X
+    against -[A1' | A2'], U against B' -- with the stage shifts taken on
+    the products."""
+    n, m = prob.B.shape
+    T = b.shape[-2]
+    w_nu = -torch.cat([prob.B, prob.A1, prob.A2], dim=1)       # (n, m+2n)
+    w_x = -torch.cat([prob.A1.T, prob.A2.T], dim=1)            # (n, 2n)
+    r2, q2 = 2.0 * prob.r_diag, 2.0 * _q_stack(prob, T)
+
+    def linear(U, X, nu):
+        """(2 R u - B' nu_t, rd_x, rp + b) at (U, X, nu)."""
+        nu_w, x_w = nu @ w_nu, X @ w_x
+        l_u = torch.addcmul(nu_w[..., :m], r2, U)
+        l_x = torch.addcmul(nu, q2, X)
+        l_x[..., :-1, :] += nu_w[..., 1:, m:m + n]             # -A1' nu_{t+1}
+        l_x[..., :-2, :] += nu_w[..., 2:, m + n:]              # -A2' nu_{t+2}
+        l_p = X - U @ prob.B.T
+        l_p[..., 1:, :] += x_w[..., :-1, :n]                   # -A1 x_{t-1}
+        l_p[..., 2:, :] += x_w[..., :-2, n:]                   # -A2 x_{t-2}
+        return l_u, l_x, l_p
+
+    a_u, a_x, a_p = linear(*state)
+    l_u, l_x, l_p = linear(*direction)
+    terms = (state.U, direction[0], a_u, l_u, a_x, l_x, a_p - b, l_p)
+    batch = torch.broadcast_shapes(*(v.shape[:-2] for v in terms))
+    return tuple(v.expand(*batch, *v.shape[-2:]).reshape(-1, *v.shape[-2:])
+                 .contiguous() for v in terms)
+
+
+def line_search_bank_ref(U, dU, a_u, l_u, a_x, l_x, a_p, l_p, u_min, u_max,
+                         barrier_k):
+    """Plain PyTorch version of kernel L1 on ``line_search_terms``' data,
+    any leading dims, device and dtype: the residual norm at t = 0 and at
+    each t of the bank, (..., 17), and the first candidate whose norm is
+    at most (1 - LS_ALPHA t) times t = 0's and whose controls stay
+    strictly inside the box -- else the smallest step -- as its index
+    (...,) and its t (...,)."""
+    ts = LS_BETA ** torch.arange(LS_CANDIDATES, dtype=U.dtype,
+                                 device=U.device)
+    tc = torch.cat([ts.new_zeros(1), ts])[:, None, None]       # (17, 1, 1)
+
+    def at(a, l):
+        return a.unsqueeze(-3) + tc * l.unsqueeze(-3)          # (..., 17, T, .)
+
+    u = at(U, dU)
+    rd_u = at(a_u, l_u) + barrier_k * (1.0 / (u_max - u) - 1.0 / (u - u_min))
+    norms = residual_norm(rd_u, at(a_x, l_x), at(a_p, l_p))
+    inside = ((u < u_max) & (u > u_min)).all(dim=(-2, -1))[..., 1:]
+    oks = (norms[..., 1:] <= (1.0 - LS_ALPHA * ts) * norms[..., :1]) & inside
+    # the first accepted candidate (argmax of the int cast picks the
+    # first True), else the smallest step
+    idx = torch.where(oks.any(dim=-1), torch.argmax(oks.to(torch.int8), dim=-1),
+                      LS_CANDIDATES - 1)
+    return idx, ts[idx], norms
+
+
+def line_search_bank(U, dU, a_u, l_u, a_x, l_x, a_p, l_p, u_min, u_max,
+                     barrier_k):
+    """Kernel L1: ``line_search_bank_ref`` in one pass over each
+    scenario's data (csrc/line_search.cu).  U, dU, a_u, l_u (B, T, m) and
+    a_x, l_x, a_p, l_p (B, T, n); u_min, u_max (m,) and the 0-d
+    barrier_k; all float32, or all float64, contiguous and on one CUDA
+    device.  Returns the picked index (B,) int32, its t (B,) and the norms
+    (B, 17) in the data's dtype, counted in ``line_search_bank.launches``.
+    It raises on anything else.  The norms are the plain version's but
+    for the order of their sums."""
+    dev = dU.device
+    if dev.type != "cuda":
+        raise ValueError(f"line_search_bank runs on a CUDA device, got {dev}")
+    if dU.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dU must be torch.float32 or torch.float64, got "
+                        f"{dU.dtype}")
+    if dU.dim() != 3:
+        raise ValueError(f"dU must be (B, T, m), got {tuple(dU.shape)}")
+    B, T, m = dU.shape
+    n = a_x.shape[-1]
+    for label, v, shape in (
+            ("U", U, (B, T, m)), ("dU", dU, (B, T, m)),
+            ("a_u", a_u, (B, T, m)), ("l_u", l_u, (B, T, m)),
+            ("a_x", a_x, (B, T, n)), ("l_x", l_x, (B, T, n)),
+            ("a_p", a_p, (B, T, n)), ("l_p", l_p, (B, T, n)),
+            ("u_min", u_min, (m,)), ("u_max", u_max, (m,)),
+            ("barrier_k", barrier_k, ())):
+        if v.device != dev:
+            raise ValueError(f"{label} is on {v.device}, expected {dev}")
+        if v.dtype != dU.dtype:
+            raise TypeError(f"{label} must be {dU.dtype}, got {v.dtype}")
+        if tuple(v.shape) != shape:
+            raise ValueError(f"{label} has shape {tuple(v.shape)}, "
+                             f"expected {shape}")
+        if not v.is_contiguous():
+            raise ValueError(f"{label} must be contiguous")
+    ts = LS_BETA ** torch.arange(LS_CANDIDATES, dtype=dU.dtype, device=dev)
+    norms = torch.empty((B, LS_CANDIDATES + 1), dtype=dU.dtype, device=dev)
+    idx = torch.empty((B,), dtype=torch.int32, device=dev)
+    t = torch.empty((B,), dtype=dU.dtype, device=dev)
+    launch = cuda_build.function(
+        "line_search", [ctypes.c_void_p] * 12 + [ctypes.c_double]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_void_p])
+    launch(*(v.data_ptr() for v in (U, dU, a_u, l_u, a_x, l_x, a_p, l_p,
+                                    u_min, u_max, barrier_k, ts)),
+           LS_ALPHA, int(dU.dtype == torch.float64), B, T, m, n,
+           *(v.data_ptr() for v in (norms, idx, t)),
+           dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    line_search_bank.launches += 1
+    return idx, t, norms
+
+
+line_search_bank.launches = 0
+
+
 def line_search_step(prob, b, state, direction, ramp: bool = False):
     """Parallel-candidate norm-descent backtracking.
 
@@ -322,10 +450,28 @@ def line_search_step(prob, b, state, direction, ramp: bool = False):
     control strictly inside its box -- and, with ramp rows, every ramp
     slack positive -- per scenario (replaces the sequential loop of
     backtracking_inf_newton.m:3-9); if none is accepted, take the
-    smallest step.
+    smallest step.  Without ramp rows the residuals are affine in t but
+    for the barrier (``line_search_terms``), and the bank is scored by
+    kernel L1 on CUDA tensors, by its plain version on the CPU; with them
+    every candidate's residuals are evaluated in full.
     """
+    if ramp:
+        return _ramp_line_search_step(prob, b, state, direction)
+    terms = line_search_terms(prob, b, state, direction)
+    batch = torch.broadcast_shapes(
+        b.shape[:-2], *(v.shape[:-2] for v in (*state, *direction)))
+    bank = line_search_bank if terms[1].is_cuda else line_search_bank_ref
+    _, t, _ = bank(*terms, prob.u_min, prob.u_max, prob.barrier_k)
+    t = t.reshape(*batch, 1, 1)
+    return SolverState(*(torch.addcmul(v, t, dv)
+                         for v, dv in zip(state, direction)))
+
+
+def _ramp_line_search_step(prob, b, state, direction):
+    """``line_search_step`` with ramp rows: the 16 candidate states as
+    (..., C, T, .) tensors through the full ``residuals``."""
     dU, dX, dnu = direction
-    base = residual_norm(*residuals(prob, b, state, ramp=ramp))  # (...)
+    base = residual_norm(*residuals(prob, b, state, ramp=True))  # (...)
     ts = LS_BETA ** torch.arange(LS_CANDIDATES, dtype=dU.dtype,
                                  device=dU.device)
     tc = ts[:, None, None]                                      # (C, 1, 1)
@@ -336,15 +482,12 @@ def line_search_step(prob, b, state, direction, ramp: bool = False):
     # candidates ride a new dim before the stage dim: (..., C, T, .)
     cand = SolverState(at(state.U, dU, tc), at(state.X, dX, tc),
                        at(state.nu, dnu, tc))
-    cprob = (dataclasses.replace(prob, u_prev=prob.u_prev.unsqueeze(-2))
-             if ramp else prob)
-    norm = residual_norm(*residuals(cprob, b.unsqueeze(-3), cand, ramp=ramp))
+    cprob = dataclasses.replace(prob, u_prev=prob.u_prev.unsqueeze(-2))
+    norm = residual_norm(*residuals(cprob, b.unsqueeze(-3), cand, ramp=True))
+    r_hi, r_lo = _ramp_slacks(cprob, cand.U)
     feasible = ((cand.U < prob.u_max).all(dim=(-2, -1))
-                & (cand.U > prob.u_min).all(dim=(-2, -1)))
-    if ramp:
-        r_hi, r_lo = _ramp_slacks(cprob, cand.U)
-        feasible = (feasible & (r_hi > 0).all(dim=(-2, -1))
-                    & (r_lo > 0).all(dim=(-2, -1)))
+                & (cand.U > prob.u_min).all(dim=(-2, -1))
+                & (r_hi > 0).all(dim=(-2, -1)) & (r_lo > 0).all(dim=(-2, -1)))
     oks = (norm <= (1.0 - LS_ALPHA * ts) * base[..., None]) & feasible
     # first accepted candidate (argmax of the int cast picks the first
     # True); fall back to the smallest step
@@ -379,17 +522,20 @@ def solve_fixed(prob: FastMPCProblem, op: FixedNewtonOperator, x0, x0_pre,
     """Single-Newton-step solve via the precomputed operators and the
     line search, batched over the leading dims of x0 (..., n), x0_pre and
     w (..., T*n)."""
-    T = horizon
-    n = prob.A1.shape[-1]
     b = equality_rhs(prob, x0, x0_pre, w, horizon)             # (..., T, n)
-    state = init_state(prob, horizon)
-    dnu = (b.reshape(*b.shape[:-2], T * n) @ op.neg_s_inv.T
-           ).reshape(b.shape)
+    return line_search_step(prob, b, init_state(prob, horizon),
+                            fixed_newton_direction(prob, op, b))
+
+
+def fixed_newton_direction(prob: FastMPCProblem, op: FixedNewtonOperator,
+                           b):
+    """(dU, dX, dnu) from the midpoint init for the stacked equality rhs
+    ``b`` (..., T, n), through the precomputed operators."""
+    dnu = (b.reshape(*b.shape[:-2], -1) @ op.neg_s_inv.T).reshape(b.shape)
     dU = (dnu @ prob.B) * op.pu0
     ct_dnu_x = (dnu - _shift_up(dnu, 1) @ prob.A1
                 - _shift_up(dnu, 2) @ prob.A2)
-    dX = -ct_dnu_x * op.px
-    return line_search_step(prob, b, state, (dU, dX, dnu))
+    return dU, -ct_dnu_x * op.px, dnu
 
 
 def solve(prob: FastMPCProblem, x0, x0_pre, w, horizon: int,

@@ -2,7 +2,8 @@
 (B1-B4 also in their bf16 branch, and at crops wider than 32 px), and the
 strong-turbulence recipe (re-linearized Gauss-Newton, the recipe loop),
 the general MPC solvers (multi-step Newton-KKT, cyclic reduction,
-ramp rows, ADMM, and the loop through each), the conditional-Gaussian
+ramp rows, ADMM, and the loop through each), kernel L1 (the line
+search's bank) against its plain version, the conditional-Gaussian
 flow (its build and loop, its bf16 border draw) and the sensing path of
 the classical comparison (SH and pyramid slopes, the integrator loop, the
 detector's noise law, the benchmark's row) on the card against the CPU.
@@ -595,6 +596,174 @@ def test_t1_wrapper_raises_on_bad_input(cuda_device):
     with pytest.raises(TypeError, match="bool"):
         f(layers, step, R, mask.float(), npix)
     assert f.launches == before
+
+
+def _l1_problem(T, n, B, dev, seed=0, dtype=torch.float32):
+    """A seeded VAR(2) fastMPC problem over n states and the cells' 144
+    controls (their weights and box) at horizon T on ``dev``,
+    with its fixed-Newton operators, and B scenarios from well inside
+    the box to far past it (blocks of 8 at 0.1, 1, 10 and 100 times a
+    normal draw), so that the line search takes the full step in some and
+    backtracks in others: (prob, op, x0, x0_pre, w), in ``dtype``."""
+    m = 144
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.normal(size=shape), device=dev)
+
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    prob = solvers.make_fastmpc_problem(
+        0.6 * eye + 0.08 / np.sqrt(n) * normal(n, n),
+        0.25 * eye + 0.05 / np.sqrt(n) * normal(n, n), 0.4 * normal(n, m),
+        q_weight=15000.0, p_weight=15000.0, r_weight=30.0, u_max=28.0,
+        barrier_k=0.01)
+    op = newton_kkt.precompute_fixed_newton(prob, T)
+    scale = torch.as_tensor(np.resize(np.repeat([0.1, 1.0, 10.0, 100.0], 8),
+                                      B), device=dev)[:, None]
+    data = (scale * normal(B, n), scale * normal(B, n),
+            scale * normal(B, T * n))
+    return (tree.cast(prob, dtype), tree.cast(op, dtype),
+            *(v.to(dtype) for v in data))
+
+
+def _l1_args(T, n, B, dev, seed=0, dtype=torch.float32):
+    """Kernel L1's arguments at ``solve_fixed``'s line search of
+    ``_l1_problem``: the eight (B, T, .) vectors, then the box and the
+    barrier weight."""
+    prob, op, *data = _l1_problem(T, n, B, dev, seed, dtype)
+    b = newton_kkt.equality_rhs(prob, *data, T)
+    terms = newton_kkt.line_search_terms(
+        prob, b, newton_kkt.init_state(prob, T),
+        newton_kkt.fixed_newton_direction(prob, op, b))
+    return (*terms, prob.u_min, prob.u_max, prob.barrier_k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2048, 37])
+@pytest.mark.parametrize("T,n", [(2, 27), (2, 65), (32, 119)])
+def test_l1_cuda_kernel_matches_plain(cuda_device, T, n, B):
+    """Kernel L1 against its plain version on the card at the cells'
+    shapes (N=2 over 27 and 65 states, N=32 over 119; 144 controls) and
+    a ragged batch: the same picked candidate and step in every
+    scenario, and the 17 norms within 1e-5 of their own values (each
+    element's arithmetic is the plain version's; only the order of the
+    sums differs)."""
+    args = _l1_args(T, n, B, cuda_device)
+    before = newton_kkt.line_search_bank.launches
+    idx, t, norms = newton_kkt.line_search_bank(*args)
+    torch.cuda.synchronize()
+    assert newton_kkt.line_search_bank.launches == before + 1
+    want_idx, want_t, want_norms = newton_kkt.line_search_bank_ref(*args)
+    assert idx.dtype == torch.int32 and idx.shape == t.shape == (B,)
+    assert norms.shape == (B, newton_kkt.LS_CANDIDATES + 1)
+    # the full step in some scenarios, a backtrack in others
+    assert bool((want_idx == 0).any()) and bool((want_idx > 0).any())
+    assert torch.equal(idx.long(), want_idx)
+    assert torch.equal(t, want_t)
+    torch.testing.assert_close(norms, want_norms, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,n", [(2, 27), (32, 119)])
+def test_l1_float64_matches_plain(cuda_device, T, n):
+    """L1's float64 instance against the plain version in float64 on the
+    card: the same pick and step in every scenario of a ragged batch, the
+    norms within 1e-12 of their own values, the outputs float64."""
+    args = _l1_args(T, n, 37, cuda_device, dtype=torch.float64)
+    before = newton_kkt.line_search_bank.launches
+    idx, t, norms = newton_kkt.line_search_bank(*args)
+    torch.cuda.synchronize()
+    assert newton_kkt.line_search_bank.launches == before + 1
+    want_idx, want_t, want_norms = newton_kkt.line_search_bank_ref(*args)
+    assert t.dtype == norms.dtype == torch.float64
+    assert bool((want_idx == 0).any()) and bool((want_idx > 0).any())
+    assert torch.equal(idx.long(), want_idx)
+    assert torch.equal(t, want_t)
+    torch.testing.assert_close(norms, want_norms, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_l1_falls_back_to_the_smallest_step(cuda_device):
+    """Scenarios whose direction leaves the box at every t of the bank
+    take the smallest step, 1/2^15 (index 15), as the plain version
+    does."""
+    U, dU, *rest = _l1_args(2, 27, 37, cuda_device)
+    dU = dU.clone()
+    dU[:3, 0, 0] = 1e9
+    idx, t, _ = newton_kkt.line_search_bank(U, dU, *rest)
+    want_idx, _, _ = newton_kkt.line_search_bank_ref(U, dU, *rest)
+    last = newton_kkt.LS_CANDIDATES - 1
+    assert idx[:3].tolist() == want_idx[:3].tolist() == [last] * 3
+    assert t[:3].tolist() == [0.5 ** last] * 3
+    assert torch.equal(idx.long(), want_idx)
+
+
+@pytest.mark.gpu
+def test_l1_wrapper_raises_on_bad_input(cuda_device):
+    """L1's entry point launches or raises: half precision, mixed
+    dtypes, CPU, wrongly shaped (also a (T, .) row for a (B, T, .)
+    vector) and non-contiguous data are refused, not rerouted; each
+    accepted call counts one launch."""
+    args = _l1_args(2, 27, 5, cuda_device)
+    f = newton_kkt.line_search_bank
+    before = f.launches
+    with pytest.raises(TypeError, match="float32 or torch.float64"):
+        f(*(v.half() for v in args))
+    with pytest.raises(TypeError, match="a_u must be torch.float32"):
+        f(*args[:2], args[2].double(), *args[3:])
+    with pytest.raises(ValueError, match="shape"):
+        f(args[0][0].contiguous(), *args[1:])
+    with pytest.raises(ValueError, match="CUDA device"):
+        f(*(v.cpu() for v in args))
+    with pytest.raises(ValueError, match="shape"):
+        f(*args[:2], args[2][:, :1], *args[3:])
+    with pytest.raises(ValueError, match="shape"):
+        f(*args[:8], args[8][:-1], *args[9:])
+    with pytest.raises(ValueError, match=r"dU must be \(B, T, m\)"):
+        f(args[0], args[1][0], *args[2:])
+    strided = args[3].transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        f(*args[:3], strided, *args[4:])
+    assert f.launches == before
+    f(*args)
+    f(*args)
+    assert f.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_line_search_on_card_goes_through_l1(cuda_device):
+    """``solve_fixed`` and ``solve`` (3 Newton steps, cyclic reduction)
+    at N=16 on float32 CUDA data score each bank through L1, one launch a
+    line search, and agree with the same calls on the CPU (plain
+    version) within 1e-4 of the solution's scale; in float64 too, through
+    L1's float64 instance, within 1e-10."""
+    T = 16
+    prob, op, *data = _l1_problem(T, 27, 64, cuda_device)
+    f = newton_kkt.line_search_bank
+    before = f.launches
+    got = newton_kkt.solve_fixed(prob, op, *data, horizon=T).U
+    got3 = newton_kkt.solve(prob, *data, horizon=T, n_newton=3).U
+    torch.cuda.synchronize()
+    assert f.launches == before + 4
+    prob64, op64 = tree.cast(prob, torch.float64), tree.cast(op, torch.float64)
+    data64 = [v.double() for v in data]
+    got64 = newton_kkt.solve_fixed(prob64, op64, *data64, horizon=T).U
+    assert f.launches == before + 5
+    want64 = newton_kkt.solve_fixed(
+        tree.cast(prob64, device="cpu"), tree.cast(op64, device="cpu"),
+        *(v.cpu() for v in data64), horizon=T).U
+    torch.testing.assert_close(got64.cpu(), want64, rtol=1e-10,
+                               atol=1e-10 * float(want64.abs().max()))
+    cpu = [v.cpu() for v in data]
+    want = newton_kkt.solve_fixed(tree.cast(prob, device="cpu"),
+                                  tree.cast(op, device="cpu"), *cpu,
+                                  horizon=T).U
+    want3 = newton_kkt.solve(tree.cast(prob, device="cpu"), *cpu, horizon=T,
+                             n_newton=3).U
+    for g, w in ((got, want), (got3, want3)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
 
 
 @pytest.mark.gpu

@@ -9,11 +9,16 @@ These tests hold the pieces it adds to the main path at small widths:
   complement, then the 16-candidate line search) against
   ``control.FastMPC.solve`` (the dense KKT inverse of the whole horizon,
   then the sequential backtracking), first-stage U, at N = 2, 16, 32;
+- the line search's bank scored from the residuals' affine structure
+  (``line_search_terms`` + ``line_search_bank_ref``, the plain version of
+  kernel L1) against the full residuals of the 16 candidate states, at
+  N = 2, 16, 32, and the ramp rows' evaluation left as it was;
 - ``var.stabilize`` against ``control.var_stabilise``;
 - the benchmark cell itself, cut to R=32, radial order 6 and N=16,
   through ``harness.run`` (``correct`` decided against the reference).
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -94,6 +99,138 @@ def test_solve_fixed_matches_the_reference_dense_kkt(horizon, dtype, rtol):
     assert bool(backtracked.any()) and not bool(backtracked.all())
     u = got.U[:, 0].to(F64)
     assert float(((u - want).abs() / scale).max()) < rtol
+
+
+def full_bank(prob, b, state, direction, ramp=False):
+    """The bank as the line search scored it before the affine path: the
+    16 candidate states as (..., 16, T, .) tensors through the full
+    ``residuals``; returns (t = 0's norm, the 16 norms, accepted mask)."""
+    dU, dX, dnu = direction
+    base = newton_kkt.residual_norm(*newton_kkt.residuals(prob, b, state,
+                                                          ramp=ramp))
+    ts = newton_kkt.LS_BETA ** torch.arange(newton_kkt.LS_CANDIDATES,
+                                            dtype=dU.dtype)
+    tc = ts[:, None, None]
+
+    def at(x, dx):
+        return x.unsqueeze(-3) + tc * dx.unsqueeze(-3)
+
+    cand = newton_kkt.SolverState(at(state.U, dU), at(state.X, dX),
+                                  at(state.nu, dnu))
+    cprob = (dataclasses.replace(prob, u_prev=prob.u_prev.unsqueeze(-2))
+             if ramp else prob)
+    norm = newton_kkt.residual_norm(*newton_kkt.residuals(
+        cprob, b.unsqueeze(-3), cand, ramp=ramp))
+    ok = ((cand.U < prob.u_max).all(dim=(-2, -1))
+          & (cand.U > prob.u_min).all(dim=(-2, -1)))
+    if ramp:
+        r_hi, r_lo = newton_kkt._ramp_slacks(cprob, cand.U)
+        ok = ok & (r_hi > 0).all(dim=(-2, -1)) & (r_lo > 0).all(dim=(-2, -1))
+    ok = ok & (norm <= (1.0 - newton_kkt.LS_ALPHA * ts) * base[..., None])
+    return base, norm, ok
+
+
+def fixed_step(horizon, dtype):
+    """The first line search of ``solve_fixed`` on ``problem``'s
+    scenarios: (problem, b, state, direction) in ``dtype``."""
+    prob, _, x0, x_pre, w = problem(horizon, horizon=horizon)
+    op = newton_kkt.precompute_fixed_newton(prob, horizon)
+    prob, op = tree.cast(prob, dtype), tree.cast(op, dtype)
+    b = newton_kkt.equality_rhs(prob, x0.to(dtype), x_pre.to(dtype),
+                                w.to(dtype), horizon)
+    return (prob, b, newton_kkt.init_state(prob, horizon),
+            newton_kkt.fixed_newton_direction(prob, op, b))
+
+
+# The affine evaluation rounds otherwise than the candidates' full
+# residuals.  Each of the 17 norms is held to the full evaluation's within
+# a share of the scenario's t = 0 norm, the scale of the decrease rule.
+# A share of each norm's own value would not hold: at t = 1 the Newton
+# step cancels rp and rd_x down to their rounding (own-value gaps read
+# 1.1e-4 in float64, 6.8e-2 in float32).  float64: 1e-12 (read: <=
+# 8.1e-15).  float32: each of the two evaluations sits 1.4e-5 to 6.0e-5
+# of t = 0's norm from the float64 evaluation of the same float32 data,
+# so they may differ by the sum; held to 4e-5 (read: 1.28e-5, 3.4e-6,
+# 6.3e-6 at N = 2, 16, 32), and the affine one to no more than 1.1 times
+# the full one's distance from float64 (read: 0.84, 0.92, 0.96 times).
+@pytest.mark.parametrize("dtype,rtol", [(F64, 1e-12), (torch.float32, 4e-5)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("horizon", [2, 16, 32])
+def test_affine_bank_matches_the_full_residuals(horizon, dtype, rtol):
+    prob, b, state, direction = fixed_step(horizon, dtype)
+    terms = newton_kkt.line_search_terms(prob, b, state, direction)
+    # kernel L1's layout: every vector (B, T, .) and contiguous, the
+    # state's too, though at the midpoint start it is the same row for
+    # every scenario
+    B, T, (n, m) = b.shape[0], horizon, prob.B.shape
+    assert [tuple(v.shape) for v in terms] == [(B, T, m)] * 4 + [(B, T, n)] * 4
+    assert all(v.is_contiguous() for v in terms)
+    idx, t, norms = newton_kkt.line_search_bank_ref(
+        *terms, prob.u_min, prob.u_max, prob.barrier_k)
+    base, norm, ok = full_bank(prob, b, state, direction)
+    want = torch.where(ok.any(dim=-1), torch.argmax(ok.to(torch.int8), dim=-1),
+                       newton_kkt.LS_CANDIDATES - 1)
+    assert torch.equal(idx, want)
+    # the full step in some scenarios, a backtrack in others
+    assert bool((idx == 0).any()) and bool((idx > 0).any())
+    assert torch.equal(t, newton_kkt.LS_BETA ** want.to(dtype))
+    full = torch.cat([base[:, None], norm], dim=-1)
+    gap = ((norms - full).abs() / base[:, None]).max()
+    assert float(gap) <= rtol
+    if dtype == torch.float32:
+        wide = newton_kkt.SolverState(*(v.to(F64) for v in state))
+        base64, norm64, _ = full_bank(
+            tree.cast(prob, F64), b.to(F64), wide,
+            tuple(v.to(F64) for v in direction))
+        exact = torch.cat([base64[:, None], norm64], dim=-1)
+
+        def off(v):
+            return float(((v.to(F64) - exact).abs() / base64[:, None]).max())
+
+        assert off(norms) <= 1.1 * off(full)
+    got = newton_kkt.line_search_step(prob, b, state, direction)
+    for v, dv, g in zip(state, direction, got):
+        torch.testing.assert_close(g, v + t[:, None, None] * dv,
+                                   rtol=4 * torch.finfo(dtype).eps, atol=0.0)
+
+
+def test_affine_bank_falls_back_to_the_smallest_step():
+    """A direction that leaves the box at every t of the bank takes the
+    smallest step, index 15."""
+    prob, b, state, (dU, dX, dnu) = fixed_step(2, torch.float32)
+    dU = dU.clone()
+    dU[:3, 0, 0] = 1e9
+    terms = newton_kkt.line_search_terms(prob, b, state, (dU, dX, dnu))
+    idx, t, _ = newton_kkt.line_search_bank_ref(
+        *terms, prob.u_min, prob.u_max, prob.barrier_k)
+    assert idx[:3].tolist() == [newton_kkt.LS_CANDIDATES - 1] * 3
+    assert t[:3].tolist() == [0.5 ** 15] * 3
+    _, _, ok = full_bank(prob, b, state, (dU, dX, dnu))
+    assert not bool(ok[:3].any())
+
+
+def test_ramp_line_search_is_the_full_evaluation():
+    """With ramp rows the line search still scores the full residuals
+    of the 16 candidates: its step is the helper's, bit for bit."""
+    prob, b, _, _ = fixed_step(16, torch.float32)
+    B = b.shape[0]
+    m = prob.u_min.shape[-1]
+    rng = np.random.default_rng(7)
+    prob = dataclasses.replace(
+        prob, du_min=torch.full((m,), -4.0), du_max=torch.full((m,), 4.0),
+        u_prev=torch.as_tensor(rng.uniform(-6, 6, size=(B, m)),
+                               dtype=torch.float32))
+    state = newton_kkt.init_state(prob, 16, ramp=True)
+    direction = newton_kkt.newton_direction(prob, b, state, ramp=True)
+    got = newton_kkt.line_search_step(prob, b, state, direction, ramp=True)
+    _, _, ok = full_bank(prob, b, state, direction, ramp=True)
+    ts = newton_kkt.LS_BETA ** torch.arange(newton_kkt.LS_CANDIDATES,
+                                            dtype=torch.float32)
+    idx = torch.argmax(ok.to(torch.int8), dim=-1)
+    t = torch.where(ok.any(dim=-1), ts[idx], ts[-1])[:, None, None]
+    assert bool((idx > 0).any())
+    for v, dv, g in zip(state, direction, got):
+        assert torch.equal(g, v + t * dv)
 
 
 @pytest.mark.parametrize("order", [1, 2])
