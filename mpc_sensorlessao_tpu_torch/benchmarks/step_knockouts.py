@@ -4,14 +4,14 @@ of the repository's ``benchmarks/step_knockouts.py``).
 ``step_breakdown`` times the stages in isolation; their sum need not be
 the whole step's.  This rebuilds the composed step -- batched over the
 scenarios, every flag on: line for line the fastmpc / newton_steps=1
-branch of the port's ``closed_loop.simulate`` step
+step of the port's ``closed_loop.make_step``
 (models/closed_loop.py), the "hold" cold start and the algebraic
 residual RMS included -- with pieces knocked out, and times each variant
 over a ``steps``-long run, so each knockout's delta is that piece's
 marginal cost inside the real step.
 
 Variants:
-  full          -- replica of the simulate step (sanity: matches the
+  full          -- replica of make_step's step (sanity: matches the
                    run_batch shared-window number of step_breakdown)
   fused_noise   -- no y_clean/noisy split: noise added inside measure,
                    exact Strehl from the noisy crop (biased ~+noise)
@@ -79,7 +79,7 @@ def run_variant(models, layers, cfg, mag, noise_scale, steps: int,
     shared window from ``start_step``; returns each step's outputs.
 
     With every flag on (and gn=None -> cfg) the step is
-    closed_loop.simulate's fastmpc / newton_steps=1 step; its outputs
+    closed_loop.make_step's fastmpc / newton_steps=1 step; its outputs
     are [u, ||x0||, ||x_pred[:nx]||, cost, rms_res, rms_turb,
     strehl_exact] (B,)-rows; telemetry="stacked" gives simulate's 11
     StepOutputs fields, "packed" them in one (B, 3 nu + nx + 7) row.

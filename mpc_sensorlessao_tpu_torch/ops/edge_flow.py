@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ..utils.config import AtmosphereConfig, TelescopeConfig
-from . import phase_screens, phase_stats
+from . import phase_screens, phase_stats, zernike
 
 OP_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # host threads synthesizing initial screens (each holds ~1.5 GB at 512 px)
@@ -416,9 +416,6 @@ def advance(model: EdgeFlowModel, state: EdgeFlowState, idx,
     return EdgeFlowState(phases=phases), out
 
 
-ROLLOUT_CHUNK = 32      # steps per batched Zernike fit
-
-
 def rollout(model: EdgeFlowModel, state: EdgeFlowState,
             generator: torch.Generator | None, n_steps: int,
             fit_full: torch.Tensor, mask: torch.Tensor,
@@ -429,14 +426,13 @@ def rollout(model: EdgeFlowModel, state: EdgeFlowState,
     ``eps`` ((n_steps, K_max+1, L, nX)) injects the border noise, else
     ``generator`` draws it.  Returns (final state, (n_steps, n_modes)
     coefficients, piston column included)."""
-    msk = mask.to(torch.float32)
     out, chunk = [], []
     for idx in range(n_steps):
         state, raw = advance(model, state, idx, generator,
                              None if eps is None else eps[idx])
-        mean = torch.sum(raw * msk) / mask_npix
-        chunk.append((raw - mean) * msk * mag)
-        if len(chunk) == ROLLOUT_CHUNK or idx == n_steps - 1:
+        chunk.append(zernike.piston_removed_phase_masked(
+            raw, mask, mask_npix) * mag)
+        if len(chunk) == zernike.ROLLOUT_CHUNK or idx == n_steps - 1:
             ph = torch.stack(chunk)
             out.append(ph.reshape(len(chunk), -1) @ fit_full.T)
             chunk = []

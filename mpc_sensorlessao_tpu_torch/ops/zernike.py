@@ -20,6 +20,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
+# steps per batched Zernike fit of an open-loop rollout (the periodic
+# screens' closed_loop.turbulence_rollout, the flow's edge_flow.rollout)
+ROLLOUT_CHUNK = 32
+
 
 @lru_cache(maxsize=None)
 def mode_indices(radial_order: int) -> Tuple[Tuple[int, int], ...]:

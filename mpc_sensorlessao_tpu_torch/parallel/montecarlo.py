@@ -121,40 +121,31 @@ def assert_shared_window(scen: ScenarioBatch) -> None:
 
 def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
               scen: ScenarioBatch, n_steps: int, solver: str | None = None,
-              shared_window: bool | str = False,
+              shared_window: bool = False,
               init_u: torch.Tensor | None = None,
               edge_model=None, edge_state=None,
-              shared_turbulence: bool | str = False,
+              shared_turbulence: bool = False,
               turb_generator: torch.Generator | None = None,
               rows: slice | None = None) -> closed_loop.StepOutputs:
     """The closed loop over the scenario batch; outputs (B, T, ...).
 
-    ``shared_window`` (True or "verified") runs the shared-window fast
-    path: the frozen-flow sample and its piston removal are computed once
-    per step and broadcast, instead of gathered per scenario.  The window
-    is checked on the concrete batch either way (assert_shared_window);
-    trajectories equal those of the batched path.  Noise comes from a
-    generator on the models' device seeded with ``scen.noise_seed``.
-    ``init_u`` ((nu,) or (B, nu)) is the warm-start command
-    (MPCConfig.warm_start; pipeline.warm_start_command), applied on both
-    paths.
+    ``shared_window`` runs the periodic screens' shared window (checked:
+    assert_shared_window): the screen sample and its piston removal run
+    once a step, broadcast; the trajectories are the per-scenario
+    windows' up to float32 roundoff.  Noise comes from a generator on the
+    models' device seeded with ``scen.noise_seed``.  ``init_u`` is the
+    warm-start command (pipeline.warm_start_command), (nu,) or (B, nu).
 
     ``edge_model``/``edge_state`` switch the turbulence to the
-    conditional-Gaussian flow (ops/edge_flow.py), in two modes:
-
-    * ``shared_turbulence`` (True or "verified") -- ONE realization
-      shared by every scenario, advanced once a step and broadcast (the
-      analogue of ``shared_window``): it needs a shared start step
-      (checked as ``shared_window`` is) and an unbatched (L, n, n)
-      state;
-    * default -- per-scenario turbulence: each scenario draws its own
-      border noise from the scenario's start step (distinct start steps
-      allowed), from a (B, L, n, n) state (edge_flow.batch_states) or an
-      unbatched one that every scenario starts from.
-
-    ``turb_generator`` draws the border noise (on the models' device);
-    by default it is seeded from cfg.sim.seed for shared turbulence and
-    from ``scen.noise_seed`` per scenario.
+    conditional-Gaussian flow (ops/edge_flow.py), where
+    ``shared_turbulence`` takes the place of ``shared_window``: ONE
+    realization from an unbatched (L, n, n) state, advanced once a step
+    and broadcast.  By default each scenario draws its own border noise
+    from its own start step, from a (B, L, n, n) state
+    (edge_flow.batch_states) or an unbatched one they all start from.
+    ``turb_generator`` draws the border noise (on the models' device),
+    by default seeded from cfg.sim.seed for shared turbulence and from
+    ``scen.noise_seed`` per scenario.
 
     ``rows`` runs only those rows of the batch, every random draw still
     the whole batch's (closed_loop.simulate(rows=...)): a scenario's
@@ -164,28 +155,26 @@ def run_batch(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
         dev = models.influence.device
         gen = torch.Generator(device=dev)
         gen.manual_seed(scen.noise_seed)
-        kw = {}
+        kw, shared = {}, bool(shared_window)
         if edge_model is not None:
-            if shared_turbulence and edge_state.phases.dim() != 3:
+            shared = bool(shared_turbulence)
+            if shared and edge_state.phases.dim() != 3:
                 raise ValueError(
                     "shared_turbulence needs ONE unbatched edge_state")
             if turb_generator is None:
                 turb_generator = torch.Generator(device=dev)
                 turb_generator.manual_seed(
-                    (int(cfg.sim.seed) if shared_turbulence
-                     else scen.noise_seed) ^ TURB_SEED_SALT)
+                    (int(cfg.sim.seed) if shared else scen.noise_seed)
+                    ^ TURB_SEED_SALT)
             kw = dict(edge_model=edge_model, edge_state=edge_state,
                       turb_generator=turb_generator)
-            shared_window = shared_turbulence
-        if shared_window:
+        if shared:
             assert_shared_window(scen)
-            start = float(scen.start_step[0])
-        else:
-            start = scen.start_step
         return closed_loop.simulate(
-            models, layers, cfg, gen, n_steps=n_steps, start_step=start,
-            solver=solver, mag=scen.mag, noise_scale=scen.noise_scale,
-            init_u=init_u, rows=rows, **kw)
+            models, layers, cfg, gen, n_steps=n_steps,
+            start_step=float(scen.start_step[0]) if shared
+            else scen.start_step, solver=solver, mag=scen.mag,
+            noise_scale=scen.noise_scale, init_u=init_u, rows=rows, **kw)
 
 
 def _local_sums(out: closed_loop.StepOutputs, n_steps: int):
@@ -236,42 +225,34 @@ def reduce_stats(out: closed_loop.StepOutputs,
 def make_sharded_runner(models: closed_loop.LoopModels, layers,
                         cfg: SystemConfig, n_steps: int, mesh,
                         solver: str | None = None,
-                        shared_window: bool | str = False,
+                        shared_window: bool = False,
                         edge_model=None, edge_state=None,
-                        shared_turbulence: bool | str = False,
+                        shared_turbulence: bool = False,
                         turb_generator: torch.Generator | None = None):
     """The scenario-sharded Monte-Carlo runner over a 1-D DeviceMesh
-    (mesh.scenario_mesh); returns ``run(scen) -> MonteCarloStats``.
-
-    Every rank of the mesh calls ``run`` with the same global
-    ScenarioBatch (built deterministically on each rank), whose size is
-    a multiple of the mesh size (mesh.pad_to_devices); a shared window
-    or shared turbulence is checked on it (run_batch).  Each rank runs
-    its contiguous rows (multihost.scenario_rows) with ``run_batch``,
-    whose random draws are the whole batch's with the rank's rows kept,
-    so the statistics equal those of ``run_batch`` over the global batch
-    on one device (``reduce_stats``) up to float rounding.  The models
-    live on each rank's device; only eight numbers a run cross ranks:
-    one ``all_reduce(SUM)`` of the sums and counts, one
-    ``all_reduce(MAX)``, over the mesh's group.  Means divide by the
+    (mesh.scenario_mesh): ``run(scen) -> MonteCarloStats``, called by
+    every rank with the same global ScenarioBatch, its size a multiple of
+    the mesh size (mesh.pad_to_devices).  Each rank runs its contiguous
+    rows (multihost.scenario_rows) through ``run_batch``, whose draws are
+    the whole batch's, so the statistics equal ``reduce_stats`` of
+    ``run_batch`` over the global batch on one device up to float
+    rounding.  The models live on each rank's device; eight numbers a
+    run cross ranks, one ``all_reduce(SUM)`` of the sums and counts and
+    one ``all_reduce(MAX)`` over the mesh's group; means divide by the
     global count of kept scenarios.
 
     ``edge_model``/``edge_state`` run the conditional flow on every rank
-    from one unbatched state; ``shared_turbulence=True`` shares one
-    realization over the whole global batch (its border noise from
-    ``turb_generator``, default seeded from cfg.sim.seed, the same on
-    every rank).  Each run starts ``turb_generator`` from its state at
-    build time, so every call draws the same realization.
+    from one unbatched state; ``shared_turbulence`` shares one
+    realization over the global batch, its border noise from
+    ``turb_generator`` (default seeded from cfg.sim.seed), which every
+    call restarts from its state at build time.
     """
-    if (edge_state is not None
-            and getattr(edge_state, "phases", None) is not None
-            and edge_state.phases.dim() == 4):
+    if edge_state is not None and edge_state.phases.dim() == 4:
         raise ValueError(
             "sharded runner supports a replicated (unbatched) edge_state "
             "only; shard per-scenario initial screens with run_batch per "
             "shard instead")
-    group = mesh.get_group()
-    world = mesh.size()
+    group, world = mesh.get_group(), mesh.size()
     turb_state = (None if turb_generator is None
                   else (turb_generator.device, turb_generator.get_state()))
 
@@ -280,15 +261,12 @@ def make_sharded_runner(models: closed_loop.LoopModels, layers,
         if n % world:
             raise ValueError(f"{n} scenarios over {world} ranks: pad to a "
                              "multiple (mesh.pad_to_devices)")
-        tg = None
-        if turb_state is not None:
-            tg = torch.Generator(device=turb_state[0])
-            tg.set_state(turb_state[1])
+        tg = None if turb_state is None else torch.Generator(
+            device=turb_state[0]).set_state(turb_state[1])
         out = run_batch(models, layers, cfg, scen, n_steps, solver,
-                        shared_window=shared_window, edge_model=edge_model,
+                        shared_window, edge_model=edge_model,
                         edge_state=edge_state,
-                        shared_turbulence=shared_turbulence,
-                        turb_generator=tg,
+                        shared_turbulence=shared_turbulence, turb_generator=tg,
                         rows=multihost.scenario_rows(n, mesh))
         sums, mx = _local_sums(out, n_steps)
         dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
@@ -301,7 +279,7 @@ def make_sharded_runner(models: closed_loop.LoopModels, layers,
 def run_sharded(models: closed_loop.LoopModels, layers, cfg: SystemConfig,
                 scen: ScenarioBatch, n_steps: int, mesh,
                 solver: str | None = None,
-                shared_window: bool | str = False) -> MonteCarloStats:
+                shared_window: bool = False) -> MonteCarloStats:
     """One-shot ``make_sharded_runner(...)(scen)``: the statistics of the
     global batch, sharded over the mesh's ranks."""
     return make_sharded_runner(models, layers, cfg, n_steps, mesh, solver,

@@ -7,11 +7,13 @@
     against per-scenario JAX runs.
 (b) The port's own ``pipeline.build`` and loop are held against the JAX
     package's, noise-free.
+(c) closed_loop.make_step's step, driven by hand, is simulate's loop.
 Tolerances are those of tests/test_golden_trajectory.py: residual RMS
 rtol 0.01 / atol 5e-3 and u atol 0.02 max|u|, unless stated.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -335,3 +337,59 @@ def test_run_batch_paths_take_every_solver(port_system, monkeypatch, solver,
     solve's cyclic reduction gives the loop of the dense Schur factor
     (CR_MIN_HORIZON raised past N) to u atol 1e-4 max|u|."""
     _check_run_batch_paths(port_system, monkeypatch, solver, newton_steps)
+
+
+@functools.lru_cache(maxsize=None)
+def _system32(flow):
+    cfg = reference_config(resolution=32)
+    cfg = cfg.replace(
+        sim=dataclasses.replace(cfg.sim, n_train=120, n_valid=20, n_test=4),
+        atmosphere=dataclasses.replace(cfg.atmosphere, flow=flow))
+    return cfg, pipeline.build(cfg, "cpu")
+
+
+@pytest.mark.parametrize("source", ["shared_window", "per_scenario_windows",
+                                    "conditional_flow"])
+def test_make_step_driven_by_hand_is_simulate(source):
+    """make_step's step, driven by hand from its first carry for 4 steps
+    at R=32 over 3 scenarios, gives simulate's outputs bit for bit, and
+    its last carry holds the last command and estimate: on the shared
+    window and on per-scenario windows (T1's plain version), both with
+    the noise drawn from equally seeded generators, and on per-scenario
+    conditional flows with injected border and measurement noise."""
+    n_steps = 4
+    cfg, sys_ = _system32("conditional" if source == "conditional_flow"
+                          else "periodic")
+    rng = np.random.default_rng(11)
+    kw = dict(mag=torch.tensor([1.0, 1.2, 1.4]), start_step=140.0)
+    if source == "per_scenario_windows":
+        kw["start_step"] = torch.tensor([140.0, 147.0, 163.0])
+    if source == "conditional_flow":
+        model = sys_.edge_model
+        kw.update(
+            start_step=torch.tensor([140.0, 143.0, 151.0]), edge_model=model,
+            edge_state=sys_.edge_state,
+            edge_eps=torch.as_tensor(rng.standard_normal(
+                (3, n_steps, model.k_max + 1, model.n_layers, model.n_border)
+            ).astype(np.float32)),
+            noise_seq=torch.as_tensor(
+                (float(sys_.est.noise_std) * rng.standard_normal(
+                    (3, n_steps, sys_.est.n_pixels))).astype(np.float32)))
+
+    def gen():
+        return (None if "noise_seq" in kw
+                else torch.Generator().manual_seed(5))
+    want = closed_loop.simulate(sys_.loop, sys_.layers, cfg, gen(), n_steps,
+                                **kw)
+    carry, step, batch = closed_loop.make_step(sys_.loop, sys_.layers, cfg,
+                                               gen(), n_steps, **kw)
+    assert batch == (3,)
+    assert (carry.flow is None) == (source != "conditional_flow")
+    steps = []
+    for idx in range(n_steps):
+        carry, out = step(carry, idx)
+        steps.append(out)
+    for name, col in zip(closed_loop.StepOutputs._fields, zip(*steps)):
+        assert torch.equal(torch.stack(col, dim=1), getattr(want, name)), name
+    assert torch.equal(carry.u1, want.u[:, -1])
+    assert torch.equal(carry.x_pre, want.x_est[:, -1])
